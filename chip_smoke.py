@@ -28,7 +28,31 @@ Phases, in order; every check raises, so any failure exits non-zero:
   6. time of each piece of a request (CLIP, VAE encode, the four passes of
      one DDIM step, VAE decode) on the card, and for one call the host's
      enqueue time beside its wall time, after the main path's counts.
-  7. the `kernels` JSON line, the card line, then the result line.
+  7. the training kernels against their plain versions at every attention
+     shape of the full-width stage-2 training step at B = 2, 512x512: the
+     forward with LSE (kernels A/B) and kernels C (dQ) and D (dK/dV), for
+     self-attention and bank reads with bank batch 2, in bf16 and fp32, plus
+     a batch-1 bank (frame-summed dK/dV), a ragged and a BSNH-strided case.
+     Gates: o and LSE as phase 3; gradients fp32 <= 2e-4 x max(1, max
+     |plain|), bf16 <= min(1e-1, 0.1 x the RMS of the plain gradient).
+     Times kernel, plain version, library call (the backward of
+     F.scaled_dot_product_attention through torch.autograd.grad, K/V
+     concatenated for two sources; a yardstick only) and the bound, with the
+     operations each kernel does: 4, 6 and 8 x Sq x Skv x D per (batch, head,
+     source) for the forward, dQ and dK/dV.
+  8. small-input training reference: one narrow stage-2 train step at
+     128x128 (S = 256 reaches the kernels) on the card and on the CPU from
+     the same weights, batch and draws (fp32): loss, every trainable
+     gradient and the parameters after two steps agree, and every training
+     kernel ran exactly as often as the launch plan says.
+  9. the training path at full SD1.5 width: Trainer on the stage-2 preset
+     (bf16 denoiser, remat on, frozen weights in bf16), seeded random
+     weights, synthetic seeded batches of B = 2 at 512x512, warm-up 1, 4
+     steps: finite losses, frozen weights bit-identical, trainable weights
+     moved, and in every step exactly the launches the plan derives (printed
+     with its formula); seconds per step, images/s, peak memory, and one
+     step's split into encode, forward, backward and optimizer.
+  10. the `kernels` JSON line, the card line, then the result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -52,6 +76,7 @@ BF16_TOL = 5e-2  # magicdance_tpu/ops/kernel_gate.py:52
 # kernel whose error is the size of its output
 BF16_REL_TOL = 0.1
 FP32_TOL = 2e-4
+GRAD_BF16_TOL = 1e-1  # magicdance_tpu/ops/kernel_gate.py:52 (gradients)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
@@ -59,12 +84,27 @@ KERNELS = {
     "self_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/self_attention.cu",
         replaces="magicdance_tpu/ops/pallas/flash.py:286 (_attn_kernel_fused); "
-                 "magicdance_tpu/ops/pallas/flash.py:76 (_attn_kernel)"),
+                 "magicdance_tpu/ops/pallas/flash.py:76 (_attn_kernel); "
+                 "magicdance_tpu/ops/pallas/flash_vjp.py:71 (_fwd_lse_kernel)",
+        modes=("self_attention", "self_attention_lse")),
     "two_source_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/two_source_attention.cu",
         replaces="magicdance_tpu/ops/pallas/flash.py:308 (_attn2_kernel_fused); "
-                 "magicdance_tpu/ops/pallas/flash.py:97 (_attn2_kernel_nomask)"),
+                 "magicdance_tpu/ops/pallas/flash.py:97 (_attn2_kernel_nomask); "
+                 "magicdance_tpu/ops/pallas/flash_vjp.py:89 (_fwd2_lse_kernel)",
+        modes=("two_source_attention", "two_source_attention_lse")),
+    "attention_dq": dict(
+        source="magicdance_tpu_torch/ops/kernels/csrc/attention_dq.cu",
+        replaces="magicdance_tpu/ops/pallas/flash_vjp.py:129 (_dq_kernel); "
+                 "magicdance_tpu/ops/pallas/flash_vjp.py:153 (_dq2_kernel)",
+        modes=("attention_dq", "attention_dq_two_source")),
+    "attention_dkv": dict(
+        source="magicdance_tpu_torch/ops/kernels/csrc/attention_dkv.cu",
+        replaces="magicdance_tpu/ops/pallas/flash_vjp.py:202 (_dkv_kernel)",
+        modes=("attention_dkv",)),
 }
+TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
+               "attention_dq_two_source", "attention_dkv")
 SELF_PER_STEP = 36
 TWO_SOURCE_PER_STEP = 15
 
@@ -227,6 +267,19 @@ def check_kernels(frames: int, heads: int = 8):
         q, k, v = (rnd(2, heads, 1024, 80, dtype=dtype).transpose(1, 2) for _ in range(3))
         check("self_attention", K.self_attention(q, k, v),
               K.self_attention_ref(q, k, v), tol, f"{tag} BSNH-strided B=2 S=1024 D=80")
+        if dtype == torch.bfloat16:  # flash.py::_attn_kernel's layout, off the main path
+            ms = cuda_time_ms(lambda: K.self_attention(q, k, v))
+            plain_ms = cuda_time_ms(lambda: K.self_attention_ref(q, k, v),
+                                    min_total_s=0.1, max_iters=5)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            bound, bound_by = attention_bound_ms(2, 1024, heads, 80, [(2, 1024)])
+            rows.append(dict(kernel="self_attention", B=2, S=1024, D=80, H=heads,
+                             bank_batch=None, layout="BSNH-strided", launches_per_step=0,
+                             kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound, bound_by=bound_by))
+            log(f"      BSNH-strided: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
         q, k, v = (rnd(3, 300, 4, 48, dtype=dtype) for _ in range(3))
         check("self_attention", K.self_attention(q, k, v),
               K.self_attention_ref(q, k, v), tol, f"{tag} ragged B=3 S=300 D=48")
@@ -329,7 +382,8 @@ def main_path(requests: int, frames: int, steps: int):
             raise AssertionError(f"bad output {tuple(out.shape)}, finite="
                                  f"{bool(torch.isfinite(out).all())}")
     launches = dict(K.LAUNCHES)
-    expect = {"self_attention": SELF_PER_STEP * steps * requests,
+    expect = {**{mode: 0 for mode in K.LAUNCHES},
+              "self_attention": SELF_PER_STEP * steps * requests,
               "two_source_attention": TWO_SOURCE_PER_STEP * steps * requests}
     if launches != expect:
         raise AssertionError(f"kernel launches {launches}, expected {expect} "
@@ -397,6 +451,430 @@ def step_breakdown(pipe, frames: int):
                 wall_ms={k: w for k, (_, w) in host.items()})
 
 
+# --------------------------------------------------------------------------
+# phases 7-9: the training path
+# --------------------------------------------------------------------------
+
+
+def training_bound_ms(mode, b, sq, h, d, kv, itemsize=2) -> tuple[float, str]:
+    """Least time of one training-kernel launch: the operations the kernel
+    does (4, 6 or 8 x Sq x Skv x D per batch, head and source for the LSE
+    forward, dQ and dK/dV) over the bf16 peak vs each input read and each
+    output written once over the memory rate. kv: (batch, length) per K/V
+    source (one source for dK/dV); lse/delta rows are fp32."""
+    per = {"lse": 4.0, "dq": 6.0, "dkv": 8.0}[mode]
+    flops = sum(per * b * h * sq * sk * d for _, sk in kv)
+    rows_f32 = 4 * b * h * sq * (1 if mode == "lse" else 2)
+    q_side = {"lse": 2, "dq": 3, "dkv": 2}[mode]   # q+o | q+dO+dQ | q+dO
+    kv_side = 4 if mode == "dkv" else 2            # k+v (+dK+dV)
+    nbytes = itemsize * h * d * (q_side * b * sq + sum(kv_side * bb * sk for bb, sk in kv))
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, (nbytes + rows_f32) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def training_sites(model_cfg, latent: int):
+    """(network, part, S, D) of every attention site of the stage-2 step in
+    traversal order: appearance UNet, pose ControlNet (encoder and middle),
+    main UNet."""
+    from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
+    from magicdance_tpu_torch.models.magicpose import appearance_unet_config
+    from magicdance_tpu_torch.models.unet import decoder_plan, unet_plan
+
+    def sites(net, ucfg, decoder=True):
+        units, _, ds_mid = unet_plan(ucfg)
+        out = [("enc", u["ds"], u["ch"]) for u in units if u["attn"]]
+        out.append(("mid", ds_mid, ucfg.model_channels * ucfg.channel_mult[-1]))
+        if decoder:
+            out += [("dec", u["ds"], u["ch"]) for u in decoder_plan(ucfg) if u["attn"]]
+        return [(net, part, (latent // ds) ** 2, ch // ucfg.num_heads)
+                for part, ds, ch in out for _ in range(ucfg.transformer_depth)]
+
+    return (sites("appearance", appearance_unet_config(model_cfg))
+            + sites("controlnet", controlnet_unet_config(model_cfg.pose_control,
+                                                         model_cfg.unet.in_channels),
+                    decoder=False)
+            + sites("main", model_cfg.unet))
+
+
+def training_launch_plan(model_cfg, latent: int):
+    """Launches of each training kernel mode in one stage-2 train step (main
+    UNet frozen, remat on), by (mode, S, D), and the formula. A site reaches
+    a kernel when S_q >= 256 (ops.attention). Every kernel site runs its
+    forward twice (the step, then remat's recompute). The appearance UNet's
+    last site feeds nothing the loss reads (its bank entry is taken before
+    the attention), so autograd runs no backward there. In the frozen main
+    UNet only the bank needs a gradient at the first site (its input is the
+    noisy latent through frozen weights), so it launches dK/dV for the bank
+    source alone; every later site's input depends on an earlier bank read,
+    so it also launches dQ and the self source's dK/dV."""
+    from collections import Counter
+
+    sites = training_sites(model_cfg, latent)
+    kern = [x for x in sites if x[2] >= 256 and x[3] <= 256]
+    app = [x for x in kern if x[0] == "appearance"]
+    cn = [x for x in kern if x[0] == "controlnet"]
+    main = [x for x in kern if x[0] == "main"]
+    first_main = [x for x in sites if x[0] == "main"][0]
+    main_q = main[1:] if main and main[0] is first_main else main
+    last_app = [x for x in sites if x[0] == "appearance"][-1]
+    app_bwd = app[:-1] if app and app[-1] is last_app else app
+    plan = Counter()
+    for _, _, s, d in app + cn:
+        plan["self_attention_lse", s, d] += 2
+    for _, _, s, d in main:
+        plan["two_source_attention_lse", s, d] += 2
+        plan["attention_dkv", s, d] += 1  # bank source
+    for _, _, s, d in app_bwd + cn:
+        plan["attention_dq", s, d] += 1
+        plan["attention_dkv", s, d] += 1
+    for _, _, s, d in main_q:
+        plan["attention_dq_two_source", s, d] += 1
+        plan["attention_dkv", s, d] += 1  # self source
+    totals = {m: sum(n for (mode, _, _), n in plan.items() if mode == m) for m in TRAIN_MODES}
+    formula = {
+        "self_attention_lse": f"2 x ({len(app)} appearance + {len(cn)} ControlNet "
+                              f"self-attention sites) = {totals['self_attention_lse']}",
+        "two_source_attention_lse": f"2 x {len(main)} bank-read sites = "
+                                    f"{totals['two_source_attention_lse']}",
+        "attention_dq": f"{len(app_bwd)} appearance (all but the last) + {len(cn)} "
+                        f"ControlNet = {totals['attention_dq']}",
+        "attention_dq_two_source": f"{len(main_q)} bank-read sites (all but the "
+                                   f"main UNet's first) = "
+                                   f"{totals['attention_dq_two_source']}",
+        "attention_dkv": f"{len(app_bwd)} appearance + {len(cn)} ControlNet + "
+                         f"{len(main_q)} main self sources + {len(main)} bank "
+                         f"sources = {totals['attention_dkv']}",
+    }
+    return plan, totals, formula
+
+
+def check_training_kernels(plan, batch: int = 2, heads: int = 8):
+    """Phase 7: the LSE forward and kernels C/D against their plain versions
+    at every (S, D) of the training plan, self-attention and bank reads with
+    bank batch `batch`, bf16 (timed) and fp32; plus a batch-1 bank, a ragged
+    and a BSNH-strided case."""
+    import torch
+    import torch.nn.functional as F
+
+    from magicdance_tpu_torch.ops.kernels import flash_vjp as V
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    errs = {name: 0.0 for name in KERNELS}
+    checked = {name: 0 for name in KERNELS}
+    rows = []
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def check(name, got, want, label, grad):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rms = want.float().pow(2).mean().sqrt().item()
+        if want.dtype == torch.bfloat16:
+            tol = min(GRAD_BF16_TOL if grad else BF16_TOL, BF16_REL_TOL * rms)
+        elif grad:
+            tol = FP32_TOL * max(1.0, want.float().abs().max().item())
+        else:
+            tol = FP32_TOL
+        if not (err <= tol and got.shape == want.shape and got.dtype == want.dtype):
+            raise AssertionError(f"{name} {label}: max|kernel - plain| = {err:.3e} > "
+                                 f"{tol:.3e} (plain rms {rms:.3e}), shapes "
+                                 f"{tuple(got.shape)} {tuple(want.shape)}")
+        errs[name] = max(errs[name], err)
+        checked[name] += 1
+        log(f"  ok  {name:22s} {label:52s} max_abs_err={err:.3e} rms={rms:.3e} "
+            f"(tol {tol:.3e})")
+
+    def run_case(q, k, v, dout, kb, vb, label, timed):
+        two = kb is not None
+        fwd, fwd_ref = ((V.two_source_attention_lse, V.two_source_attention_lse_ref) if two
+                        else (V.self_attention_lse, V.self_attention_lse_ref))
+        fargs = (q, k, v, kb, vb) if two else (q, k, v)
+        fname = "two_source_attention" if two else "self_attention"
+        got_o, got_lse = fwd(*fargs)
+        out, lse = fwd_ref(*fargs)
+        check(fname, got_o, out, f"{label} o", grad=False)
+        check(fname, got_lse, lse, f"{label} lse", grad=False)
+        delta = V.attention_delta(dout, out)
+        dq_args = (q, k, v, dout, lse, delta, None, kb, vb)
+        check("attention_dq", V.attention_dq(*dq_args), V.attention_dq_ref(*dq_args),
+              f"{label} dQ", grad=True)
+        for src, (kk, vv) in (("self", (k, v)),) + ((("bank", (kb, vb)),) if two else ()):
+            dkv_args = (kk, vv, q, dout, lse, delta)
+            for g_, w_, nm in zip(V.attention_dkv(*dkv_args), V.attention_dkv_ref(*dkv_args),
+                                  ("dK", "dV")):
+                check("attention_dkv", g_, w_, f"{label} {nm} ({src} source)", grad=True)
+        if not timed:
+            return
+        b, sq, h, d = q.shape
+        kv = [(b, k.shape[1])] + ([(kb.shape[0], kb.shape[1])] if two else [])
+        kh = torch.cat([k, kb.expand(b, -1, -1, -1)], 1) if two else k
+        vh = torch.cat([v, vb.expand(b, -1, -1, -1)], 1) if two else v
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kh, vh))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs)
+        g = dout.transpose(1, 2)
+        lib = {
+            "lse": cuda_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+            "dq": cuda_time_ms(lambda: torch.autograd.grad(lib_out, [qs], g, retain_graph=True)),
+            "dkv": cuda_time_ms(lambda: torch.autograd.grad(lib_out, [ks, vs], g,
+                                                            retain_graph=True)),
+        }
+        src_kv = (kb, vb) if two else (k, v)
+        cases = {
+            "lse": (lambda: fwd(*fargs), lambda: fwd_ref(*fargs), kv,
+                    "two_source_attention_lse" if two else "self_attention_lse"),
+            "dq": (lambda: V.attention_dq(*dq_args), lambda: V.attention_dq_ref(*dq_args), kv,
+                   "attention_dq_two_source" if two else "attention_dq"),
+            "dkv": (lambda: V.attention_dkv(*src_kv, q, dout, lse, delta),
+                    lambda: V.attention_dkv_ref(*src_kv, q, dout, lse, delta),
+                    [(src_kv[0].shape[0], src_kv[0].shape[1])], "attention_dkv"),
+        }
+        for kind, (kern, plain, kv_, mode) in cases.items():
+            ms = cuda_time_ms(kern)
+            plain_ms = cuda_time_ms(plain, min_total_s=0.1, max_iters=5)
+            bound, bound_by = training_bound_ms(kind, b, sq, h, d, kv_)
+            # dK/dV of a bank source at bank batch B has the self source's
+            # shapes: the plan's dK/dV launches at (S, D) go to the self row
+            per_step = 0 if (kind == "dkv" and two) else plan.get((mode, sq, d), 0)
+            rows.append(dict(mode=mode, kind=kind, B=b, S=sq, D=d, H=h,
+                             bank_batch=kb.shape[0] if two else None,
+                             launches_per_step=per_step, kernel_ms=ms, plain_ms=plain_ms,
+                             library_ms=lib[kind], bound_ms=bound, bound_by=bound_by))
+            log(f"      {mode:25s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib[kind]:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                f"x{per_step}/step")
+        del lib_out
+
+    shapes = sorted({(s, d) for (_, s, d) in plan}, reverse=True)
+    for s, d in shapes:
+        for two in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, dout = (rnd(batch, s, heads, d, dtype=dtype) for _ in range(4))
+                kb = vb = None
+                if two:
+                    kb, vb = (rnd(batch, s, heads, d, dtype=dtype) for _ in range(2))
+                label = (f"{str(dtype)[6:]} B={batch} S={s} D={d}"
+                         + (f" bank_batch={batch}" if two else ""))
+                run_case(q, k, v, dout, kb, vb, label, timed=dtype == torch.bfloat16)
+                del q, k, v, dout, kb, vb
+                torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        q, k, v, dout = (rnd(batch, 4096, heads, 40, dtype=dtype) for _ in range(4))
+        kb, vb = (rnd(1, 4096, heads, 40, dtype=dtype) for _ in range(2))
+        run_case(q, k, v, dout, kb, vb, f"{tag} B={batch} S=4096 D=40 bank_batch=1", False)
+        q, k, v, dout = (rnd(3, 300, 4, 48, dtype=dtype) for _ in range(4))
+        kb, vb = (rnd(3, 200, 4, 48, dtype=dtype) for _ in range(2))
+        run_case(q, k, v, dout, kb, vb, f"{tag} ragged B=3 S=300 bank Sb=200 D=48", False)
+        q, k, v, dout = (rnd(2, heads, 1024, 80, dtype=dtype).transpose(1, 2)
+                         for _ in range(4))
+        run_case(q, k, v, dout, None, None, f"{tag} BSNH-strided B=2 S=1024 D=80", False)
+        del q, k, v, dout, kb, vb
+        torch.cuda.empty_cache()
+    return rows, errs, checked
+
+
+def narrow_train_config():
+    """Stage 2 at narrow width, 128x128 (S = 256 at the first level); two res
+    blocks per level give the main UNet two kernel sites before its first
+    downsample, the first of which needs no dQ."""
+    from magicdance_tpu_torch import config as C
+
+    narrow = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=2,
+                  attention_resolutions=(1, 2), num_heads=2, context_dim=16)
+    model = C.ModelConfig(unet=C.UNetConfig(**narrow), pose_control=C.ControlNetConfig(**narrow),
+                          vae=C.VAEConfig(base_channels=32, channel_mult=(1, 1, 2, 2),
+                                          num_res_blocks=1),
+                          clip=C.CLIPTextConfig(hidden_size=16, num_layers=1, num_heads=2),
+                          latent_size=16, dtype="float32")
+    return C.TrainConfig(model=model, optim=C.OptimConfig(
+        learning_rate=1e-4, warmup_steps=1, adam_eps=1e-4, frozen_dtype="float32"))
+
+
+def small_training_check():
+    """Phase 8: one narrow stage-2 step at 128x128, card vs CPU (fp32)."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    cfg = narrow_train_config()
+    cpu = Trainer(cfg, device="cpu")
+    cpu.init_random(seed=3, scale=0.1)
+    gpu = Trainer(cfg, device="cuda")
+    for name in ("model", "vae", "clip"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    g = torch.Generator().manual_seed(8)
+    batch = {"image": torch.rand(2, 128, 128, 3, generator=g) * 2 - 1,
+             "reference": torch.rand(2, 128, 128, 3, generator=g) * 2 - 1,
+             "pose": torch.rand(2, 128, 128, 3, generator=g),
+             "input_ids": torch.zeros(2, 77, dtype=torch.long)}
+    draws = [cpu.draw(batch) for _ in range(2)]
+    loss_c, _, grads_c = cpu.loss_and_grads(batch, draws[0])
+    K.reset_launches()
+    loss_g, _, grads_g = gpu.loss_and_grads(gpu.to_device(batch), draws[0])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    _, totals, _ = training_launch_plan(cfg.model, 16)
+    # the narrow VAE's single 64-wide mid-attention head at S = 256 runs
+    # kernel A without gradients, once per encode (image and reference)
+    expect = {**{m: 0 for m in K.LAUNCHES}, **totals, "self_attention": 2}
+    if launches != expect:
+        raise AssertionError(f"narrow train step launches {launches}, plan {expect}")
+    loss_err = abs(float(loss_g) - float(loss_c))
+    gmax = max(t.abs().max().item() for t in grads_c.values())
+    gerr = max((grads_g[k].cpu() - grads_c[k]).abs().max().item() for k in grads_c)
+    # fp32 on both sides, TF32 off: summation order differs (cuDNN and the
+    # kernels vs the CPU), ~1e-6 relative through these depths
+    if not (loss_err <= 1e-5 * max(1.0, abs(float(loss_c))) and gerr <= 1e-4 * gmax):
+        raise AssertionError(f"card vs CPU train step: loss err {loss_err:.3e}, max grad "
+                             f"err {gerr:.3e} (max |grad| {gmax:.3e})")
+    before = {k: p.detach().clone() for k, p in cpu.train_params.items()}
+    for d in draws:
+        cpu.train_step(batch, d)
+        gpu.train_step(batch, d)
+    lr = cfg.optim.learning_rate
+    perr = max((gpu.train_params[k].detach().cpu() - p.detach()).abs().max().item()
+               for k, p in cpu.train_params.items())
+    moved = max((p.detach() - before[k]).abs().max().item()
+                for k, p in cpu.train_params.items())
+    # Adam normalizes each element; adam_eps 1e-4 bounds how far the fp32
+    # noise of a near-zero gradient can move it
+    if not (perr <= 0.1 * lr and moved > 0.5 * lr):
+        raise AssertionError(f"card vs CPU params after 2 steps: max err {perr:.3e} "
+                             f"(tol {0.1 * lr:.1e}), moved {moved:.3e}")
+    log(f"  ok  narrow stage-2 step at 128x128, card (kernels) vs CPU (plain), fp32: "
+        f"loss {float(loss_c):.6f} err {loss_err:.3e}; max grad err {gerr:.3e} "
+        f"(max |grad| {gmax:.3e}); params after 2 steps max err {perr:.3e}, moved "
+        f"{moved:.3e}; launches {launches}")
+    return dict(loss_err=loss_err, grad_err=gerr, grad_max=gmax, param_err=perr,
+                launches=launches)
+
+
+def full_width_training(steps: int = 4, batch: int = 2):
+    """Phase 9: the stage-2 trainer at full SD1.5 width, 512x512."""
+    import dataclasses
+
+    import torch
+
+    from magicdance_tpu_torch import config as C
+    from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    cfg = C.stage2_pose_control()
+    cfg = dataclasses.replace(cfg, batch_size_per_device=batch,
+                              optim=dataclasses.replace(cfg.optim, warmup_steps=1))
+    plan, totals, formula = training_launch_plan(cfg.model, cfg.image_size // 8)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda")
+    tr.init_random(seed=0)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in tr.train_params.values())
+    n_all = sum(p.numel() for m in (tr.model, tr.vae, tr.clip) for p in m.parameters())
+    log(f"  trainer built, {n_all / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B trainable, "
+        f"fp32; frozen in {cfg.optim.frozen_dtype}), seeded random weights, "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.from_numpy(empty_prompt_ids(batch, cfg.model.clip.max_length)).cuda()
+
+    def make_batch():
+        return {"image": torch.rand(batch, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
+                "reference": torch.rand(batch, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
+                "pose": torch.rand(batch, 512, 512, 3, generator=gen, device="cuda"),
+                "input_ids": ids}
+
+    batches = [make_batch() for _ in range(steps + 1)]
+    frozen = {k: p.detach().clone() for m in (tr.model, tr.vae, tr.clip)
+              for k, p in m.named_parameters(prefix=type(m).__name__)
+              if not p.requires_grad}
+    train_before = {k: p.detach().clone() for k, p in tr.train_params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, per_step = [], [], []
+    K.reset_launches()
+    for b in batches[:steps]:
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = tr.train_step(b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+        per_step.append({m: K.LAUNCHES[m] - before[m] for m in K.LAUNCHES})
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {**{m: 0 for m in K.LAUNCHES}, **totals}
+    for i, got in enumerate(per_step):
+        if got != expect:
+            raise AssertionError(f"step {i + 1}: launches {got}, plan {expect}")
+    if not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"non-finite losses {losses}")
+    for m in (tr.model, tr.vae, tr.clip):
+        for k, p in m.named_parameters(prefix=type(m).__name__):
+            if not p.requires_grad and not torch.equal(p.detach(), frozen[k]):
+                raise AssertionError(f"frozen parameter {k} changed")
+    moved = sum(int(not torch.equal(p.detach(), train_before[k]))
+                for k, p in tr.train_params.items())
+    if moved == 0:
+        raise AssertionError("no trainable parameter moved")
+    del frozen, train_before
+    steady = sum(secs[1:]) / max(1, len(secs) - 1)
+    log(f"  {steps} steps of B = {batch} at 512x512: losses {[round(x, 5) for x in losses]}, "
+        f"seconds per step {[round(x, 3) for x in secs]} (first {secs[0]:.3f}, steady "
+        f"{steady:.3f}), {batch / steady:.3f} images/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; {moved}/{len(tr.train_params)} trainable tensors moved, "
+        f"frozen weights bit-identical")
+    for m in TRAIN_MODES:
+        log(f"  launches per step {m} = {formula[m]} (every step: {per_step[0][m]})")
+    breakdown = training_breakdown(tr, batches[steps])
+    return dict(seconds_per_step=secs, losses=losses, images_per_s=batch / steady,
+                peak_bytes=peak, launches=launches, launches_per_step=per_step[0],
+                formula=formula, plan={f"{m} S={s} D={d}": n for (m, s, d), n in plan.items()},
+                breakdown_ms=breakdown)
+
+
+def training_breakdown(tr, batch):
+    """One more step in pieces: encode (VAE + CLIP), forward (the loss),
+    backward, optimizer. Per piece: CUDA-event device time, and the host's
+    enqueue time beside its wall time."""
+    import torch
+
+    draws = tr.draw(batch)
+    state = {}
+
+    def encode():
+        state["lat"] = tr.encode(batch, draws)
+
+    def forward():
+        state["loss"] = tr.loss_from_latents(*state["lat"], batch, draws)[0]
+
+    def backward():
+        state["loss"].backward()
+
+    def optimizer():
+        tr.apply_update(tr.grads())
+
+    out = {}
+    for name, fn in (("encode", encode), ("forward", forward), ("backward", backward),
+                     ("optimizer", optimizer)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        t1 = time.perf_counter()
+        end.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[name] = dict(device_ms=start.elapsed_time(end), enqueue_ms=(t1 - t0) * 1e3,
+                         wall_ms=(t2 - t0) * 1e3)
+    log("  one step in pieces (device / host enqueue / wall ms): " + ", ".join(
+        f"{k}={v['device_ms']:.1f}/{v['enqueue_ms']:.1f}/{v['wall_ms']:.1f}"
+        for k, v in out.items()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
@@ -458,31 +936,65 @@ def main(argv=None) -> int:
 
     log("== phase 6: where one request's time goes (time per piece)")
     e2e["breakdown_ms"] = step_breakdown(pipe, frames)
+    del pipe
+    torch.cuda.empty_cache()
+
+    from magicdance_tpu_torch.config import stage2_pose_control
+
+    train_cfg = stage2_pose_control()
+    plan, _, _ = training_launch_plan(train_cfg.model, train_cfg.image_size // 8)
+    log("== phase 7: training kernels vs plain versions (full-width stage-2 shapes, B = 2)")
+    train_rows, train_errs, train_checked = check_training_kernels(plan, batch=frames)
+
+    log("== phase 8: small-input training reference")
+    small_train = small_training_check()
+
+    log("== phase 9: training path (full SD1.5 width, stage 2, B = 2, 512x512)")
+    train = full_width_training(steps=4, batch=frames)
+
+    def per_step(rows_, key):
+        return sum(r[key] * r["launches_per_step"] for r in rows_)
+
+    def bound_by(rows_):
+        by = {}
+        for r in rows_:
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches_per_step"]
+        return max(by, key=by.get)
 
     kernels = []
     for name, meta in KERNELS.items():
-        mine = [r for r in rows if r["kernel"] == name]
-
-        def per_step(key):
-            return sum(r[key] * r["launches_per_step"] for r in mine)
-
-        by = {}
-        for r in mine:
-            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches_per_step"]
-        kernels.append(dict(
+        serving = [r for r in rows if r["kernel"] == name]
+        training = [r for r in train_rows if r["mode"] in meta["modes"]]
+        served = sum(e2e["launches"][m] for m in meta["modes"])
+        trained = sum(train["launches"][m] for m in meta["modes"])
+        main_rows = serving if serving else training
+        entry = dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=e2e["launches"][name], max_abs_err=errs[name],
-            ms=per_step("kernel_ms"), plain_ms=per_step("plain_ms"),
-            bound_ms=per_step("bound_ms"),
-            bound_by=max(by, key=by.get), library_ms=per_step("library_ms"),
-            per="one DDIM step of the main path (sum over its launches)",
-            max_err_over_rms=ratios[name],
-            check=f"{checked[name]} shapes within tolerance"))
+            launches=served + trained,
+            launches_by_path={"serving (2 requests x 50 DDIM steps)": served,
+                              "training (4 steps)": trained},
+            max_abs_err=max(errs.get(name, 0.0), train_errs[name]),
+            ms=per_step(main_rows, "kernel_ms"), plain_ms=per_step(main_rows, "plain_ms"),
+            bound_ms=per_step(main_rows, "bound_ms"), bound_by=bound_by(main_rows),
+            library_ms=per_step(main_rows, "library_ms"),
+            per=("one DDIM step of the serving path (sum over its launches)" if serving
+                 else "one training step (sum over its launches)"),
+            check=f"{checked.get(name, 0) + train_checked[name]} comparisons within tolerance")
+        if name in ratios:
+            entry["max_err_over_rms"] = ratios[name]
+        if serving and training:
+            entry["training_step"] = dict(
+                ms=per_step(training, "kernel_ms"), plain_ms=per_step(training, "plain_ms"),
+                bound_ms=per_step(training, "bound_ms"),
+                library_ms=per_step(training, "library_ms"), bound_by=bound_by(training),
+                per="one training step, the LSE forward's launches")
+        kernels.append(entry)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
-            json.dump(dict(card=card, shapes=rows, main_path=e2e, kernels=kernels), f,
-                      indent=1)
+            json.dump(dict(card=card, shapes=rows, main_path=e2e, training_shapes=train_rows,
+                           small_training=small_train, training=train, kernels=kernels),
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

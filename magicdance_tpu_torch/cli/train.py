@@ -1,0 +1,185 @@
+"""Training CLI: the two-stage MagicPose image curriculum on one GPU.
+
+Counterpart of `magicdance_tpu.cli.train` for stages 1 and 2 (ref
+train_tiktok.py:546 main; scripts/appearance_control_pretraining.sh and
+scripts/appearance_disentangle_pose_control.sh). Stage selection is explicit
+(`--stage 1|2` or a JSON TrainConfig). Runs on the GPU unless `--device cpu`.
+
+Not in this slice: `--stage 3` and `--motion_module_checkpoint` (the video
+slice) and `--init_checkpoint` (the conversion slice) raise
+NotImplementedError. Without a checkpoint the weights are seeded random
+(every leaf), which is for smoke runs.
+
+Usage:
+  python -m magicdance_tpu_torch.cli.train --stage 2 --data TikTok-v4 \\
+      --output runs/stage2 [--steps 100000] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", default=None, help="TrainConfig JSON")
+    p.add_argument("--stage", type=int, default=2, choices=(1, 2, 3))
+    p.add_argument("--data", required=True, help="TikTok-v4 root")
+    p.add_argument("--output", required=True)
+    p.add_argument("--init_checkpoint", default=None,
+                   help="torch checkpoint to initialize from (not ported yet)")
+    p.add_argument("--motion_module_checkpoint", default=None,
+                   help="stage-3 motion-module checkpoint (not ported yet)")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--batch", type=int, default=None, help="per-device batch")
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--image_size", type=int, default=512)
+    p.add_argument("--resume", action="store_true", default=True)
+    p.add_argument("--save_steps", type=int, default=None)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_argparser().parse_args(argv)
+    if args.init_checkpoint:
+        raise NotImplementedError("--init_checkpoint comes with the conversion slice")
+    if args.motion_module_checkpoint:
+        raise NotImplementedError("--motion_module_checkpoint comes with the video slice")
+
+    import numpy as np
+    import torch
+
+    from magicdance_tpu_torch import config as C
+    from magicdance_tpu_torch.data.loader import PrefetchLoader
+    from magicdance_tpu_torch.data.tiktok import TikTokPairDataset
+    from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids
+    from magicdance_tpu_torch.train.checkpoint import CheckpointManager
+    from magicdance_tpu_torch.train.trainer import Trainer
+    from magicdance_tpu_torch.utils.logging import MetricLogger
+
+    if args.config:
+        cfg = C.load_json(args.config, C.TrainConfig)
+    elif args.stage == 3:
+        raise NotImplementedError("--stage 3 comes with the video slice")
+    else:
+        cfg = {1: C.stage1_appearance_pretrain, 2: C.stage2_pose_control}[args.stage]()
+    if cfg.model.has_temporal:
+        raise NotImplementedError("temporal (stage-3) training comes with the video slice")
+    updates = {"output_dir": args.output, "seed": args.seed, "image_size": args.image_size}
+    if args.steps:
+        updates["num_train_steps"] = args.steps
+    if args.batch:
+        updates["batch_size_per_device"] = args.batch
+    if args.save_steps:
+        updates["save_steps"] = args.save_steps
+    cfg = dataclasses.replace(cfg, **updates)
+    if args.lr:
+        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim,
+                                                                 learning_rate=args.lr))
+
+    os.makedirs(args.output, exist_ok=True)
+    C.save_json(cfg, os.path.join(args.output, "config.json"))
+
+    trainer = Trainer(cfg, device=args.device)
+    device = trainer.device
+    global_batch = cfg.batch_size_per_device
+    print(f"[train] device={device} global_batch={global_batch}")
+    print("[train] random init (no --init_checkpoint)")
+    trainer.init_random(seed=cfg.seed)
+
+    ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"), cfg.save_total_limit)
+    start_step = 0
+    if args.resume and ckpt.latest_step() is not None:
+        trainer.load_state_dict(ckpt.restore(map_location=device))
+        start_step = trainer.step
+        print(f"[train] resumed from step {start_step}")
+
+    # ---- data: (reference, target, pose) pairs, empty prompts ------------
+    ids = empty_prompt_ids(global_batch, cfg.model.clip.max_length)
+
+    def it_factory(worker: int):
+        ds = TikTokPairDataset(root=args.data, image_size=cfg.image_size,
+                               img_bin_limit=cfg.img_bin_limit,
+                               use_pose=cfg.model.has_pose,
+                               seed=cfg.seed * 1000 + worker)
+        for batch in ds.batches(global_batch):
+            batch["input_ids"] = ids
+            if not cfg.model.has_pose:
+                batch.pop("pose", None)
+            yield batch
+
+    loader = PrefetchLoader(it_factory, workers=2, device=device)
+
+    # ---- periodic visualization (ref train_tiktok.py:388-531,1258-1268:
+    # every logging_gen_steps, sample a batch and write a
+    # GT | pose | generated | reference comparison grid) --------------------
+    pipe = None
+
+    def visualize(it: int, batch: dict) -> None:
+        nonlocal pipe
+        from magicdance_tpu_torch.config import SampleConfig
+        from magicdance_tpu_torch.data.transforms import from_model_range
+        from magicdance_tpu_torch.pipeline import MagicPosePipeline
+        from magicdance_tpu_torch.utils.video import save_image_grid
+
+        if pipe is None:
+            pipe = MagicPosePipeline(cfg.model, device=device)
+        for name in ("model", "vae", "clip"):
+            getattr(pipe, name).load_state_dict(getattr(trainer, name).state_dict())
+        n = min(2, batch["image"].shape[0])
+        pose = batch["pose"][:n] if "pose" in batch else None
+        ref = batch["reference"][:1]
+        gen = pipe.sample_frames(pose, ref, SampleConfig(steps=cfg.vis_steps, cfg_scale=7.0),
+                                 generator=torch.Generator(device=device).manual_seed(it))
+        gen = gen.cpu().numpy()
+        rows = []
+        for i in range(n):
+            row = [from_model_range(batch["image"][i].cpu().numpy())]
+            if pose is not None:
+                row.append((pose[i].cpu().numpy() * 255).astype(np.uint8))
+            row.append(from_model_range(gen[i]))
+            row.append(from_model_range(batch["reference"][0].cpu().numpy()))
+            rows.append(row)
+        out = os.path.join(args.output, "samples", f"step_{it:08d}.png")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        save_image_grid(rows, out)
+        print(f"[train] wrote sample grid {out}")
+
+    # ---- loop -----------------------------------------------------------
+    logger = MetricLogger(os.path.join(args.output, "tb"))
+    try:
+        batch = next(loader)
+        t_last = time.time()
+        for it in range(start_step, cfg.num_train_steps):
+            vis_batch = batch if (it + 1) % cfg.logging_gen_steps == 0 else None
+            metrics = trainer.train_step(batch)
+            batch = next(loader)
+            if (it + 1) % cfg.logging_steps == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                dt = time.time() - t_last
+                t_last = time.time()
+                ips = cfg.logging_steps * global_batch / dt
+                logger.log(it + 1, {**m, "images_per_sec": ips})
+                print(f"[train] step {it + 1} loss={m['loss']:.4f} {ips:.1f} img/s")
+            if vis_batch is not None:
+                try:
+                    visualize(it + 1, vis_batch)
+                except Exception as e:  # visualization must never kill training
+                    print(f"[train] visualize failed: {e!r}")
+            if (it + 1) % cfg.save_steps == 0:
+                ckpt.save(it + 1, trainer.state_dict())
+                print(f"[train] saved step {it + 1}")
+        ckpt.save(cfg.num_train_steps, trainer.state_dict())
+    finally:
+        loader.close()
+        logger.close()
+    print("[train] done")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,18 @@
 """Typed configuration for the PyTorch port.
 
-The port's own copy of the model and sampling dataclasses: the variant enum,
-the UNet / ControlNet / VAE / CLIP / diffusion configs, `ModelConfig` and the
-DDIM `SampleConfig`, plus `from_dict` / `to_dict`. Field names and defaults
-are those of the JAX package, so one JSON config drives either.
+The port's own copy of the model, sampling and training dataclasses: the
+variant enum, the UNet / ControlNet / VAE / CLIP / diffusion configs,
+`ModelConfig`, the DDIM `SampleConfig`, the freeze regimes, `OptimConfig`,
+`TrainConfig` and the three stage presets, plus `from_dict` / `to_dict` /
+`load_json` / `save_json`. Field names and defaults are those of the JAX
+package, so one JSON config drives either.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import json
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -268,6 +271,90 @@ class SampleConfig:
     reuse_exact_last: int = 0
 
 
+class FreezeRegime(str, enum.Enum):
+    """Parameter-freeze regimes (ref: train_tiktok.py:762-969).
+
+    Mapping to reference CLI flags:
+      ALL_TRAINABLE        = --finetune_all
+      APPEARANCE_PRETRAIN  = --finetune_attn (stage 1: control branches +
+                             UNet self-attention "attn1" params)
+      FINETUNE_CONTROL     = --finetune_control (stage 2: both control
+                             branches, UNet frozen / sd_locked)
+      POSE_ONLY            = --finetune_pose_only
+      REFERENCE_ONLY       = --finetune_reference_only
+      MOTION_ONLY          = --finetune_mm (AnimateDiff stage: motion
+                             modules only)
+    """
+
+    ALL_TRAINABLE = "all"
+    APPEARANCE_PRETRAIN = "appearance_pretrain"
+    FINETUNE_CONTROL = "finetune_control"
+    POSE_ONLY = "pose_only"
+    REFERENCE_ONLY = "reference_only"
+    MOTION_ONLY = "motion_only"
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    learning_rate: float = 1e-5
+    weight_decay: float = 0.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    grad_clip: float = 0.5
+    warmup_steps: int = 1000
+    grad_accum: int = 1
+    # ZeRO-1 analog: shard optimizer moments across the data axis (the
+    # port's one-GPU trainer keeps them whole; sharding comes with the
+    # distribution slice)
+    shard_opt_state: bool = True
+    ema_rate: float = 0.0  # reference default: EMA off (train_tiktok.py:586)
+    # storage dtype for FROZEN params (VAE/CLIP/locked UNet): bf16 halves
+    # their memory; trainable params/moments stay f32. The port's trainer
+    # takes "bfloat16" and "float32"; "int8" is not ported yet and raises.
+    frozen_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    freeze: FreezeRegime = FreezeRegime.FINETUNE_CONTROL
+    # reference --sd_locked (default True); False additionally trains the
+    # UNet decoder + output head (train_tiktok.py sd_locked branches)
+    sd_locked: bool = True
+    batch_size_per_device: int = 8
+    num_train_steps: int = 100000
+    seed: int = 42
+    image_size: int = 512
+    img_bin_limit: int = 29
+    # stage-3 (temporal) training: frames per clip fed to the motion modules
+    # (the reference hardcodes video_length=16, motion_module.py:137) and the
+    # temporal subsampling stride inside the source video
+    video_frames: int = 16
+    frame_stride: int = 4
+    # empty-text conditioning (the reference's --with_text flag *disables*
+    # text, train_tiktok.py:1396-1397; empty is the default training signal)
+    use_text: bool = False
+    logging_steps: int = 100
+    logging_gen_steps: int = 1000
+    # DDIM steps for the periodic sample-grid visualization
+    vis_steps: int = 20
+    save_steps: int = 2500
+    save_total_limit: int = 5
+    output_dir: str = "runs/default"
+    resume: bool = True
+    mesh_axes: tuple[str, ...] = ("data",)
+    # attention implementation inside the train step. "auto" trains the
+    # kernel sites through the backward kernels (ops.kernels.flash_vjp); the
+    # port's trainer takes no other value yet and raises on one.
+    attention_impl: str = "auto"
+    # frozen-VAE encode runs in chunks of this many images when the batch
+    # exceeds it (and divides by it), bounding the full-resolution fp32
+    # encoder activations. 0 disables chunking.
+    vae_encode_chunk: int = 8
+
+
 def _to_tuple(x: Any) -> Any:
     if isinstance(x, list):
         return tuple(_to_tuple(v) for v in x)
@@ -306,3 +393,48 @@ def to_dict(cfg) -> dict[str, Any]:
         return obj
 
     return _convert(cfg)
+
+
+def load_json(path: str, cls=TrainConfig):
+    with open(path) as f:
+        return from_dict(cls, json.load(f))
+
+
+def save_json(cfg, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2)
+
+
+# Canonical presets mirroring the reference's shipped YAML + script recipes.
+def stage1_appearance_pretrain() -> TrainConfig:
+    """scripts/appearance_control_pretraining.sh equivalent."""
+    return TrainConfig(
+        model=ModelConfig(variant=ModelVariant.APPEARANCE),
+        freeze=FreezeRegime.APPEARANCE_PRETRAIN,
+        batch_size_per_device=32,
+        img_bin_limit=15,
+    )
+
+
+def stage2_pose_control() -> TrainConfig:
+    """scripts/appearance_disentangle_pose_control.sh equivalent."""
+    return TrainConfig(
+        model=ModelConfig(variant=ModelVariant.APPEARANCE_POSE),
+        freeze=FreezeRegime.FINETUNE_CONTROL,
+        batch_size_per_device=8,
+        img_bin_limit=29,
+    )
+
+
+def stage3_motion() -> TrainConfig:
+    """Motion-module training (code-present-but-unshipped stage 3,
+    ref train_tiktok.py:847-956). The port's trainer does not run it yet
+    (the video slice); the preset is kept so configs round-trip."""
+    return TrainConfig(
+        model=ModelConfig(
+            variant=ModelVariant.APPEARANCE_POSE_TEMPORAL,
+            unet=UNetConfig(use_motion_modules=True),
+        ),
+        freeze=FreezeRegime.MOTION_ONLY,
+        batch_size_per_device=1,
+    )

@@ -5,6 +5,8 @@ transformer layers, 12 heads, hidden 768, quick-GELU MLP (x4), causal mask,
 learned position embeddings over 77 tokens, final LayerNorm; returns
 last_hidden_state (B, 77, 768) in fp32. Its 77-token causal attention is
 plain PyTorch math (fp32 logits and softmax), as it was plain XLA in JAX.
+It computes in fp32 whatever dtype its weights are stored in (a trainer
+keeps the frozen CLIP in bf16 storage).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from magicdance_tpu_torch.config import CLIPTextConfig
-from magicdance_tpu_torch.models.layers import layer_norm_f32
+from magicdance_tpu_torch.models.layers import Linear, layer_norm_f32
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -26,10 +28,10 @@ class CLIPAttention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_heads
         c = cfg.hidden_size
-        self.q_proj = nn.Linear(c, c)
-        self.k_proj = nn.Linear(c, c)
-        self.v_proj = nn.Linear(c, c)
-        self.out_proj = nn.Linear(c, c)
+        self.q_proj = Linear(c, c)
+        self.k_proj = Linear(c, c)
+        self.v_proj = Linear(c, c)
+        self.out_proj = Linear(c, c)
 
     def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
         b, s, c = x.shape
@@ -53,8 +55,8 @@ class CLIPLayer(nn.Module):
         self.layer_norm1 = nn.LayerNorm(c, eps=1e-5)
         self.self_attn = CLIPAttention(cfg)
         self.layer_norm2 = nn.LayerNorm(c, eps=1e-5)
-        self.fc1 = nn.Linear(c, 4 * c)
-        self.fc2 = nn.Linear(4 * c, c)
+        self.fc1 = Linear(c, 4 * c)
+        self.fc2 = Linear(4 * c, c)
 
     def forward(self, x: torch.Tensor, causal_mask: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(layer_norm_f32(self.layer_norm1, x), causal_mask)
@@ -75,8 +77,8 @@ class CLIPTextEncoder(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids: (B, S <= 77) int -> last_hidden_state (B, S, hidden) fp32."""
         s = input_ids.shape[1]
-        x = self.token_embedding(input_ids.long())
-        x = x + self.position_embedding[None, :s].to(x.dtype)
+        x = self.token_embedding(input_ids.long()).float()
+        x = x + self.position_embedding[None, :s].float()
         causal = torch.triu(torch.full((s, s), float("-inf"), device=x.device), diagonal=1)
         for i in range(self.cfg.num_layers):
             x = getattr(self, f"layer_{i}")(x, causal[None, None])

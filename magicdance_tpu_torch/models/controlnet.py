@@ -6,6 +6,7 @@ block run on `conv_in(x) + hint`, and 13 1x1 "zero" convolutions (zero at
 initialisation in training) tap the residual stream: one per encoder skip
 (12 at SD1.5 width) plus one after the middle block. The 13 residuals are
 returned NHWC in fp32, in the order `UNet(pose_residuals=...)` consumes them.
+Compute dtype and `remat` as in `models.unet`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from magicdance_tpu_torch.models.layers import (
     TimestepEmbedMLP,
     conv1x1,
     conv3x3,
+    remat,
 )
 from magicdance_tpu_torch.models.unet import nchw_to_nhwc, nhwc_to_nchw, unet_plan
 from magicdance_tpu_torch.ops.schedules import timestep_embedding
@@ -66,6 +68,7 @@ class PoseControlNet(nn.Module):
     def __init__(self, cfg: ControlNetConfig, in_channels: int = 4):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype: Optional[torch.dtype] = None
         self.ucfg = controlnet_unet_config(cfg, in_channels)
         mc = cfg.model_channels
         emb_dim = 4 * mc
@@ -99,7 +102,8 @@ class PoseControlNet(nn.Module):
                 context: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         """x: (B, h, w, 4) noisy latent; hint: (B, 8h, 8w, 3) pose map in
         [0, 1]. Returns the 13 zero-conv residuals, NHWC, fp32."""
-        dtype = self.conv_in.weight.dtype
+        dtype = self.compute_dtype or self.conv_in.weight.dtype
+        rm = self.cfg.remat
         emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels,
                                                  dtype=dtype))
         if context is not None:
@@ -110,17 +114,17 @@ class PoseControlNet(nn.Module):
         res_i = down_i = attn_i = 0
         for zc, u in enumerate(unet_plan(self.ucfg)[0], start=1):
             if u["kind"] == "res":
-                h = getattr(self, f"enc_res_{res_i}")(h, emb)
+                h = remat(rm, getattr(self, f"enc_res_{res_i}"), h, emb)
                 res_i += 1
                 if u["attn"]:
-                    h, _ = getattr(self, f"enc_attn_{attn_i}")(h, context)
+                    h, _ = remat(rm, getattr(self, f"enc_attn_{attn_i}"), h, context)
                     attn_i += 1
             else:
                 h = getattr(self, f"enc_down_{down_i}")(h)
                 down_i += 1
             outs.append(getattr(self, f"zero_conv_{zc}")(h))
-        h = self.mid_res_0(h, emb)
-        h, _ = self.mid_attn(h, context)
-        h = self.mid_res_1(h, emb)
+        h = remat(rm, self.mid_res_0, h, emb)
+        h, _ = remat(rm, self.mid_attn, h, context)
+        h = remat(rm, self.mid_res_1, h, emb)
         outs.append(self.zero_conv_mid(h))
         return tuple(nchw_to_nhwc(o).float() for o in outs)

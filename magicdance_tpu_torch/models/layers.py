@@ -10,6 +10,17 @@ channels_last in memory and no transpose copies happen inside. Norms run in
 fp32 and cast back (ref openaimodel GroupNorm32). The appearance bank is
 explicit: a transformer block returns its bank entry in write mode and
 receives one in read mode.
+
+Precision: every product runs in the dtype of the activations it is given.
+`Linear` and `Conv2d` cast their weights to that dtype at use, as a Flax
+module with `dtype=bf16` casts its fp32 params: a bf16 denoiser may hold fp32
+trainable master weights, whose gradients then come back in fp32 through the
+cast, beside frozen weights stored in bf16. When the weights already have the
+activations' dtype the cast is free.
+
+`remat` runs a block under `torch.utils.checkpoint` (non-reentrant) when
+grad mode is on: its activations are recomputed in the backward pass, as the
+JAX package's `nn.remat` does for every ResBlock and SpatialTransformer.
 """
 
 from __future__ import annotations
@@ -19,7 +30,34 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype (weights cast at use)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in its input's dtype (weights cast at use)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def remat(enabled: bool, fn, *args):
+    """fn(*args), recomputed in the backward pass when `enabled` and grad
+    mode is on. The blocks draw no random numbers (dropout is not ported), so
+    the RNG state is not stashed."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
 
 from magicdance_tpu_torch.ops.attention import (
     attention_packed,
@@ -56,12 +94,12 @@ class GroupNorm32(nn.Module):
         return F.silu(h) if self.act else h
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1)
+def conv3x3(cin: int, cout: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1)
 
 
-def conv1x1(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 1)
+def conv1x1(cin: int, cout: int) -> Conv2d:
+    return Conv2d(cin, cout, 1)
 
 
 class TimestepEmbedMLP(nn.Module):
@@ -70,12 +108,12 @@ class TimestepEmbedMLP(nn.Module):
     def __init__(self, model_channels: int):
         super().__init__()
         d = model_channels * 4
-        self.fc1 = nn.Linear(model_channels, d)
-        self.fc2 = nn.Linear(d, d)
+        self.fc1 = Linear(model_channels, d)
+        self.fc2 = Linear(d, d)
 
     def forward(self, t_sinusoid: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(t_sinusoid.to(self.fc1.weight.dtype))
-        return self.fc2(F.silu(h))
+        """t_sinusoid in the compute dtype."""
+        return self.fc2(F.silu(self.fc1(t_sinusoid)))
 
 
 class ResBlock(nn.Module):
@@ -86,7 +124,7 @@ class ResBlock(nn.Module):
         super().__init__()
         self.norm_in = GroupNorm32(in_channels, act=True)
         self.conv_in = conv3x3(in_channels, out_channels)
-        self.emb_proj = nn.Linear(emb_dim, out_channels)
+        self.emb_proj = Linear(emb_dim, out_channels)
         self.norm_out = GroupNorm32(out_channels, act=True)
         self.conv_out = conv3x3(out_channels, out_channels)
         self.skip = conv1x1(in_channels, out_channels) if in_channels != out_channels else None
@@ -130,8 +168,8 @@ class GEGLUFeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.proj_in = nn.Linear(dim, inner * 2)
-        self.proj_out = nn.Linear(inner, dim)
+        self.proj_in = Linear(dim, inner * 2)
+        self.proj_out = Linear(inner, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj_in(x).chunk(2, dim=-1)
@@ -150,10 +188,10 @@ class CrossAttention(nn.Module):
         inner = num_heads * head_dim
         context_dim = query_dim if context_dim is None else context_dim
         self.num_heads = num_heads
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, query_dim)
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = Linear(inner, query_dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 kv_extra: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -4,7 +4,10 @@ Counterpart of `magicdance_tpu.models.magicpose.MagicPoseModel` for the image
 path: the appearance branch is a second UNet run on the reference latent in
 bank-write mode; the pose branch returns the 13 ControlNet residuals; the CFG
 uncond pass (`uc=True`) is a vanilla SD forward that skips both branches.
-VAE and CLIP live outside (applied once per request).
+VAE and CLIP live outside (applied once per request, or once per training
+batch). The networks compute in `cfg.dtype` whatever dtype their weights are
+stored in (a trainer holds fp32 trainable masters beside frozen weights in
+`frozen_dtype`).
 """
 
 from __future__ import annotations
@@ -37,6 +40,12 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def _repeat_bank(bank: Bank, b: int) -> Bank:
+    """One bank entry per clip, repeated for each of its frames (Bb -> B)."""
+    rep = b // bank[0].shape[0]
+    return tuple(e.repeat_interleave(rep, dim=0) for e in bank)
+
+
 class MagicPoseModel(nn.Module):
     """The per-step hot path. Compute dtype is the parameters' dtype (cast
     the module with `.to(model_dtype(cfg))`)."""
@@ -52,6 +61,10 @@ class MagicPoseModel(nn.Module):
         if cfg.has_pose:
             self.pose_control = PoseControlNet(cfg.pose_control,
                                                in_channels=cfg.unet.in_channels)
+        for net in (self.unet, getattr(self, "appearance_unet", None),
+                    getattr(self, "pose_control", None)):
+            if net is not None:
+                net.compute_dtype = model_dtype(cfg)
 
     def compute_bank(self, reference_noisy: torch.Tensor, timesteps: torch.Tensor,
                      context: torch.Tensor) -> Bank:
@@ -75,18 +88,28 @@ class MagicPoseModel(nn.Module):
                 pose_hint: Optional[torch.Tensor] = None,
                 bank: Optional[Bank] = None, uc: bool = False) -> torch.Tensor:
         """eps prediction (B, h, w, 4) fp32. Pass `reference_noisy` (bank
-        computed inline) or a precomputed `bank`; `uc=True` is the CFG uncond
+        computed inline: the training path, one reference per sample, or one
+        for every frame) or a precomputed `bank`; `uc=True` is the CFG uncond
         vanilla-SD pass."""
         if uc:
             return self.unet(x_noisy, timesteps, context)[0]
+        b = x_noisy.shape[0]
+        if bank is not None and len(bank) and bank[0].shape[0] not in (1, b):
+            bank = _repeat_bank(bank, b)
         if bank is None and self.cfg.has_appearance and reference_noisy is not None:
-            # one reference for every frame, or one per frame; the reference
-            # pass takes the leading timesteps and contexts
+            # the reference branch uses the same timestep trajectory as the
+            # main latent; with fewer references than samples, reference i
+            # takes the timestep and context of its stride (magicpose.py:210-226)
             n = reference_noisy.shape[0]
-            if n not in (1, x_noisy.shape[0]):
-                raise ValueError(f"reference batch {n} is neither 1 nor the "
-                                 f"frame batch {x_noisy.shape[0]}")
-            bank = self.compute_bank(reference_noisy, timesteps[:n], context[:n])
+            t_ref = timesteps
+            if n != timesteps.shape[0]:
+                t_ref = timesteps[::timesteps.shape[0] // n]
+            ctx_ref = context
+            if context.shape[0] != n:
+                ctx_ref = context[::max(1, context.shape[0] // n)][:n]
+            bank = self.compute_bank(reference_noisy, t_ref, ctx_ref)
+            if bank[0].shape[0] not in (1, b):
+                bank = _repeat_bank(bank, b)
         residuals = self.compute_control_residuals(x_noisy, pose_hint, timesteps, context)
         return self.unet(x_noisy, timesteps, context, bank=bank,
                          pose_residuals=residuals)[0]

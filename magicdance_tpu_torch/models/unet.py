@@ -12,8 +12,11 @@ Counterpart of `magicdance_tpu.models.unet.UNet` for the image path:
     to the middle block output and to each decoder skip.
 
 Public layout is NHWC like the JAX package: x (B, h, w, C) in, eps
-(B, h, w, C) fp32 out. The compute dtype is the dtype of the module's
-parameters.
+(B, h, w, C) fp32 out. The compute dtype is `compute_dtype` when set (the
+composite model sets it from `ModelConfig.dtype`), else the dtype of the
+parameters. With `cfg.remat` every ResBlock and SpatialTransformer is
+recomputed in the backward pass (`layers.remat`); bank entries written inside
+a recomputed block keep their gradient.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from magicdance_tpu_torch.models.layers import (
     TimestepEmbedMLP,
     Upsample,
     conv3x3,
+    remat,
 )
 from magicdance_tpu_torch.ops.schedules import timestep_embedding
 
@@ -114,6 +118,7 @@ class UNet(nn.Module):
         if cfg.use_motion_modules:
             raise NotImplementedError("motion modules are not ported yet")
         self.cfg = cfg
+        self.compute_dtype: Optional[torch.dtype] = None
         mc = cfg.model_channels
         emb_dim = 4 * mc
         heads, depth, ctx_dim = cfg.num_heads, cfg.transformer_depth, cfg.context_dim
@@ -173,7 +178,7 @@ class UNet(nn.Module):
         if bank is not None and len(bank) != num_bank_entries(cfg):
             raise ValueError(f"bank has {len(bank)} entries, expected "
                              f"{num_bank_entries(cfg)}")
-        dtype = self.conv_in.weight.dtype
+        dtype = self.compute_dtype or self.conv_in.weight.dtype
         depth = cfg.transformer_depth
         bank_read = list(bank) if bank is not None else None
         bank_written: list[torch.Tensor] = []
@@ -197,11 +202,11 @@ class UNet(nn.Module):
         res_i = down_i = attn_i = 0
         for u in units:
             if u["kind"] == "res":
-                h = getattr(self, f"enc_res_{res_i}")(h, emb)
+                h = remat(cfg.remat, getattr(self, f"enc_res_{res_i}"), h, emb)
                 res_i += 1
                 if u["attn"]:
-                    h, written = getattr(self, f"enc_attn_{attn_i}")(
-                        h, context, take_bank(), collect_bank)
+                    h, written = remat(cfg.remat, getattr(self, f"enc_attn_{attn_i}"),
+                                       h, context, take_bank(), collect_bank)
                     attn_i += 1
                     bank_written.extend(written)
             else:
@@ -209,10 +214,10 @@ class UNet(nn.Module):
                 down_i += 1
             hs.append(h)
 
-        h = self.mid_res_0(h, emb)
-        h, written = self.mid_attn(h, context, take_bank(), collect_bank)
+        h = remat(cfg.remat, self.mid_res_0, h, emb)
+        h, written = remat(cfg.remat, self.mid_attn, h, context, take_bank(), collect_bank)
         bank_written.extend(written)
-        h = self.mid_res_1(h, emb)
+        h = remat(cfg.remat, self.mid_res_1, h, emb)
         if pose_residuals is not None:
             h = h + residual(-1).to(h.dtype)
 
@@ -220,10 +225,11 @@ class UNet(nn.Module):
             skip = hs.pop()
             if pose_residuals is not None:
                 skip = skip + residual(len(hs)).to(skip.dtype)
-            h = getattr(self, u["name_res"])(torch.cat([h, skip], dim=1), emb)
+            h = remat(cfg.remat, getattr(self, u["name_res"]),
+                      torch.cat([h, skip], dim=1), emb)
             if u["attn"]:
-                h, written = getattr(self, u["name_attn"])(
-                    h, context, take_bank(), collect_bank)
+                h, written = remat(cfg.remat, getattr(self, u["name_attn"]),
+                                   h, context, take_bank(), collect_bank)
                 bank_written.extend(written)
             if u["upsample"]:
                 h = getattr(self, u["name_up"])(h)

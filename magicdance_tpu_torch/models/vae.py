@@ -6,6 +6,8 @@ scale factor 0.18215 applied by `encode_to_latent`. Faithfulness notes:
 GroupNorm(32) eps 1e-6 computed in fp32 with the SiLU before the cast back;
 the encoder's downsample is an asymmetric (0,1)x(0,1) pad followed by a
 VALID stride-2 conv; upsampling is nearest 2x. Public layout is NHWC.
+It computes in `cfg.compute_dtype` whatever dtype its weights are stored in
+(a trainer keeps the frozen VAE in bf16 storage and encodes in fp32).
 """
 
 from __future__ import annotations
@@ -17,9 +19,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from magicdance_tpu_torch.config import VAEConfig
-from magicdance_tpu_torch.models.layers import conv1x1, conv3x3, group_norm_f32
+from magicdance_tpu_torch.models.layers import Conv2d, conv1x1, conv3x3, group_norm_f32
 from magicdance_tpu_torch.models.unet import nchw_to_nhwc, nhwc_to_nchw
 from magicdance_tpu_torch.ops.attention import dot_product_attention
+
+
+def compute_dtype(cfg: VAEConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
 def _norm_silu(gn: nn.GroupNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -37,7 +43,7 @@ class VAEResBlock(nn.Module):
                              if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.conv1.weight.dtype
+        dtype = x.dtype
         h = self.conv1(_norm_silu(self.norm1, x, dtype))
         h = self.conv2(_norm_silu(self.norm2, h, dtype))
         if self.nin_shortcut is not None:
@@ -60,7 +66,7 @@ class VAEAttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
-        z = group_norm_f32(self.norm, x).to(self.q.weight.dtype)
+        z = group_norm_f32(self.norm, x).to(x.dtype)
 
         def seq(t):  # (B, HW, 1, C) with unit stride over C, as the kernels take
             return nchw_to_nhwc(t).contiguous().reshape(b, hh * ww, 1, c)
@@ -73,7 +79,7 @@ class VAEAttnBlock(nn.Module):
 class VAEDownsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (0, 1, 0, 1)))
@@ -109,7 +115,7 @@ class Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        dtype = self.conv_in.weight.dtype
+        dtype = compute_dtype(cfg)
         h = self.conv_in(x.to(dtype))
         for level in range(len(cfg.channel_mult)):
             for i in range(cfg.num_res_blocks):
@@ -141,7 +147,7 @@ class Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        dtype = self.conv_in.weight.dtype
+        dtype = compute_dtype(cfg)
         h = self.conv_in(z.to(dtype))
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
         for level in reversed(range(len(cfg.channel_mult))):
@@ -160,6 +166,12 @@ class GaussianPosterior(NamedTuple):
 
     def mode(self) -> torch.Tensor:
         return self.mean
+
+    def sample(self, noise: torch.Tensor) -> torch.Tensor:
+        """mean + std * noise, with the standard-normal `noise` drawn by the
+        caller (the port's torch.Generator, or the JAX package's draws in a
+        parity test)."""
+        return self.mean + torch.exp(0.5 * self.logvar) * noise.to(self.mean)
 
 
 class AutoencoderKL(nn.Module):
@@ -181,7 +193,7 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """z: (B, h, w, 4) decoder input -> (B, 8h, 8w, 3) image."""
-        z = nhwc_to_nchw(z.to(self.post_quant_conv.weight.dtype))
+        z = nhwc_to_nchw(z.to(compute_dtype(self.cfg)))
         return nchw_to_nhwc(self.decoder(self.post_quant_conv(z)))
 
 
@@ -192,3 +204,18 @@ def encode_to_latent(posterior_mean_or_sample: torch.Tensor, scale_factor: float
 
 def latent_to_decoder_input(latent: torch.Tensor, scale_factor: float) -> torch.Tensor:
     return latent / scale_factor
+
+
+def encode_sample_chunked(vae: AutoencoderKL, images: torch.Tensor,
+                          noise: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Frozen-VAE encode of a training batch into posterior samples,
+    chunked over the batch so that the full-resolution encoder activations
+    never exceed `chunk` images (the JAX trainer's `vae_encode_chunk`,
+    trainer.py:238-260): used when the batch exceeds `chunk` and divides by
+    it. images: (N, H, W, 3) in [-1, 1]; noise: (N, H/8, W/8, 4) standard
+    normal. Returns unscaled samples (N, H/8, W/8, 4) fp32."""
+    n = images.shape[0]
+    if chunk and n > chunk and n % chunk == 0:
+        return torch.cat([vae.encode(im).sample(nz) for im, nz in
+                          zip(images.split(chunk), noise.split(chunk))], dim=0)
+    return vae.encode(images).sample(noise)

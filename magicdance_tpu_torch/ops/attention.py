@@ -2,15 +2,27 @@
 
 Counterpart of `magicdance_tpu.ops.attention`: BSNH (`dot_product_attention`,
 `bank_read_attention`) and packed (B, S, H*D) (`attention_packed`,
-`bank_read_attention_packed`) functions with fp32 logits and softmax. On a
-CUDA tensor, attention with S_q >= 256, S_kv >= 256 and D <= 256 goes to the
-hand-written kernels (self-attention: kernel A; bank read: kernel B). All
-else -- cross-attention over the 77 context tokens, the S = 64 middle block,
-the VAE's single 512-wide head, and every CPU tensor -- takes the kernels'
-plain versions (`*_ref` in `ops.kernels`), which mirror the JAX package's
-XLA path. So on a card the plain math runs only at the sites JAX left to
-XLA, never at a kernel site. The thresholds are the JAX package's;
-H100-specific ones come from measurements on the card.
+`bank_read_attention_packed`) functions with fp32 logits and softmax.
+
+Attention with S_q >= 256, S_kv >= 256 and D <= 256 (a kernel site) is
+dispatched by what the caller needs:
+
+  * a gradient (grad mode on and an input requires grad): the autograd
+    Functions of `ops.kernels.flash_vjp` -- on a CUDA tensor the forward runs
+    kernel A/B with the LSE output and the backward kernels C (dQ) and D
+    (dK/dV); on a CPU tensor the same Functions run their plain versions.
+    This mirrors JAX, whose fast primal kernels run only when no gradient is
+    requested and whose training path is the custom VJP.
+  * no gradient, on a CUDA tensor: kernel A (self-attention) or kernel B
+    (bank read).
+
+All else -- cross-attention over the 77 context tokens, the S = 64 middle
+block, the VAE's single 512-wide head, and CPU tensors that need no gradient
+-- takes the kernels' plain versions (`*_ref` in `ops.kernels`), which mirror
+the JAX package's XLA path and are differentiable by autograd. So on a card
+the plain math runs only at the sites JAX left to XLA, never at a kernel
+site. The thresholds are the JAX package's; H100-specific ones come from
+measurements on the card.
 """
 
 from __future__ import annotations
@@ -22,10 +34,15 @@ import torch
 from magicdance_tpu_torch.ops.kernels import (
     self_attention, self_attention_ref, two_source_attention,
     two_source_attention_ref)
+from magicdance_tpu_torch.ops.kernels.flash_vjp import mha, mha_two_source
 
 
-def _use_kernel(q: torch.Tensor, sq: int, sk_total: int, d: int) -> bool:
-    return q.is_cuda and sq >= 256 and sk_total >= 256 and d <= 256
+def _kernel_site(sq: int, sk_total: int, d: int) -> bool:
+    return sq >= 256 and sk_total >= 256 and d <= 256
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _split_heads(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -38,8 +55,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sk, H, D) -> (B, Sq, H, D) in q's dtype."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _use_kernel(q, q.shape[1], k.shape[1], q.shape[-1]):
-        return self_attention(q, k, v, scale)
+    if _kernel_site(q.shape[1], k.shape[1], q.shape[-1]):
+        if _wants_grad(q, k, v):
+            return mha(q, k, v, scale)
+        if q.is_cuda:
+            return self_attention(q, k, v, scale)
     return self_attention_ref(q, k, v, scale)
 
 
@@ -61,8 +81,11 @@ def bank_read_attention(q: torch.Tensor, k_self: torch.Tensor,
     batch is 1 (one reference serving every frame, broadcast) or B."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _use_kernel(q, q.shape[1], k_self.shape[1] + k_bank.shape[1], q.shape[-1]):
-        return two_source_attention(q, k_self, v_self, k_bank, v_bank, scale)
+    if _kernel_site(q.shape[1], k_self.shape[1] + k_bank.shape[1], q.shape[-1]):
+        if _wants_grad(q, k_self, v_self, k_bank, v_bank):
+            return mha_two_source(q, k_self, v_self, k_bank, v_bank, scale)
+        if q.is_cuda:
+            return two_source_attention(q, k_self, v_self, k_bank, v_bank, scale)
     return two_source_attention_ref(q, k_self, v_self, k_bank, v_bank, scale)
 
 

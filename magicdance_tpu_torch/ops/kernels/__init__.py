@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
 
 Kernel A (`self_attention`) and kernel B (`two_source_attention`) replace the
-three Pallas attention kernels on the exact image-serving path. Sources are
-under `csrc/`; `build` compiles them with nvcc at first use.
+three Pallas attention kernels on the exact image-serving path; with their
+LSE output (`flash_vjp.self_attention_lse` / `two_source_attention_lse`)
+they are the training forward, and kernels C (`flash_vjp.attention_dq`) and
+D (`flash_vjp.attention_dkv`) the backward. Sources are under `csrc/`;
+`build` compiles them with nvcc at first use.
 """
 
 from magicdance_tpu_torch.ops.kernels.attention import (  # noqa: F401

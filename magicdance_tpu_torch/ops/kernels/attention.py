@@ -1,5 +1,6 @@
 """Attention kernels A and B: ctypes wrappers, launch counters and the plain
-PyTorch versions they are held against.
+PyTorch versions they are held against; the shared launch helpers of the
+backward kernels C and D (`ops.kernels.flash_vjp`).
 
 Layout: every operand is a (B, S, H, D) tensor with unit stride over D. A
 contiguous BSNH tensor and a packed (B, S, H*D) projection output viewed as
@@ -8,9 +9,14 @@ output is a new contiguous (B, Sq, H, D) tensor, i.e. packed (B, Sq, H*D).
 
 The wrapper rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises -- there is no fallback. Each launch adds one to
-`LAUNCHES[<kernel name>]`. The plain versions are also the one plain
+`LAUNCHES[<kernel mode>]`. The plain versions are also the one plain
 attention of the port: `ops.attention` calls them at the sites below its
 kernel thresholds.
+
+Kernels A and B produce no autograd graph. A CUDA call with grad enabled on
+an input that requires grad raises: a differentiable caller goes through the
+autograd Functions of `ops.kernels.flash_vjp` (kernels A/B with the LSE
+output forward, kernels C/D backward), as `ops.attention` does.
 """
 
 from __future__ import annotations
@@ -22,7 +28,17 @@ import torch
 
 from magicdance_tpu_torch.ops.kernels import build
 
-LAUNCHES = {"self_attention": 0, "two_source_attention": 0}
+# one counter per kernel mode: A and B plain (serving) and with the LSE
+# output (training forward), C with one or two sources, D
+LAUNCHES = {
+    "self_attention": 0,
+    "two_source_attention": 0,
+    "self_attention_lse": 0,
+    "two_source_attention_lse": 0,
+    "attention_dq": 0,
+    "attention_dq_two_source": 0,
+    "attention_dkv": 0,
+}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -120,23 +136,86 @@ def _check_q(q: torch.Tensor) -> None:
         raise ValueError(f"head dim {d} must be a multiple of 8 in [8, 256]")
 
 
+def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
+    """Kernels A/B write a fresh tensor with no autograd graph: refuse to
+    drop a gradient silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no backward; "
+            "use ops.kernels.flash_vjp.mha / mha_two_source (or ops.attention), "
+            "which train through the backward kernels")
+
+
 def _strides(t: torch.Tensor, batched: bool = True) -> list[int]:
     return [t.stride(0) if batched else 0, t.stride(1), t.stride(2)]
 
 
-def _launch(name: str, q: torch.Tensor, args: list, strides: list[int],
-            sizes: list[int], scale: float) -> None:
-    lib = build.load(name)
-    fn = getattr(lib, f"md_{name}")
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def launch(lib_name: str, counter: str, ref: torch.Tensor, lead: list[int],
+           args: list, strides: list[int], sizes: list[int], scale: float) -> None:
+    """Call `md_<lib_name>(dtype, *lead, *pointers, strides, *sizes, scale,
+    stream)` on the current stream of `ref`'s device; None in `args` is a
+    null pointer. Raises on a launch error; counts the launch."""
+    lib = build.load(lib_name)
+    fn = getattr(lib, f"md_{lib_name}")
     arr = (ctypes.c_longlong * len(strides))(*strides)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODE[q.dtype], *[ctypes.c_void_p(t.data_ptr()) for t in args],
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        err = fn(_DTYPE_CODE[ref.dtype], *lead, *[_ptr(t) for t in args],
                  arr, *sizes, ctypes.c_float(scale), ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+        raise RuntimeError(f"{lib_name} kernel launch failed: CUDA error {err} "
                            f"({lib.md_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    LAUNCHES[counter] += 1
+
+
+def _lse_buffer(q: torch.Tensor, with_lse: bool) -> Optional[torch.Tensor]:
+    b, sq, h, _ = q.shape
+    return (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+            if with_lse else None)
+
+
+def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float, with_lse: bool):
+    """Launch kernel A on CUDA tensors; returns (out, lse or None)."""
+    _check_q(q)
+    b, sq, h, d = q.shape
+    _check_operand("q", q, q, (b,), sq)
+    _check_operand("k", k, q, (b,), None)
+    _check_operand("v", v, q, (b,), k.shape[1])
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = _lse_buffer(q, with_lse)
+    strides = (_strides(q) + _strides(k) + _strides(v) + _strides(out))
+    launch("self_attention", "self_attention_lse" if with_lse else "self_attention",
+           q, [], [q, k, v, out, lse], strides, [b, h, d, sq, k.shape[1]], scale)
+    return out, lse
+
+
+def two_source_attention_cuda(q: torch.Tensor, k_self: torch.Tensor,
+                              v_self: torch.Tensor, k_bank: torch.Tensor,
+                              v_bank: torch.Tensor, scale: float, with_lse: bool):
+    """Launch kernel B on CUDA tensors; returns (out, lse or None)."""
+    _check_q(q)
+    b, sq, h, d = q.shape
+    _check_operand("q", q, q, (b,), sq)
+    _check_operand("k_self", k_self, q, (b,), None)
+    _check_operand("v_self", v_self, q, (b,), k_self.shape[1])
+    _check_operand("k_bank", k_bank, q, (1, b), None)
+    _check_operand("v_bank", v_bank, q, (k_bank.shape[0],), k_bank.shape[1])
+    bank_batched = k_bank.shape[0] == b and b > 1
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = _lse_buffer(q, with_lse)
+    strides = (_strides(q) + _strides(k_self) + _strides(v_self)
+               + _strides(k_bank, bank_batched) + _strides(v_bank, bank_batched)
+               + _strides(out))
+    launch("two_source_attention",
+           "two_source_attention_lse" if with_lse else "two_source_attention",
+           q, [], [q, k_self, v_self, k_bank, v_bank, out, lse], strides,
+           [b, h, d, sq, k_self.shape[1], k_bank.shape[1]], scale)
+    return out, lse
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,16 +227,8 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return self_attention_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"self_attention: unsupported device {q.device}")
-    _check_q(q)
-    b, sq, h, d = q.shape
-    _check_operand("q", q, q, (b,), sq)
-    _check_operand("k", k, q, (b,), None)
-    _check_operand("v", v, q, (b,), k.shape[1])
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = (_strides(q) + _strides(k) + _strides(v) + _strides(out))
-    _launch("self_attention", q, [q, k, v, out], strides,
-            [b, h, d, sq, k.shape[1]], scale)
-    return out
+    _check_no_grad("self_attention", q, k, v)
+    return self_attention_cuda(q, k, v, scale, with_lse=False)[0]
 
 
 def two_source_attention(q: torch.Tensor, k_self: torch.Tensor,
@@ -173,18 +244,6 @@ def two_source_attention(q: torch.Tensor, k_self: torch.Tensor,
         return two_source_attention_ref(q, k_self, v_self, k_bank, v_bank, scale)
     if q.device.type != "cuda":
         raise ValueError(f"two_source_attention: unsupported device {q.device}")
-    _check_q(q)
-    b, sq, h, d = q.shape
-    _check_operand("q", q, q, (b,), sq)
-    _check_operand("k_self", k_self, q, (b,), None)
-    _check_operand("v_self", v_self, q, (b,), k_self.shape[1])
-    _check_operand("k_bank", k_bank, q, (1, b), None)
-    _check_operand("v_bank", v_bank, q, (k_bank.shape[0],), k_bank.shape[1])
-    bank_batched = k_bank.shape[0] == b and b > 1
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = (_strides(q) + _strides(k_self) + _strides(v_self)
-               + _strides(k_bank, bank_batched) + _strides(v_bank, bank_batched)
-               + _strides(out))
-    _launch("two_source_attention", q, [q, k_self, v_self, k_bank, v_bank, out],
-            strides, [b, h, d, sq, k_self.shape[1], k_bank.shape[1]], scale)
-    return out
+    _check_no_grad("two_source_attention", q, k_self, v_self, k_bank, v_bank)
+    return two_source_attention_cuda(q, k_self, v_self, k_bank, v_bank, scale,
+                                     with_lse=False)[0]

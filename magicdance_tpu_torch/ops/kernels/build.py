@@ -21,7 +21,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("self_attention", "two_source_attention")
+SOURCES = ("self_attention", "two_source_attention", "attention_dq", "attention_dkv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -94,12 +94,25 @@ def build_log(name: str) -> Optional[str]:
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
+    # dtype, q, k, v, o, lse, strides, B, H, D, Sq, Sk, scale, stream
     "self_attention": ("md_self_attention",
-                       [_I, _VP, _VP, _VP, _VP, _STRIDES,
+                       [_I, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                         _I, _I, _I, _I, _I, _F, _VP]),
+    # dtype, q, k_self, v_self, k_bank, v_bank, o, lse, strides,
+    # B, H, D, Sq, Sk, Sb, scale, stream
     "two_source_attention": ("md_two_source_attention",
-                             [_I, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+                             [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                               _I, _I, _I, _I, _I, _I, _F, _VP]),
+    # dtype, nsrc, q, k_self, v_self, k_bank, v_bank, dout, lse, delta, dq,
+    # strides, B, H, D, Sq, Sk, Sb, scale, stream
+    "attention_dq": ("md_attention_dq",
+                     [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                      _STRIDES, _I, _I, _I, _I, _I, _I, _F, _VP]),
+    # dtype, k, v, q, dout, lse, delta, dk, dv, strides,
+    # Bq, Bk, H, D, Sq, Sk, scale, stream
+    "attention_dkv": ("md_attention_dkv",
+                      [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+                       _I, _I, _I, _I, _I, _I, _F, _VP]),
 }
 
 

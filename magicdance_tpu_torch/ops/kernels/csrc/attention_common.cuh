@@ -1,6 +1,16 @@
 // Shared body of the port's two attention kernels (self_attention.cu and
 // two_source_attention.cu): a flash-style forward pass with an online
-// (FA2-style) softmax over K/V tiles staged in shared memory.
+// (FA2-style) softmax over K/V tiles staged in shared memory; also the tile
+// loader and helpers that the backward kernels (attention_dq.cu,
+// attention_dkv.cu) use.
+//
+// Forward with log-sum-exp (training). Given an `lse` pointer, the same pass
+// also writes each query row's m + log(l) in fp32 to lse[(b * H + h) * Sq +
+// row] -- the statistics the online softmax already keeps, so the training
+// forward costs no extra pass. It replaces
+// magicdance_tpu/ops/pallas/flash_vjp.py::_fwd_lse_kernel (NSRC = 1) and
+// ::_fwd2_lse_kernel (NSRC = 2, the joint LSE over both sources); the Pallas
+// versions store the LSE as (B*H, 1, S), which is this layout.
 //
 // Replaces (magicdance_tpu/ops/pallas/flash.py):
 //   self_attention.cu        -> _attn_kernel_fused (packed (B,S,H*D)) and
@@ -60,6 +70,7 @@ struct Source {
 struct Params {
   const void* q;
   void* o;
+  float* lse;  // optional (B, H, Sq) fp32 log-sum-exp output, or nullptr
   long long q_sb, q_ss, q_sh;
   long long o_sb, o_ss, o_sh;
   Source src[2];
@@ -90,16 +101,28 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The value a float takes once stored in T and read back: identity for
+// fp32, round-to-nearest bf16 for bf16. The backward kernels apply it where
+// the JAX kernels cast P and dS to the input dtype before a product.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
 // Copy `rows_valid` rows of D elements (row stride `row_stride`) into a
-// 64-row fp32 tile with leading dimension `ld`; rows past `rows_valid` are
+// ROWS-row fp32 tile with leading dimension `ld`; rows past `rows_valid` are
 // zero. D is a multiple of 8 and every row start is 16-byte aligned (the
 // Python wrapper checks both), so each thread moves 8 elements at a time.
-template <typename T>
+template <typename T, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
                                           long long row_stride, int rows_valid,
                                           int D) {
   const int chunks = D >> 3;
-  for (int idx = threadIdx.x; idx < 64 * chunks; idx += NT) {
+  for (int idx = threadIdx.x; idx < ROWS * chunks; idx += NT) {
     const int r = idx / chunks;
     const int c = (idx - r * chunks) << 3;
     float vals[8];
@@ -254,6 +277,8 @@ __global__ void __launch_bounds__(NT) attention_fwd(const Params p) {
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (q0 + r >= p.Sq) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + q0 + r] = row_m[r] + logf(row_l[r]);
     const float inv = 1.f / row_l[r];
     T* orow = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh +
               (long long)(q0 + r) * p.o_ss;
@@ -292,6 +317,25 @@ cudaError_t launch_d(const Params& p, int B, cudaStream_t stream) {
   if (dj <= 12) return launch<T, NSRC, 12>(p, B, stream);
   return launch<T, NSRC, 16>(p, B, stream);
 }
+
+// Head-dim buckets shared by every kernel: calls f.template run<DJ>() with
+// DJ = ceil(D / 16) rounded up to a compiled bucket.
+template <typename F>
+cudaError_t dispatch_dj(int D, F& f) {
+  const int dj = (D + 15) / 16;
+  if (dj <= 1) return f.template run<1>();
+  if (dj <= 2) return f.template run<2>();
+  if (dj <= 3) return f.template run<3>();
+  if (dj <= 4) return f.template run<4>();
+  if (dj <= 5) return f.template run<5>();
+  if (dj <= 6) return f.template run<6>();
+  if (dj <= 8) return f.template run<8>();
+  if (dj <= 10) return f.template run<10>();
+  if (dj <= 12) return f.template run<12>();
+  return f.template run<16>();
+}
+
+inline bool head_dim_ok(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
 
 // dtype: 0 = float32, 1 = bfloat16.
 template <int NSRC>

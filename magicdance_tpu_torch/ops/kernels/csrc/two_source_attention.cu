@@ -7,24 +7,30 @@
 // _flash_attention_two_source_impl; bank reads at S = 4096). The kernel walks
 // the self keys and then the bank keys with one running max and one running
 // denominator, so the concatenation is never built. A batch-1 bank (one
-// reference image shared by every frame) is read with batch stride 0. What
-// bounds it and how the design answers that: see attention_common.cuh.
+// reference image shared by every frame) is read with batch stride 0. With
+// an `lse` pointer it is the training forward and replaces
+// magicdance_tpu/ops/pallas/flash_vjp.py::_fwd2_lse_kernel (the joint LSE
+// over both sources). What bounds it and how the design answers that: see
+// attention_common.cuh.
 //
 // Plain C interface, loaded with ctypes. Strides are in elements:
 // strides[0..17] = q, k_self, v_self, k_bank, v_bank, o, each (batch, row,
-// head). Returns cudaGetLastError() of the launch (0 on success).
+// head). lse: nullptr, or a contiguous (B, H, Sq) fp32 output. Returns
+// cudaGetLastError() of the launch (0 on success).
 
 #include "attention_common.cuh"
 
 extern "C" int md_two_source_attention(int dtype, const void* q,
                                        const void* k_self, const void* v_self,
                                        const void* k_bank, const void* v_bank,
-                                       void* o, const long long* strides, int B,
+                                       void* o, float* lse,
+                                       const long long* strides, int B,
                                        int H, int D, int Sq, int Sk, int Sb,
                                        float scale, void* stream) {
   md::Params p = {};
   p.q = q;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   const void* ks[2] = {k_self, k_bank};
   const void* vs[2] = {v_self, v_bank};

@@ -135,6 +135,13 @@ def q_sample(sched: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
             + _extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start) * noise)
 
 
+def get_v(sched: DiffusionSchedule, x: torch.Tensor, noise: torch.Tensor,
+          t: torch.Tensor) -> torch.Tensor:
+    """v-parameterization target (ref ddpm.py get_v)."""
+    return (_extract(sched.sqrt_alphas_cumprod, t, x) * noise
+            - _extract(sched.sqrt_one_minus_alphas_cumprod, t, x) * x)
+
+
 def predict_eps_from_v(sched: DiffusionSchedule, x_t: torch.Tensor,
                        t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """eps from a v-prediction (ref ddim.py:608-631)."""

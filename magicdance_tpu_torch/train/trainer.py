@@ -1,0 +1,407 @@
+"""One-GPU training step for stages 1-2 (PyTorch).
+
+Counterpart of `magicdance_tpu.train.trainer`:
+
+  * parameter freezing is a partition of the denoiser's parameters by the
+    freeze regime's predicate over their Flax paths (the port's state-dict
+    keys split on "."): trainable parameters require grad, frozen ones do not,
+    so frozen branches never pay the dW products, as in JAX.
+  * clip by global norm, then AdamW with a linear warm-up from 0 and a
+    constant rate after it, as optax.chain(clip_by_global_norm, adamw); the
+    schedule's count starts at 0, so the first update has a rate of 0.
+    `grad_accum` > 1 averages micro-batch gradients and applies the inner
+    update every k-th step, as optax.MultiSteps. Written out here (no
+    torch.optim) so that its arithmetic is optax's step for step.
+  * EMA of the trainable parameters: a lerp after every step.
+  * the frozen VAE encodes the image and the reference (posterior samples,
+    chunked by `vae_encode_chunk`) and the frozen CLIP the prompt, without
+    gradients; the loss is `models.diffusion.diffusion_loss`.
+
+Precision, by explicit cast at use (not torch.autocast): trainable master
+weights, their gradients and the AdamW moments are fp32; frozen parameters
+are stored in `optim.frozen_dtype` ("bfloat16" or "float32"); the
+denoiser's products run in `cfg.model.dtype`, each `Linear`/`Conv2d` casting
+its weight to the activations' dtype as a Flax module with `dtype=bf16` casts
+its fp32 params, so the gradient of an fp32 master comes back through that
+cast in fp32. The frozen VAE and CLIP compute in fp32, and the whole step
+runs with TF32 off (`pipeline.full_fp32`), so fp32 means full fp32.
+
+Random draws come from the trainer's `torch.Generator` (`draw`), separately
+from the loss, and a caller may hand its own `Draws` to `train_step`; the
+generator's state is part of the checkpointed state, so a resumed run
+continues the same stream.
+
+Not in this slice (each raises NotImplementedError): `frozen_dtype="int8"`
+(train/quant.py), a mesh of more than one device (ZeRO-1 and data parallel:
+on one device the ZeRO-1 sharding of `shard_opt_state` is the identity),
+`attention_impl` other than "auto", dropout > 0, and temporal (stage-3)
+training.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Mapping, Optional, Union
+
+import torch
+
+from magicdance_tpu_torch.config import FreezeRegime, OptimConfig, TrainConfig
+from magicdance_tpu_torch.device import resolve_device
+from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPoseModel
+from magicdance_tpu_torch.models.diffusion import diffusion_loss, draw_timesteps_and_noise
+from magicdance_tpu_torch.models.vae import encode_sample_chunked, encode_to_latent
+from magicdance_tpu_torch.ops.schedules import make_schedule
+from magicdance_tpu_torch.pipeline import full_fp32
+
+# ---------------------------------------------------------------------------
+# freeze regimes as path predicates
+# ---------------------------------------------------------------------------
+
+
+def trainable_predicate(regime: FreezeRegime,
+                        sd_locked: bool = True) -> Callable[[tuple[str, ...]], bool]:
+    """Predicate over parameter paths (('unet', 'enc_attn_0', ...)). Roots:
+    'unet', 'appearance_unet', 'pose_control'. Semantics per reference flag
+    in config.FreezeRegime; the JAX package's predicate, on the same paths."""
+
+    def in_unet_decoder(path):
+        return path[0] == "unet" and path[1].startswith(("dec_", "norm_out", "conv_out"))
+
+    def pred(path: tuple[str, ...]) -> bool:
+        root = path[0]
+        unlocked = (not sd_locked) and in_unet_decoder(path)
+        if regime is FreezeRegime.ALL_TRAINABLE:
+            return True
+        if regime is FreezeRegime.APPEARANCE_PRETRAIN:
+            is_self_attn = root == "unet" and any(p == "attn1" for p in path)
+            return root in ("appearance_unet", "pose_control") or is_self_attn or unlocked
+        if regime is FreezeRegime.FINETUNE_CONTROL:
+            return root in ("appearance_unet", "pose_control") or unlocked
+        if regime is FreezeRegime.POSE_ONLY:
+            return root == "pose_control" or unlocked
+        if regime is FreezeRegime.REFERENCE_ONLY:
+            return root == "appearance_unet" or unlocked
+        if regime is FreezeRegime.MOTION_ONLY:
+            return any("motion" in p for p in path)
+        raise ValueError(regime)
+
+    return pred
+
+
+def param_path(key: str) -> tuple[str, ...]:
+    return tuple(key.split("."))
+
+
+# ---------------------------------------------------------------------------
+# optimizer: optax.chain(clip_by_global_norm, adamw) [+ MultiSteps]
+# ---------------------------------------------------------------------------
+
+
+def make_lr_schedule(ocfg: OptimConfig) -> Callable[[int], float]:
+    """Linear warm-up 0 -> lr over max(1, warmup_steps) updates, then
+    constant (optax.join_schedules of linear and constant schedules)."""
+    warm = max(1, ocfg.warmup_steps)
+    lr = ocfg.learning_rate
+
+    def schedule(count: int) -> float:
+        return lr if count >= warm else lr * count / warm
+
+    return schedule
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32."""
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+class Optimizer:
+    """Clip by global norm, then AdamW, with gradient accumulation. State:
+    fp32 moments `mu`/`nu`, the inner update `count`, and for grad_accum > 1
+    the running mean `acc` of the micro-batch gradients and `mini_step`."""
+
+    def __init__(self, ocfg: OptimConfig, params: Mapping[str, torch.Tensor]):
+        self.cfg = ocfg
+        self.schedule = make_lr_schedule(ocfg)
+        self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.count = 0
+        self.acc = ({k: torch.zeros_like(p) for k, p in params.items()}
+                    if ocfg.grad_accum > 1 else None)
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, torch.Tensor]) -> bool:
+        """Apply one step in place; returns whether the parameters moved
+        (False on an accumulating micro-step)."""
+        keys = list(params)
+        if self.acc is not None:
+            acc = [self.acc[k] for k in keys]
+            diff = torch._foreach_sub([grads[k] for k in keys], acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(acc, diff)
+            if self.mini_step < self.cfg.grad_accum - 1:
+                self.mini_step += 1
+                return False
+            g = [a.clone() for a in acc]
+            for a in acc:
+                a.zero_()
+            self.mini_step = 0
+        else:
+            g = [grads[k].clone() for k in keys]
+        c = self.cfg
+        norm = global_norm(g)
+        scale = torch.where(norm < c.grad_clip, torch.ones_like(norm), c.grad_clip / norm)
+        torch._foreach_mul_(g, scale)
+        mu = [self.mu[k] for k in keys]
+        nu = [self.nu[k] for k in keys]
+        torch._foreach_lerp_(mu, g, 1.0 - c.adam_b1)
+        torch._foreach_mul_(nu, c.adam_b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - c.adam_b2)
+        lr = self.schedule(self.count)
+        self.count += 1
+        bc1 = 1.0 - c.adam_b1 ** self.count
+        bc2 = 1.0 - c.adam_b2 ** self.count
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, c.adam_eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, denom)
+        p = [params[k] for k in keys]
+        if c.weight_decay:
+            torch._foreach_add_(upd, p, alpha=c.weight_decay)
+        torch._foreach_add_(p, upd, alpha=-lr)
+        return True
+
+    def state_dict(self) -> dict:
+        return {"mu": self.mu, "nu": self.nu, "count": self.count, "acc": self.acc,
+                "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        for name in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
+            for k, t in getattr(self, name).items():
+                t.copy_(sd[name][k])
+        self.count = int(sd["count"])
+        self.mini_step = int(sd["mini_step"])
+
+
+# ---------------------------------------------------------------------------
+# trainer
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Draws:
+    """The random numbers of one step: timesteps (B,), the diffusion noise
+    and the VAE posterior noise of the image and the reference, each
+    (B, h, w, embed_dim) standard normal."""
+
+    t: torch.Tensor
+    noise: torch.Tensor
+    vae_image: torch.Tensor
+    vae_reference: Optional[torch.Tensor] = None
+
+
+_FROZEN_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class Trainer:
+    """Owns the denoiser, the frozen VAE and CLIP, the optimizer state and
+    the step. Build, set the weights (`init_random`, `load_state_dicts` or
+    `convert.from_jax.load_train_state`), then call `train_step`."""
+
+    def __init__(self, cfg: TrainConfig, device: Union[str, torch.device] = "cuda"):
+        ocfg = cfg.optim
+        if ocfg.frozen_dtype == "int8":
+            raise NotImplementedError("frozen_dtype='int8' (train/quant.py) is not "
+                                      "ported yet")
+        if ocfg.frozen_dtype not in _FROZEN_DTYPES:
+            raise ValueError(f"unknown frozen_dtype {ocfg.frozen_dtype!r}")
+        if tuple(cfg.mesh_axes) != ("data",):
+            raise NotImplementedError("the port's trainer runs on one device; "
+                                      f"mesh axes {cfg.mesh_axes} come with the "
+                                      "distribution slice")
+        if cfg.attention_impl != "auto":
+            raise NotImplementedError(f"attention_impl={cfg.attention_impl!r}: the "
+                                      "port's trainer takes only 'auto'")
+        if cfg.model.has_temporal or cfg.freeze is FreezeRegime.MOTION_ONLY:
+            raise NotImplementedError("temporal (stage-3) training comes with the "
+                                      "video slice")
+        if cfg.model.unet.dropout > 0:
+            raise NotImplementedError("dropout is not ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = MagicPoseModel(cfg.model).to(self.device)
+        self.vae = AutoencoderKL(cfg.model.vae).to(self.device)
+        self.clip = CLIPTextEncoder(cfg.model.clip).to(self.device)
+        for m in (self.model, self.vae, self.clip):
+            m.train(False)
+        self.sched = make_schedule(cfg.model.diffusion)
+        self.pred = trainable_predicate(cfg.freeze, cfg.sd_locked)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.step = 0
+        self.train_params: dict[str, torch.nn.Parameter] = {}
+        self.opt: Optional[Optimizer] = None
+        self.ema_params: Optional[dict[str, torch.Tensor]] = None
+        self._partition()
+
+    # -- parameters ---------------------------------------------------------
+    @torch.no_grad()
+    def _partition(self) -> None:
+        """Trainable denoiser params: fp32, requires_grad. Everything else:
+        `frozen_dtype`, no grad. Resets the optimizer state and the EMA."""
+        frozen = _FROZEN_DTYPES[self.cfg.optim.frozen_dtype]
+        self.train_params = {}
+        for key, p in self.model.named_parameters():
+            train = self.pred(param_path(key))
+            p.data = p.data.to(torch.float32 if train else frozen)
+            p.requires_grad_(train)
+            if train:
+                self.train_params[key] = p
+        for m in (self.vae, self.clip):
+            for p in m.parameters():
+                p.data = p.data.to(frozen)
+                p.requires_grad_(False)
+        self.opt = Optimizer(self.cfg.optim, self.train_params)
+        self.ema_params = ({k: p.detach().clone() for k, p in self.train_params.items()}
+                           if self.cfg.optim.ema_rate > 0 else None)
+
+    @torch.no_grad()
+    def init_random(self, seed: int = 0, scale: float = 0.02) -> None:
+        """Seeded random weights for tests and smoke runs: every leaf (the
+        zero-initialised output convs and zero convs included) from
+        N(0, scale^2), then partitioned as `_partition` says."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for m in (self.model, self.vae, self.clip):
+            for p in m.parameters():
+                p.data = torch.randn(p.shape, generator=gen, device=self.device) * scale
+        self._partition()
+
+    def load_state_dicts(self, model: Mapping[str, torch.Tensor],
+                         vae: Mapping[str, torch.Tensor],
+                         clip: Mapping[str, torch.Tensor]) -> None:
+        """Full-precision weights for the three networks (strict), then the
+        partition; e.g. from `convert.from_jax.flax_to_state_dict`."""
+        for m, sd in ((self.model, model), (self.vae, vae), (self.clip, clip)):
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.data = p.data.float()
+            m.load_state_dict(sd, strict=True)
+        self._partition()
+
+    @torch.no_grad()
+    def set_ema(self, ema: Mapping[str, torch.Tensor]) -> None:
+        if self.ema_params is None:
+            raise ValueError("ema_rate is 0: the trainer keeps no EMA")
+        for k, t in self.ema_params.items():
+            t.copy_(ema[k])
+
+    # -- one step -------------------------------------------------------------
+    def draw(self, batch: Mapping[str, torch.Tensor]) -> Draws:
+        """This step's random numbers from the trainer's generator."""
+        f = 2 ** (len(self.cfg.model.vae.channel_mult) - 1)  # the VAE's downsampling
+        b, h, w, _ = batch["image"].shape
+        shape = (b, h // f, w // f, self.cfg.model.vae.embed_dim)
+        g, dev = self.generator, self.device
+        vae_image = torch.randn(shape, generator=g, device=dev)
+        vae_ref = (torch.randn(shape, generator=g, device=dev)
+                   if self.cfg.model.has_appearance else None)
+        t, noise = draw_timesteps_and_noise(
+            self.sched, torch.empty(shape, device=dev), generator=g)
+        return Draws(t=t, noise=noise, vae_image=vae_image, vae_reference=vae_ref)
+
+    def to_device(self, batch: Mapping) -> dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+
+    @torch.no_grad()
+    def encode(self, batch: Mapping[str, torch.Tensor], draws: Draws):
+        """The frozen encoders: (x0 latent, reference latent or None,
+        context), from VAE posterior samples and CLIP, without gradients."""
+        cfg = self.cfg
+        chunk = cfg.vae_encode_chunk
+        scale = cfg.model.vae.scale_factor
+        x0 = encode_to_latent(encode_sample_chunked(
+            self.vae, batch["image"], draws.vae_image, chunk), scale)
+        ref = None
+        if cfg.model.has_appearance:
+            ref = encode_to_latent(encode_sample_chunked(
+                self.vae, batch["reference"], draws.vae_reference, chunk), scale)
+        return x0, ref, self.clip(batch["input_ids"])
+
+    def loss_from_latents(self, x0: torch.Tensor, ref: Optional[torch.Tensor],
+                          context: torch.Tensor, batch: Mapping[str, torch.Tensor],
+                          draws: Draws):
+        """The denoiser's loss on encoded inputs (graph kept for backward)."""
+        cfg = self.cfg
+        pose = batch.get("pose") if cfg.model.has_pose else None
+        return diffusion_loss(self.model, self.sched, cfg.model.diffusion, x0, context,
+                              draws.t.to(self.device), draws.noise.to(self.device),
+                              reference_latent=ref, pose_hint=pose, wonoise=True)
+
+    def grads(self) -> dict[str, torch.Tensor]:
+        """The trainable parameters' gradients after a backward pass, fp32,
+        zeros for one the loss does not reach (as JAX gives)."""
+        return {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                for k, p in self.train_params.items()}
+
+    def loss_and_grads(self, batch: Mapping[str, torch.Tensor], draws: Draws):
+        """(loss, metrics, grads) of one batch (the loss is the counterpart
+        of the JAX trainer's `_loss`)."""
+        for p in self.train_params.values():
+            p.grad = None
+        with full_fp32():
+            loss, metrics = self.loss_from_latents(*self.encode(batch, draws), batch, draws)
+            loss.backward()
+        return loss.detach(), metrics, self.grads()
+
+    def apply_update(self, grads: Mapping[str, torch.Tensor]) -> None:
+        """Optimizer update and EMA; clears the gradients; counts the step."""
+        with full_fp32():
+            self.opt.update(self.train_params, grads)
+            if self.ema_params is not None:
+                rate = self.cfg.optim.ema_rate
+                with torch.no_grad():
+                    torch._foreach_lerp_(list(self.ema_params.values()),
+                                         [p.detach() for p in self.train_params.values()],
+                                         1.0 - rate)
+        for p in self.train_params.values():
+            p.grad = None
+        self.step += 1
+
+    def train_step(self, batch: Mapping, draws: Optional[Draws] = None) -> dict:
+        """One step: loss and grads, optimizer update, EMA. Returns metrics
+        as 0-d tensors on the device (no host sync)."""
+        batch = self.to_device(batch)
+        if draws is None:
+            draws = self.draw(batch)
+        _, metrics, grads = self.loss_and_grads(batch, draws)
+        metrics["grad_norm"] = global_norm(grads.values())
+        self.apply_update(grads)
+        return metrics
+
+    # -- state ----------------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs: step, weights, optimizer state,
+        EMA and the generator's state."""
+        return {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "vae": self.vae.state_dict(),
+            "clip": self.clip.state_dict(),
+            "opt": self.opt.state_dict(),
+            "ema": self.ema_params,
+            "generator": self.generator.get_state(),
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        for name in ("model", "vae", "clip"):
+            module = getattr(self, name)
+            for k, t in module.state_dict(keep_vars=True).items():
+                t.copy_(sd[name][k])
+        self.opt.load_state_dict(sd["opt"])
+        if self.ema_params is not None:
+            self.set_ema(sd["ema"])
+        self.generator.set_state(sd["generator"])
+        self.step = int(sd["step"])

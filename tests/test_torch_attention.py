@@ -35,7 +35,7 @@ def test_self_attention_ref_matches_pallas_bsnh(s, d):
     # the wrapper takes the plain version for a CPU tensor, without a launch
     K.reset_launches()
     assert_close(K.self_attention(to_t(q), to_t(k), to_t(v)), want, **TOL)
-    assert K.LAUNCHES == {"self_attention": 0, "two_source_attention": 0}
+    assert not any(K.LAUNCHES.values())
 
 
 def test_self_attention_ref_matches_pallas_packed():
@@ -99,7 +99,7 @@ def test_cpu_dispatch_never_launches_kernels():
     K.reset_launches()
     out = tattn.attention_packed(q, q, q, num_heads=8)
     tattn.bank_read_attention_packed(q, q, q, bank, bank, num_heads=8)
-    assert K.LAUNCHES == {"self_attention": 0, "two_source_attention": 0}
+    assert not any(K.LAUNCHES.values())
     split = q.reshape(2, 256, 8, 8)
     assert_close(out, K.self_attention_ref(split, split, split).reshape(2, 256, 64).numpy(),
                  atol=0, rtol=0)

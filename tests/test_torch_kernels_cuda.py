@@ -1,5 +1,6 @@
-"""CUDA kernels A (self_attention) and B (two_source_attention) against their
-plain PyTorch versions, on the card.
+"""CUDA kernels A (self_attention) and B (two_source_attention), with and
+without their LSE output, and the backward kernels C (attention_dq) and D
+(attention_dkv) against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -12,14 +13,19 @@ Tolerances: in fp32, max-abs 2e-4 (summation order). In bf16, max-abs
 the plain output: with randn q/k/v the outputs are ~sqrt(e / S_kv), i.e.
 0.02-0.1 here, so the fixed bound alone would pass an error the size of the
 output, while bf16 rounding of the output stays a few hundredths of its RMS.
+Gradients (dQ, dK, dV): fp32 within 2e-4 x max(1, max |plain|) (summation
+order over up to 8192 keys); bf16 within min(1e-1 (kernel_gate.py:52), 0.1 x
+the RMS of the plain gradient).
 """
 
 import pytest
 import torch
 
 from magicdance_tpu_torch.ops import kernels as K
+from magicdance_tpu_torch.ops.kernels import flash_vjp as V
 
 TOL = {torch.bfloat16: 5e-2, torch.float32: 2e-4}
+GRAD_TOL = {torch.bfloat16: 1e-1, torch.float32: 2e-4}
 BF16_REL_TOL = 0.1
 
 
@@ -41,6 +47,18 @@ def _close(got, want, dtype):
     err = (got.float() - want.float()).abs().max().item()
     rms = want.float().pow(2).mean().sqrt().item()
     tol = min(TOL[dtype], BF16_REL_TOL * rms) if dtype == torch.bfloat16 else TOL[dtype]
+    assert err <= tol, f"max abs err {err:.3e} > {tol:.3e} (plain rms {rms:.3e})"
+
+
+def _grad_close(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.float() - want.float()).abs().max().item()
+    rms = want.float().pow(2).mean().sqrt().item()
+    if dtype == torch.bfloat16:
+        tol = min(GRAD_TOL[dtype], BF16_REL_TOL * rms)
+    else:
+        tol = GRAD_TOL[dtype] * max(1.0, want.float().abs().max().item())
     assert err <= tol, f"max abs err {err:.3e} > {tol:.3e} (plain rms {rms:.3e})"
 
 
@@ -89,7 +107,8 @@ def test_launch_counters_and_dispatch(cuda):
     attention_packed(x, x, x, num_heads=8)
     bank_read_attention_packed(x, x, x, bank, bank, num_heads=8)
     attention_packed(x, ctx, ctx, num_heads=8)
-    assert K.LAUNCHES == {"self_attention": 1, "two_source_attention": 1}
+    assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES},
+                          "self_attention": 1, "two_source_attention": 1}
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -101,3 +120,133 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):  # bank batch neither 1 nor B
         big = _rand(cuda, 3, 256, 2, 40, dtype=torch.bfloat16, seed=1)
         K.two_source_attention(big[:2], big[:2], big[:2], big, big)
+
+
+# --------------------------------------------------------------------------
+# training path: LSE forward, kernel C (dQ), kernel D (dK/dV), autograd
+# --------------------------------------------------------------------------
+
+
+def _bwd_inputs(dev, b, s, h, d, dtype, bank=None, seed=0):
+    """q, k, v, dout (and bank k/v) plus the plain forward's LSE and delta."""
+    q, k, v, dout = (_rand(dev, b, s, h, d, dtype=dtype, seed=seed + i) for i in range(4))
+    if bank is None:
+        out, lse = V.self_attention_lse_ref(q, k, v)
+        return q, k, v, dout, None, None, lse, V.attention_delta(dout, out)
+    bb, sb = bank
+    kb, vb = (_rand(dev, bb, sb, h, d, dtype=dtype, seed=seed + 10 + i) for i in range(2))
+    out, lse = V.two_source_attention_lse_ref(q, k, v, kb, vb)
+    return q, k, v, dout, kb, vb, lse, V.attention_delta(dout, out)
+
+
+SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160),  # training sites
+          (3, 300, 4, 48), (1, 256, 2, 256)]                        # ragged, widest D
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,d", SHAPES)
+@pytest.mark.parametrize("bank", [None, 1, "B"])
+def test_forward_lse_matches_plain(cuda, dtype, b, s, h, d, bank):
+    q, k, v = (_rand(cuda, b, s, h, d, dtype=dtype, seed=i) for i in range(3))
+    if bank is None:
+        got, want = V.self_attention_lse(q, k, v), V.self_attention_lse_ref(q, k, v)
+    else:
+        bb = b if bank == "B" else 1
+        kb, vb = (_rand(cuda, bb, s, h, d, dtype=dtype, seed=5 + i) for i in range(2))
+        got = V.two_source_attention_lse(q, k, v, kb, vb)
+        want = V.two_source_attention_lse_ref(q, k, v, kb, vb)
+    _close(got[0], want[0], dtype)
+    assert got[1].dtype == torch.float32 and got[1].shape == (b, h, s)
+    _close(got[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,d", SHAPES)
+@pytest.mark.parametrize("bank", [None, 1, "B"])
+def test_dq_and_dkv_match_plain(cuda, dtype, b, s, h, d, bank):
+    spec = None if bank is None else (b if bank == "B" else 1, s)
+    q, k, v, dout, kb, vb, lse, delta = _bwd_inputs(cuda, b, s, h, d, dtype, spec)
+    _grad_close(V.attention_dq(q, k, v, dout, lse, delta, k_bank=kb, v_bank=vb),
+                V.attention_dq_ref(q, k, v, dout, lse, delta, k_bank=kb, v_bank=vb),
+                dtype)
+    for kk, vv in ((k, v),) if kb is None else ((k, v), (kb, vb)):
+        got = V.attention_dkv(kk, vv, q, dout, lse, delta)
+        want = V.attention_dkv_ref(kk, vv, q, dout, lse, delta)
+        for g, w in zip(got, want):
+            _grad_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_bsnh_strided(cuda, dtype):
+    """BSNH views of (B, H, S, D) tensors go through C and D by strides."""
+    def r(seed):
+        return _rand(cuda, 2, 8, 1024, 80, dtype=dtype, seed=seed).transpose(1, 2)
+    q, k, v, dout = r(0), r(1), r(2), r(3)
+    out, lse = V.self_attention_lse_ref(q, k, v)
+    delta = V.attention_delta(dout, out)
+    _grad_close(V.attention_dq(q, k, v, dout, lse, delta),
+                V.attention_dq_ref(q, k, v, dout, lse, delta), dtype)
+    for g, w in zip(V.attention_dkv(k, v, q, dout, lse, delta),
+                    V.attention_dkv_ref(k, v, q, dout, lse, delta)):
+        _grad_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("bank", [None, 1, "B"])
+def test_grads_through_kernel_sites_match_plain(cuda, bank):
+    """A loss through each kernel site of the dispatcher gets finite grads
+    that match autograd through the plain path (fp32)."""
+    from magicdance_tpu_torch.ops.attention import (
+        attention_packed, bank_read_attention_packed)
+
+    def leaf(*shape, seed):
+        return _rand(cuda, *shape, dtype=torch.float32, seed=seed).requires_grad_()
+
+    q, k, v = (leaf(2, 256, 64, seed=i) for i in range(3))
+    args = [q, k, v]
+    if bank is not None:
+        bb = 2 if bank == "B" else 1
+        args += [leaf(bb, 256, 64, seed=7), leaf(bb, 256, 64, seed=8)]
+    K.reset_launches()
+    if bank is None:
+        out = attention_packed(q, k, v, num_heads=8)
+        ref = K.self_attention_ref(*(t.unflatten(-1, (8, 8)) for t in args)).flatten(-2)
+    else:
+        out = bank_read_attention_packed(*args, num_heads=8)
+        ref = K.two_source_attention_ref(*(t.unflatten(-1, (8, 8)) for t in args)).flatten(-2)
+    got = torch.autograd.grad(out.sin().sum(), args)
+    want = torch.autograd.grad(ref.sin().sum(), args)
+    for g, w in zip(got, want):
+        assert g is not None and torch.isfinite(g).all()
+        _grad_close(g, w, torch.float32)
+    two = bank is not None
+    assert K.LAUNCHES["two_source_attention_lse" if two else "self_attention_lse"] == 1
+    assert K.LAUNCHES["attention_dq_two_source" if two else "attention_dq"] == 1
+    assert K.LAUNCHES["attention_dkv"] == (2 if two else 1)
+    assert K.LAUNCHES["self_attention"] == K.LAUNCHES["two_source_attention"] == 0
+
+
+def test_backward_launches_only_needed_grads(cuda):
+    """Only the bank needs a gradient (a frozen UNet's first bank read): no
+    dQ, no self-source dK/dV."""
+    x = _rand(cuda, 2, 256, 64, dtype=torch.bfloat16, seed=0)
+    bank = _rand(cuda, 1, 256, 64, dtype=torch.bfloat16, seed=1).requires_grad_()
+    from magicdance_tpu_torch.ops.attention import bank_read_attention_packed
+
+    K.reset_launches()
+    out = bank_read_attention_packed(x, x, x, bank, bank, num_heads=8)
+    (g,) = torch.autograd.grad(out.float().sum(), [bank])
+    assert torch.isfinite(g).all()
+    assert K.LAUNCHES["attention_dq_two_source"] == 0
+    assert K.LAUNCHES["attention_dkv"] == 1
+
+
+def test_kernels_refuse_to_drop_gradients(cuda):
+    """Kernels A/B have no backward: a direct call on an input that needs a
+    gradient raises instead of returning a detached output."""
+    q = _rand(cuda, 1, 256, 2, 40, dtype=torch.float32, seed=0).requires_grad_()
+    with pytest.raises(RuntimeError):
+        K.self_attention(q, q, q)
+    with pytest.raises(RuntimeError):
+        K.two_source_attention(q, q, q, q, q)
+    with torch.no_grad():
+        K.self_attention(q, q, q)

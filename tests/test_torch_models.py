@@ -184,3 +184,30 @@ def test_vae_encode_decode():
     assert_close(tpost.logvar, post.logvar, **TOL)
     assert tdec.shape == (2, 64, 64, 3)
     assert_close(tdec, dec, **TOL)
+
+
+def test_magicpose_reference_stride_rules():
+    """The training forward's reference rules (magicpose.py:204-226): with
+    one reference per clip of frames, reference i takes the timestep and
+    context of its stride and its bank entry is repeated for the clip's
+    frames; one reference per sample is the trainer's case."""
+    tm = MagicPoseModel(TCFG).eval()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in tm.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    x4 = torch.randn(4, 8, 8, 4, generator=g)
+    t4 = torch.tensor([5, 5, 700, 700])
+    ctx4 = torch.randn(4, 77, 16, generator=g)
+    ref2 = torch.randn(2, 8, 8, 4, generator=g)
+    hint4 = torch.rand(4, 64, 64, 3, generator=g)
+    with torch.no_grad():
+        got = tm(x4, t4, ctx4, reference_noisy=ref2, pose_hint=hint4)
+        bank = tm.compute_bank(ref2, t4[::2], ctx4[::2])
+        bank = tuple(e.repeat_interleave(2, dim=0) for e in bank)
+        want = tm(x4, t4, ctx4, bank=bank, pose_hint=hint4)
+        per_sample = tm(x4[:2], t4[:2], ctx4[:2], reference_noisy=ref2, pose_hint=hint4[:2])
+        want_ps = tm(x4[:2], t4[:2], ctx4[:2], pose_hint=hint4[:2],
+                     bank=tm.compute_bank(ref2, t4[:2], ctx4[:2]))
+    assert torch.equal(got, want)
+    assert torch.equal(per_sample, want_ps)

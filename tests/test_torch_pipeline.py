@@ -84,10 +84,19 @@ def test_ddim_step_matches_jax():
 
 
 def test_config_and_tokenizer_copies_agree():
-    for cfg in (jcfg.ModelConfig(), tiny_model_cfg_jax(), jcfg.SampleConfig(steps=20)):
+    train_cfgs = (jcfg.stage1_appearance_pretrain(), jcfg.stage2_pose_control(),
+                  jcfg.stage3_motion(),
+                  jcfg.TrainConfig(optim=jcfg.OptimConfig(grad_accum=2, ema_rate=0.5),
+                                   freeze=jcfg.FreezeRegime.POSE_ONLY, sd_locked=False))
+    for cfg in (jcfg.ModelConfig(), tiny_model_cfg_jax(), jcfg.SampleConfig(steps=20),
+                *train_cfgs):
         assert tcfg.to_dict(port_cfg(cfg)) == jcfg.to_dict(cfg)
-    assert [f.name for f in dataclasses.fields(tcfg.SampleConfig)] == \
-        [f.name for f in dataclasses.fields(jcfg.SampleConfig)]
+    for make in ("stage1_appearance_pretrain", "stage2_pose_control", "stage3_motion"):
+        assert tcfg.to_dict(getattr(tcfg, make)()) == jcfg.to_dict(getattr(jcfg, make)())
+    for name in ("SampleConfig", "OptimConfig", "TrainConfig"):
+        assert [f.name for f in dataclasses.fields(getattr(tcfg, name))] == \
+            [f.name for f in dataclasses.fields(getattr(jcfg, name))]
+    assert [r.value for r in tcfg.FreezeRegime] == [r.value for r in jcfg.FreezeRegime]
     np.testing.assert_array_equal(t_empty_ids(3), j_empty_ids(3))
 
 

@@ -9,12 +9,24 @@ into the port by `magicdance_tpu_torch.convert.from_jax`.
 
 from __future__ import annotations
 
+import dataclasses
+
+import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
+from jax.flatten_util import ravel_pytree
 
 import magicdance_tpu.config as jcfg
 import magicdance_tpu_torch.config as tcfg
+from magicdance_tpu.models import AutoencoderKL as JVAE
+from magicdance_tpu.models import CLIPTextEncoder as JCLIP
+from magicdance_tpu.models import MagicPoseModel as JModel
+from magicdance_tpu.train.trainer import Trainer as JTrainer
+from magicdance_tpu_torch.convert.from_jax import convert_leaf, load_train_state
+from magicdance_tpu_torch.train.trainer import Draws, Trainer
 
 @pytest.fixture(scope="module", autouse=True)
 def torch_single_thread():
@@ -90,3 +102,155 @@ def to_t(a) -> torch.Tensor:
 def assert_close(got, want, atol: float, rtol: float) -> None:
     got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol)
+
+
+# --------------------------------------------------------------------------
+# training: the JAX trainer as the reference (tests/test_torch_trainer*.py).
+# Weights: every leaf drawn with numpy (`randomize`) on shapes from
+# jax.eval_shape of the inits. The JAX reference of a step is the JAX
+# trainer's own `_loss` under jax.value_and_grad (jitted) and its own optax
+# chain `tx`, applied to the parameters raveled into one vector: every
+# transformation in the chain is elementwise except the global norm, which is
+# the same over one vector, and one leaf compiles in a fraction of the time
+# of ~400. The JAX side runs without remat, the port with it: remat
+# recomputes the same function.
+# --------------------------------------------------------------------------
+
+B, IMG, LAT = 2, 16, 8
+
+
+def jax_train_cfg(variant=jcfg.ModelVariant.APPEARANCE_POSE, **kw) -> jcfg.TrainConfig:
+    """tests/test_trainer.py's tiny config, remat off (see the docstring)."""
+    model = jcfg.ModelConfig(
+        variant=variant,
+        unet=jcfg.UNetConfig(**TINY_UNET, remat=False),
+        pose_control=jcfg.ControlNetConfig(**TINY_UNET, remat=False),
+        vae=jcfg.VAEConfig(base_channels=32, channel_mult=(1, 2), num_res_blocks=1),
+        clip=jcfg.CLIPTextConfig(vocab_size=100, hidden_size=16, num_layers=1,
+                                 num_heads=2, max_length=5),
+        latent_size=LAT, dtype="float32")
+    base = dict(model=model, batch_size_per_device=1,
+                optim=jcfg.OptimConfig(learning_rate=1e-3, warmup_steps=1,
+                                       frozen_dtype="float32"))
+    base.update(kw)
+    return jcfg.TrainConfig(**base)
+
+
+def port_train_cfg(jc: jcfg.TrainConfig) -> tcfg.TrainConfig:
+    """The same configuration for the port, with remat on."""
+    tc = tcfg.from_dict(tcfg.TrainConfig, jcfg.to_dict(jc))
+    m = tc.model
+    return dataclasses.replace(tc, model=dataclasses.replace(
+        m, unet=dataclasses.replace(m.unet, remat=True),
+        pose_control=dataclasses.replace(m.pose_control, remat=True)))
+
+
+def jax_params(jc: jcfg.TrainConfig, seed: int = 0):
+    """Every leaf drawn with numpy; shapes from jax.eval_shape of the inits."""
+    m, v, c = JModel(jc.model), JVAE(jc.model.vae), JCLIP(jc.model.clip)
+    x = jnp.zeros((1, LAT, LAT, 4))
+    kw = {"reference_noisy": x}
+    if jc.model.has_pose:
+        kw["pose_hint"] = jnp.zeros((1, 8 * LAT, 8 * LAT, 3))
+    shapes = (
+        jax.eval_shape(lambda: m.init(jax.random.PRNGKey(0), x, jnp.zeros((1,), jnp.int32),
+                                      jnp.zeros((1, 5, 16)), **kw)),
+        jax.eval_shape(lambda: v.init(jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)),
+                                      jax.random.PRNGKey(1))),
+        jax.eval_shape(lambda: c.init(jax.random.PRNGKey(0), jnp.zeros((1, 5), jnp.int32))),
+    )
+    trees = [{"params": jax.tree.map(jnp.asarray, randomize(dict(s["params"]), seed + i))}
+             for i, s in enumerate(shapes)]
+    return (m, v, c), trees
+
+
+def make_train_batch(seed: int = 0, pose: bool = True) -> dict:
+    rs = np.random.RandomState(seed)
+    batch = {"image": rs.uniform(-1, 1, (B, IMG, IMG, 3)).astype(np.float32),
+             "reference": rs.uniform(-1, 1, (B, IMG, IMG, 3)).astype(np.float32),
+             "input_ids": np.zeros((B, 5), np.int32)}
+    if pose:
+        batch["pose"] = rs.uniform(0, 1, (B, 8 * LAT, 8 * LAT, 3)).astype(np.float32)
+    return batch
+
+
+def jax_draws(jc: jcfg.TrainConfig, rng) -> Draws:
+    """The JAX trainer's draws for `rng`, reproduced from its splits."""
+    shape = (B, LAT, LAT, 4)
+    rng_vae, rng_ref, rng_loss = jax.random.split(rng, 3)
+
+    def vae_noise(r):  # Trainer._loss.vae_encode: one key per chunk
+        chunk = jc.vae_encode_chunk
+        if chunk and B > chunk and B % chunk == 0:
+            keys = jax.random.split(r, B // chunk)
+            return np.concatenate([np.asarray(jax.random.normal(k, (chunk,) + shape[1:]))
+                                   for k in keys])
+        return np.asarray(jax.random.normal(r, shape))
+
+    rng_t, rng_noise, _ = jax.random.split(rng_loss, 3)
+    t = jax.random.randint(rng_t, (B,), 0, jc.model.diffusion.timesteps, dtype=jnp.int32)
+    return Draws(t=to_t(t).long(), noise=to_t(jax.random.normal(rng_noise, shape)),
+                 vae_image=to_t(vae_noise(rng_vae)),
+                 vae_reference=to_t(vae_noise(rng_ref)) if jc.model.has_appearance else None)
+
+
+class JaxReference:
+    """The JAX trainer's state and step (see the module docstring)."""
+
+    def __init__(self, jc: jcfg.TrainConfig, seed: int = 0, loss_from=None):
+        """`loss_from`: a reference whose compiled loss this one reuses (its
+        config must differ from `jc` in `optim` other than frozen_dtype)."""
+        (m, v, c), (mp, vp, cp) = jax_params(jc, seed)
+        self.cfg = jc
+        self.trainer = JTrainer(jc, m, v, c)
+        self.state = self.trainer.create_state(mp, vp, cp)
+        self.value_and_grad = (loss_from.value_and_grad if loss_from is not None else
+                               jax.jit(jax.value_and_grad(self.trainer._loss, has_aux=True)))
+        flat, self.unravel = ravel_pytree(self.state.train_params)
+        self.opt_state = self.trainer.tx.init(flat)
+        self.update = jax.jit(self._update)
+
+    def _update(self, g, opt_state, p):
+        updates, opt_state = self.trainer.tx.update(g, opt_state, p)
+        return optax.apply_updates(p, updates), opt_state
+
+    def loss_and_grads(self, batch, rng):
+        return self.value_and_grad(self.state.train_params, self.state.frozen_params,
+                                   jax.tree.map(jnp.asarray, batch), rng)
+
+    def step(self, batch, rng):
+        (loss, _), grads = self.loss_and_grads(batch, rng)
+        p, self.opt_state = self.update(ravel_pytree(grads)[0], self.opt_state,
+                                        ravel_pytree(self.state.train_params)[0])
+        new_train = self.unravel(p)
+        ema = self.state.ema_params
+        if ema is not None:
+            rate = self.cfg.optim.ema_rate
+            ema = jax.tree.map(lambda e, q: e * rate + q * (1.0 - rate), ema, new_train)
+        self.state = self.state.replace(step=self.state.step + 1, train_params=new_train,
+                                        ema_params=ema)
+        return float(loss)
+
+
+def port_trainer(ref: JaxReference) -> Trainer:
+    tr = Trainer(port_train_cfg(ref.cfg), device="cpu")
+    load_train_state(tr, ref.state)
+    return tr
+
+
+def to_port(flat: dict) -> dict:
+    return dict(convert_leaf(path, leaf) for path, leaf in flat.items())
+
+
+def assert_tree_close(got: dict, want_flat: dict, atol=2e-4, rtol=2e-4):
+    want = to_port(want_flat)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].detach().float().numpy(), w.numpy(),
+                                   atol=atol, rtol=rtol, err_msg=k)
+
+
+def port_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
