@@ -52,7 +52,29 @@ Phases, in order; every check raises, so any failure exits non-zero:
      moved, and in every step exactly the launches the plan derives (printed
      with its formula); seconds per step, images/s, peak memory, and one
      step's split into encode, forward, backward and optimizer.
-  10. the `kernels` JSON line, the card line, then the result line.
+  10. the grouped (temporal) kernel G, forward and backward (dq, dk, dv),
+     against its plain versions at every full-width motion-module shape of a
+     16-frame window at 512x512 ((h*w, 16, C) for C = 320, 640, 1280, 1280;
+     bf16, timed against its bound and F.scaled_dot_product_attention on
+     (h*w, H, 16, D) as the yardstick), one shape in fp32, one frame per clip
+     (S = 1) and a two-window batch; gates as phases 3 and 7.
+  11. small-input video references on a narrow temporal model at 128x128:
+     overlap sampling of F = 10 frames in windows of 4, stride 3, 3 steps of
+     CFG 7, on the card (kernels A, B, G) and the CPU (plain versions) with
+     the same weights, x_T and window offsets; and one stage-3 train step,
+     card vs CPU; both held to their exact launch plans.
+  12. the video path at full SD1.5 width with the 20 AnimateDiff motion
+     modules: two requests of 16 pose maps at 512x512 through
+     `sample_frames(video=True)` (one 16-frame window, default SampleConfig),
+     finite (16, 512, 512, 3) outputs and exactly 36 self-attention + 15
+     two-source + 80 grouped launches per DDIM step (`serving_launch_plan`);
+     seconds per request, frames/s, peak memory, and one DDIM step's split.
+  13. stage-3 training at full SD1.5 width: the stage3_motion() preset, one
+     clip of 16 frames at 512x512 per step, remat on, 3 steps: finite losses,
+     frozen weights bit-identical, motion modules moved, every step exactly
+     the launches of `stage3_launch_plan`; s/step, clips/s, peak memory and
+     the encode / forward / backward / optimizer split.
+  14. the `kernels` JSON line, the card line, then the result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -102,6 +124,14 @@ KERNELS = {
         source="magicdance_tpu_torch/ops/kernels/csrc/attention_dkv.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:202 (_dkv_kernel)",
         modes=("attention_dkv",)),
+    "grouped_attention": dict(
+        source="magicdance_tpu_torch/ops/kernels/csrc/grouped_attention.cu",
+        replaces="magicdance_tpu/ops/pallas/flash.py:366 (_grouped_attn_kernel)",
+        modes=("grouped",)),
+    "grouped_attention_bwd": dict(
+        source="magicdance_tpu_torch/ops/kernels/csrc/grouped_attention_bwd.cu",
+        replaces="magicdance_tpu/ops/pallas/flash_vjp.py:230 (_grouped_bwd_kernel)",
+        modes=("grouped_bwd",)),
 }
 TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
                "attention_dq_two_source", "attention_dkv")
@@ -413,11 +443,12 @@ def host_enqueue_ms(fn) -> tuple[float, float]:
     return (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
 
 
-def step_breakdown(pipe, frames: int):
+def step_breakdown(pipe, frames: int, num_frames: int = 1):
     """Time of each piece of a request, on the main path's inputs: CLIP, VAE
     encode, the four passes of one DDIM step, VAE decode. `ms` is the CUDA
     event time of back-to-back calls (idle gaps left by a slow host
-    included); `enqueue_ms` / `wall_ms` come from one call (host_enqueue_ms)."""
+    included); `enqueue_ms` / `wall_ms` come from one call (host_enqueue_ms).
+    `num_frames`: frames per clip of the motion modules (a video window)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -436,8 +467,9 @@ def step_breakdown(pipe, frames: int):
             "vae_encode": lambda: pipe.encode_reference(ref),
             "bank_write": lambda: m.compute_bank(ref_lat, t[:1], ctx[:1]),
             "controlnet": lambda: m.compute_control_residuals(x, hint, t, ctx),
-            "cond_read": lambda: m.unet(x, t, ctx, bank=bank, pose_residuals=res),
-            "uncond": lambda: m(x, t, ctx, uc=True),
+            "cond_read": lambda: m.unet(x, t, ctx, bank=bank, pose_residuals=res,
+                                        num_frames=num_frames),
+            "uncond": lambda: m(x, t, ctx, uc=True, num_frames=num_frames),
             "vae_decode": lambda: pipe.decode_latents(x),
         }
         ms = {k: cuda_time_ms(f, min_total_s=0.3, max_iters=20) for k, f in parts.items()}
@@ -473,21 +505,15 @@ def training_bound_ms(mode, b, sq, h, d, kv, itemsize=2) -> tuple[float, str]:
 
 
 def training_sites(model_cfg, latent: int):
-    """(network, part, S, D) of every attention site of the stage-2 step in
+    """(network, S, D) of every self-attention site of the stage-2 step in
     traversal order: appearance UNet, pose ControlNet (encoder and middle),
     main UNet."""
     from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
     from magicdance_tpu_torch.models.magicpose import appearance_unet_config
-    from magicdance_tpu_torch.models.unet import decoder_plan, unet_plan
 
     def sites(net, ucfg, decoder=True):
-        units, _, ds_mid = unet_plan(ucfg)
-        out = [("enc", u["ds"], u["ch"]) for u in units if u["attn"]]
-        out.append(("mid", ds_mid, ucfg.model_channels * ucfg.channel_mult[-1]))
-        if decoder:
-            out += [("dec", u["ds"], u["ch"]) for u in decoder_plan(ucfg) if u["attn"]]
-        return [(net, part, (latent // ds) ** 2, ch // ucfg.num_heads)
-                for part, ds, ch in out for _ in range(ucfg.transformer_depth)]
+        return [(net, s, d) for kind, s, d in unet_sites(ucfg, latent, decoder)
+                if kind == "spatial"]
 
     return (sites("appearance", appearance_unet_config(model_cfg))
             + sites("controlnet", controlnet_unet_config(model_cfg.pose_control,
@@ -510,7 +536,7 @@ def training_launch_plan(model_cfg, latent: int):
     from collections import Counter
 
     sites = training_sites(model_cfg, latent)
-    kern = [x for x in sites if x[2] >= 256 and x[3] <= 256]
+    kern = [x for x in sites if x[1] >= 256 and x[2] <= 256]
     app = [x for x in kern if x[0] == "appearance"]
     cn = [x for x in kern if x[0] == "controlnet"]
     main = [x for x in kern if x[0] == "main"]
@@ -519,15 +545,15 @@ def training_launch_plan(model_cfg, latent: int):
     last_app = [x for x in sites if x[0] == "appearance"][-1]
     app_bwd = app[:-1] if app and app[-1] is last_app else app
     plan = Counter()
-    for _, _, s, d in app + cn:
+    for _, s, d in app + cn:
         plan["self_attention_lse", s, d] += 2
-    for _, _, s, d in main:
+    for _, s, d in main:
         plan["two_source_attention_lse", s, d] += 2
         plan["attention_dkv", s, d] += 1  # bank source
-    for _, _, s, d in app_bwd + cn:
+    for _, s, d in app_bwd + cn:
         plan["attention_dq", s, d] += 1
         plan["attention_dkv", s, d] += 1
-    for _, _, s, d in main_q:
+    for _, s, d in main_q:
         plan["attention_dq_two_source", s, d] += 1
         plan["attention_dkv", s, d] += 1  # self source
     totals = {m: sum(n for (mode, _, _), n in plan.items() if mode == m) for m in TRAIN_MODES}
@@ -546,6 +572,143 @@ def training_launch_plan(model_cfg, latent: int):
                          f"sources = {totals['attention_dkv']}",
     }
     return plan, totals, formula
+
+
+def unet_sites(ucfg, latent: int, decoder: bool = True):
+    """The attention sites of one UNet pass in traversal order: ("spatial",
+    S, D) per transformer block's self-attention (its cross-attention over
+    the context never reaches a kernel) and ("motion", h*w, C) per motion
+    module."""
+    from magicdance_tpu_torch.models.unet import decoder_plan, unet_plan
+
+    units, _, ds_mid = unet_plan(ucfg)
+    out = []
+
+    def spatial(ds, ch):
+        out.extend([("spatial", (latent // ds) ** 2, ch // ucfg.num_heads)]
+                   * ucfg.transformer_depth)
+
+    def motion(ds, ch):
+        if ucfg.use_motion_modules:
+            out.append(("motion", (latent // ds) ** 2, ch))
+
+    for u in units:
+        if u["kind"] == "res":
+            if u["attn"]:
+                spatial(u["ds"], u["ch"])
+            motion(u["ds"], u["ch"])
+    spatial(ds_mid, ucfg.model_channels * ucfg.channel_mult[-1])
+    if decoder:
+        for u in decoder_plan(ucfg):
+            if u["attn"]:
+                spatial(u["ds"], u["ch"])
+            motion(u["ds"], u["ch"])
+    return out
+
+
+def _self_mode(s: int, d: int, batch: int):
+    """The kernel a self-attention site without a gradient launches, or None
+    (ops.attention's dispatch)."""
+    from magicdance_tpu_torch.ops.attention import _grouped_site, _kernel_site
+
+    if _grouped_site(s, s, d, batch):
+        return "grouped"
+    return "self_attention" if _kernel_site(s, s, d) else None
+
+
+def _motion_launches(ucfg, hw: int, ch: int, clips: int, frames: int) -> int:
+    """Grouped-kernel launches of one forward of one motion module: one per
+    attention unit when the unit is a grouped site (clips*h*w sequences of
+    `frames` rows), else none."""
+    from magicdance_tpu_torch.ops.attention import _grouped_site
+
+    n = ucfg.motion_layers * ucfg.motion_attn_blocks
+    return n if _grouped_site(frames, frames, ch // ucfg.motion_num_heads, clips * hw) else 0
+
+
+def _vae_launches(vae_cfg, latent: int, calls: int) -> dict:
+    """Kernel A launches of `calls` VAE encodes or decodes: the one
+    single-head mid attention over the latent grid."""
+    from magicdance_tpu_torch.ops.attention import _kernel_site
+
+    s, d = latent ** 2, vae_cfg.base_channels * vae_cfg.channel_mult[-1]
+    return {"self_attention": calls} if _kernel_site(s, s, d) else {}
+
+
+def serving_launch_plan(model_cfg, latent: int, batch: int, frames: int) -> dict:
+    """Kernel launches of one DDIM step of the exact samplers (the image
+    sampler with frames = 1, the overlap sampler with frames = the window):
+    the appearance write pass on the batch-1 reference, the ControlNet, the
+    main UNet's cond pass reading the bank and its uncond pass, each on
+    `batch` frames (clips of `frames`)."""
+    from collections import Counter
+
+    from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
+    from magicdance_tpu_torch.models.magicpose import appearance_unet_config
+    from magicdance_tpu_torch.ops.attention import _kernel_site
+
+    c = Counter()
+    for _, s, d in unet_sites(appearance_unet_config(model_cfg), latent):
+        c[_self_mode(s, d, 1)] += 1
+    cn = controlnet_unet_config(model_cfg.pose_control, model_cfg.unet.in_channels)
+    for _, s, d in unet_sites(cn, latent, decoder=False):
+        c[_self_mode(s, d, batch)] += 1
+    main = model_cfg.unet
+    for cond in (True, False):
+        for kind, s, x in unet_sites(main, latent):
+            if kind == "motion":
+                c["grouped"] += _motion_launches(main, s, x, batch // frames, frames)
+            elif cond:
+                c["two_source_attention" if _kernel_site(s, 2 * s, x) else None] += 1
+            else:
+                c[_self_mode(s, x, batch)] += 1
+    return {m: n for m, n in c.items() if m and n}
+
+
+def stage3_launch_plan(cfg, image: int, clips: int) -> dict:
+    """Kernel launches of one stage-3 train step (MOTION_ONLY) on `clips`
+    clips of cfg.video_frames frames: the frozen VAE encodes (chunked) and
+    the frozen appearance UNet and ControlNet launch the forward kernels
+    without LSE; in the main UNet the first bank read depends on no trainable
+    parameter (kernel B without LSE), every later one does (B with LSE twice
+    under remat, dQ of two sources, dK/dV of the self source; the frozen bank
+    needs none), and every motion-module attention runs the grouped forward
+    twice under remat and its backward once."""
+    from collections import Counter
+
+    from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
+    from magicdance_tpu_torch.models.magicpose import appearance_unet_config
+    from magicdance_tpu_torch.ops.attention import _kernel_site
+
+    m = cfg.model
+    frames, n = cfg.video_frames, clips * cfg.video_frames
+    latent = image // 2 ** (len(m.vae.channel_mult) - 1)
+    chunk = cfg.vae_encode_chunk
+
+    def encodes(b):
+        return b // chunk if chunk and b > chunk and b % chunk == 0 else 1
+
+    c = Counter(_vae_launches(m.vae, latent, encodes(n) + encodes(clips)))
+    for _, s, d in unet_sites(appearance_unet_config(m), latent):
+        c[_self_mode(s, d, clips)] += 1
+    cn = controlnet_unet_config(m.pose_control, m.unet.in_channels)
+    for _, s, d in unet_sites(cn, latent, decoder=False):
+        c[_self_mode(s, d, n)] += 1
+    fwd = 2 if m.unet.remat else 1
+    grad = False
+    for kind, s, x in unet_sites(m.unet, latent):
+        if kind == "motion":
+            k = _motion_launches(m.unet, s, x, clips, frames)
+            c["grouped"] += fwd * k
+            c["grouped_bwd"] += k
+            grad = True
+        elif _kernel_site(s, 2 * s, x) and grad:
+            c["two_source_attention_lse"] += fwd
+            c["attention_dq_two_source"] += 1
+            c["attention_dkv"] += 1
+        elif _kernel_site(s, 2 * s, x):
+            c["two_source_attention"] += 1
+    return {k: v for k, v in c.items() if k and v}
 
 
 def check_training_kernels(plan, batch: int = 2, heads: int = 8):
@@ -690,6 +853,33 @@ def narrow_train_config():
                           latent_size=16, dtype="float32")
     return C.TrainConfig(model=model, optim=C.OptimConfig(
         learning_rate=1e-4, warmup_steps=1, adam_eps=1e-4, frozen_dtype="float32"))
+
+
+def narrow_temporal_config():
+    """The narrow model with motion modules (2 heads of 16 and 32 channels)
+    at 128x128: the first level's 256 positions take kernels A and B, and
+    windows of 4 frames make its motion attention a grouped site."""
+    from magicdance_tpu_torch import config as C
+
+    narrow = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                  attention_resolutions=(1, 2), num_heads=2, context_dim=16)
+    return C.ModelConfig(
+        variant=C.ModelVariant.APPEARANCE_POSE_TEMPORAL,
+        unet=C.UNetConfig(**narrow, use_motion_modules=True, motion_num_heads=2),
+        pose_control=C.ControlNetConfig(**narrow),
+        vae=C.VAEConfig(base_channels=32, channel_mult=(1, 1, 2, 2), num_res_blocks=1),
+        clip=C.CLIPTextConfig(hidden_size=16, num_layers=1, num_heads=2),
+        latent_size=16, dtype="float32")
+
+
+def narrow_stage3_config(frames: int = 4):
+    """Stage 3 (MOTION_ONLY) on the narrow temporal model, clips of 4."""
+    from magicdance_tpu_torch import config as C
+
+    return C.TrainConfig(model=narrow_temporal_config(), freeze=C.FreezeRegime.MOTION_ONLY,
+                         video_frames=frames, optim=C.OptimConfig(
+                             learning_rate=1e-4, warmup_steps=1, adam_eps=1e-4,
+                             frozen_dtype="float32"))
 
 
 def small_training_check():
@@ -875,6 +1065,348 @@ def training_breakdown(tr, batch):
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 10-13: the video path (motion modules, grouped kernel G)
+# --------------------------------------------------------------------------
+
+
+def temporal_model_config():
+    """SD1.5 width with AnimateDiff motion modules: the stage-3 model."""
+    from magicdance_tpu_torch.config import stage3_motion
+
+    return stage3_motion().model
+
+
+def grouped_shapes(frames: int = 16, latent: int = 64):
+    """(sequences, S, H, D, launches per DDIM step, launches per training
+    step) of every motion-module attention shape of one `frames`-frame
+    window at 512x512: (h*w, S = frames) sequences, forward per DDIM step
+    (cond + uncond) and per stage-3 step (forward + remat recompute)."""
+    from collections import Counter
+
+    ucfg = temporal_model_config().unet
+    per = Counter()
+    for kind, hw, ch in unet_sites(ucfg, latent):
+        if kind == "motion":
+            per[hw, ch] += ucfg.motion_layers * ucfg.motion_attn_blocks
+    heads = ucfg.motion_num_heads
+    return [(hw, frames, heads, ch // heads, 2 * n, n) for (hw, ch), n in
+            sorted(per.items(), reverse=True)]
+
+
+def grouped_bound_ms(kind: str, n: int, s: int, c: int, itemsize: int = 2):
+    """Least time of one grouped launch over n sequences of s rows and c =
+    H*D channels: bytes (q, k, v in and o out; backward q, k, v, dO in and
+    dq, dk, dv out) over the memory rate vs the products the kernel does (2,
+    forward, and 5, backward, S x S x D products of 2 operations per
+    multiply-add, per sequence and head) over the bf16 peak."""
+    rows = n * s
+    tensors, products = (4, 2) if kind == "fwd" else (7, 5)
+    nbytes = itemsize * tensors * rows * c
+    flops = 2.0 * products * rows * s * c
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def check_grouped_kernels():
+    """Phase 10: kernel G forward and backward against their plain versions
+    at every full-width motion shape (bf16, timed), one shape in fp32, one
+    frame per clip (S = 1) and a two-window batch. Gates as phases 3 and 7."""
+    import torch
+    import torch.nn.functional as F
+
+    from magicdance_tpu_torch.ops.kernels import grouped as G
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(777)
+    errs = {"grouped_attention": 0.0, "grouped_attention_bwd": 0.0}
+    checked = dict.fromkeys(errs, 0)
+    rows = []
+
+    def check(name, got, want, label, grad):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rms = want.float().pow(2).mean().sqrt().item()
+        if want.dtype == torch.bfloat16:
+            tol = min(GRAD_BF16_TOL if grad else BF16_TOL, BF16_REL_TOL * rms)
+        else:
+            tol = FP32_TOL * (max(1.0, want.float().abs().max().item()) if grad else 1.0)
+        if not (err <= tol and got.shape == want.shape and got.dtype == want.dtype):
+            raise AssertionError(f"{name} {label}: max|kernel - plain| = {err:.3e} > "
+                                 f"{tol:.3e} (plain rms {rms:.3e})")
+        errs[name] = max(errs[name], err)
+        checked[name] += 1
+        log(f"  ok  {name:22s} {label:44s} max_abs_err={err:.3e} rms={rms:.3e} "
+            f"(tol {tol:.3e})")
+
+    cases = [(n, s, h, d, ps, pt, torch.bfloat16, True) for n, s, h, d, ps, pt in grouped_shapes()]
+    n0, s0, h0, d0 = cases[0][:4]
+    cases += [(n0, s0, h0, d0, 0, 0, torch.float32, False),
+              (2 * n0, 1, h0, d0, 0, 0, torch.bfloat16, False),   # S = 1
+              (2 * n0, 1, h0, d0, 0, 0, torch.float32, False),
+              (2 * n0, s0, h0, d0, 0, 0, torch.bfloat16, False)]  # two windows
+    for n, s, h, d, per_step, per_train, dtype, timed in cases:
+        q, k, v, g = (torch.randn(n, s, h * d, generator=gen, device=dev).to(dtype)
+                      for _ in range(4))
+        label = f"{str(dtype)[6:]} ({n}x{s}, {h * d}) D={d}"
+        check("grouped_attention", G.grouped_attention(q, k, v, None, h),
+              G.grouped_attention_ref(q, k, v, None, h), f"{label} o", grad=False)
+        got = G.grouped_attention_bwd(q, k, v, g, None, h)
+        want = G.grouped_attention_bwd_ref(q, k, v, g, None, h)
+        for a, b, nm in zip(got, want, ("dq", "dk", "dv")):
+            check("grouped_attention_bwd", a, b, f"{label} {nm}", grad=True)
+        if not timed:
+            continue
+        qs, ks, vs = (t.view(n, s, h, d).transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs)
+        gs = g.view(n, s, h, d).transpose(1, 2)
+        times = {
+            "fwd": (cuda_time_ms(lambda: G.grouped_attention(q, k, v, None, h)),
+                    cuda_time_ms(lambda: G.grouped_attention_ref(q, k, v, None, h),
+                                 min_total_s=0.1, max_iters=5),
+                    cuda_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+                    per_step, "grouped"),
+            "bwd": (cuda_time_ms(lambda: G.grouped_attention_bwd(q, k, v, g, None, h)),
+                    cuda_time_ms(lambda: G.grouped_attention_bwd_ref(q, k, v, g, None, h),
+                                 min_total_s=0.1, max_iters=5),
+                    cuda_time_ms(lambda: torch.autograd.grad(lib_out, [qs, ks, vs], gs,
+                                                             retain_graph=True)),
+                    per_train, "grouped_bwd"),
+        }
+        for kind, (ms, plain_ms, lib_ms, launches, mode) in times.items():
+            bound, bound_by = grouped_bound_ms(kind, n, s, h * d)
+            rows.append(dict(mode=mode, sequences=n, S=s, H=h, D=d, C=h * d,
+                             launches_per_step=launches, kernel_ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+            log(f"      {mode:12s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}) x{launches}/"
+                f"{'DDIM step' if kind == 'fwd' else 'training step'}")
+        del lib_out, qs, ks, vs, gs
+        torch.cuda.empty_cache()
+    return rows, errs, checked
+
+
+def small_video_check():
+    """Phase 11a: narrow temporal model at 128x128, F = 10 frames in windows
+    of 4, stride 3, 3 DDIM steps with CFG 7: the card (kernels A, B, G) vs
+    the CPU (plain versions), fp32, the same weights, x_T and offsets."""
+    import torch
+
+    from magicdance_tpu_torch.config import SampleConfig
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline
+
+    cfg = narrow_temporal_config()
+    g = torch.Generator().manual_seed(11)
+    pose = torch.rand(10, 128, 128, 3, generator=g)
+    ref = torch.rand(1, 128, 128, 3, generator=g) * 2 - 1
+    x_T = torch.randn(10, 16, 16, 4, generator=g)
+    scfg = SampleConfig(steps=3, window=4, stride=3)
+    offsets = [3, 7, 0]
+    cpu = MagicPosePipeline(cfg, device="cpu")
+    cpu.init_params(seed=5, scale=0.1)
+    gpu = MagicPosePipeline(cfg, device="cuda")
+    for name in ("model", "vae", "clip"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    kw = dict(decode=False, video=True, x_T=x_T, window_offsets=offsets)
+    want = cpu.sample_frames(pose, ref, scfg, **kw)
+    K.reset_launches()
+    got = gpu.sample_frames(pose, ref, scfg, **kw).cpu()
+    launches = {m: n for m, n in K.LAUNCHES.items() if n}
+    plan = serving_launch_plan(cfg, 16, 16, 4)
+    expect = {m: n * scfg.steps for m, n in plan.items()}
+    for m, n in _vae_launches(cfg.vae, 16, 1).items():  # the reference's encode
+        expect[m] = expect.get(m, 0) + n
+    if launches != expect:
+        raise AssertionError(f"narrow video launches {launches}, plan {expect}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = 1e-4 * max(1.0, scale)  # fp32, CFG 7 over 3 steps (as phase 4)
+    if not (err <= tol and torch.isfinite(got).all()):
+        raise AssertionError(f"narrow video card vs CPU: max abs err {err:.3e} > {tol:.3e}")
+    log(f"  ok  narrow 128x128 video F=10 W=4 stride 3, 3 steps CFG 7, card (kernels) vs "
+        f"CPU (plain): max_abs_err={err:.3e} (tol {tol:.1e}, |out|max={scale:.3f}), "
+        f"launches {launches}")
+    return dict(err=err, scale=scale, launches=launches)
+
+
+def small_stage3_check():
+    """Phase 11b: one narrow stage-3 step (one clip of 4 frames at 128x128),
+    card vs CPU, fp32, with the same weights, batch and draws."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    cfg = narrow_stage3_config()
+    cpu = Trainer(cfg, device="cpu")
+    cpu.init_random(seed=4, scale=0.1)
+    gpu = Trainer(cfg, device="cuda")
+    for name in ("model", "vae", "clip"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    g = torch.Generator().manual_seed(9)
+    batch = {"image": torch.rand(4, 128, 128, 3, generator=g) * 2 - 1,
+             "reference": torch.rand(1, 128, 128, 3, generator=g) * 2 - 1,
+             "pose": torch.rand(4, 128, 128, 3, generator=g),
+             "input_ids": torch.zeros(4, 77, dtype=torch.long)}
+    draws = cpu.draw(batch)
+    loss_c, _, grads_c = cpu.loss_and_grads(batch, draws)
+    K.reset_launches()
+    loss_g, _, grads_g = gpu.loss_and_grads(gpu.to_device(batch), draws)
+    torch.cuda.synchronize()
+    launches = {m: n for m, n in K.LAUNCHES.items() if n}
+    plan = stage3_launch_plan(cfg, 128, 1)
+    if launches != plan:
+        raise AssertionError(f"narrow stage-3 step launches {launches}, plan {plan}")
+    loss_err = abs(float(loss_g) - float(loss_c))
+    gmax = max(t.abs().max().item() for t in grads_c.values())
+    gerr = max((grads_g[k].cpu() - grads_c[k]).abs().max().item() for k in grads_c)
+    if not (loss_err <= 1e-5 * max(1.0, abs(float(loss_c))) and gerr <= 1e-4 * gmax):
+        raise AssertionError(f"card vs CPU stage-3 step: loss err {loss_err:.3e}, max grad "
+                             f"err {gerr:.3e} (max |grad| {gmax:.3e})")
+    log(f"  ok  narrow stage-3 step (1 clip x 4 frames, 128x128), card vs CPU, fp32: loss "
+        f"{float(loss_c):.6f} err {loss_err:.3e}; max grad err {gerr:.3e} (max |grad| "
+        f"{gmax:.3e}), {len(grads_c)} motion tensors; launches {launches}")
+    return dict(loss_err=loss_err, grad_err=gerr, grad_max=gmax, launches=launches)
+
+
+def video_main_path(requests: int, frames: int, steps: int):
+    """Phase 12: full-width video requests, `frames` pose maps at 512x512
+    in one window of 16 frames, default SampleConfig (DDIM-50, CFG 7)."""
+    import torch
+
+    from magicdance_tpu_torch.config import SampleConfig
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline
+
+    cfg = temporal_model_config()
+    t0 = time.perf_counter()
+    pipe = MagicPosePipeline(cfg, device="cuda")
+    pipe.init_params(seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.model, pipe.vae, pipe.clip) for p in m.parameters())
+    n_motion = sum(p.numel() for k, p in pipe.model.named_parameters() if "motion" in k)
+    log(f"  temporal pipeline built, {n_params / 1e9:.3f} B parameters ({n_motion / 1e9:.3f} B "
+        f"in 20 motion modules), seeded random weights, {time.perf_counter() - t0:.1f} s")
+    scfg = SampleConfig(steps=steps)
+    window = min(scfg.window, frames)
+    plan = serving_launch_plan(cfg, 64, frames, window)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = [(torch.rand(frames, 512, 512, 3, generator=gen, device="cuda"),
+               torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1)
+              for _ in range(requests)]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    secs = []
+    for pose, ref in inputs:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.sample_frames(pose, ref, scfg, video=True, generator=gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        if tuple(out.shape) != (frames, 512, 512, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"bad video output {tuple(out.shape)}, finite="
+                                 f"{bool(torch.isfinite(out).all())}")
+    launches = dict(K.LAUNCHES)
+    expect = {**{m: 0 for m in K.LAUNCHES}, **{m: n * steps * requests for m, n in plan.items()}}
+    if launches != expect:
+        raise AssertionError(f"video kernel launches {launches}, expected {expect} "
+                             f"({plan} per DDIM step)")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {requests} video requests x {frames} frames (window {window}, stride "
+        f"{scfg.stride}), DDIM-{steps}, CFG {scfg.cfg_scale}: seconds per request "
+        f"{[round(s, 3) for s in secs]}, frames/s {[round(frames / s, 4) for s in secs]}, "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"  launches {launches} = {plan} per DDIM step")
+    return pipe, dict(seconds_per_request=secs, frames=frames, steps=steps, window=window,
+                      frames_per_s=[frames / s for s in secs], peak_bytes=peak,
+                      launches=launches, plan_per_step=plan)
+
+
+def full_width_stage3(steps: int = 3):
+    """Phase 13: the stage-3 trainer at full SD1.5 width: one clip of 16
+    frames at 512x512 per step, remat on, bf16 denoiser, frozen weights in
+    bf16, only the 20 motion modules train."""
+    import dataclasses
+
+    import torch
+
+    from magicdance_tpu_torch import config as C
+    from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    cfg = C.stage3_motion()
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, warmup_steps=1))
+    frames, clips = cfg.video_frames, cfg.batch_size_per_device
+    plan = stage3_launch_plan(cfg, cfg.image_size, clips)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda")
+    tr.init_random(seed=0)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in tr.train_params.values())
+    n_all = sum(p.numel() for m in (tr.model, tr.vae, tr.clip) for p in m.parameters())
+    log(f"  stage-3 trainer built, {n_all / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B "
+        f"trainable motion-module parameters, fp32; frozen in {cfg.optim.frozen_dtype}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n = clips * frames
+    ids = torch.from_numpy(empty_prompt_ids(n, cfg.model.clip.max_length)).cuda()
+
+    def make_batch():
+        return {"image": torch.rand(n, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
+                "reference": torch.rand(clips, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
+                "pose": torch.rand(n, 512, 512, 3, generator=gen, device="cuda"),
+                "input_ids": ids}
+
+    batches = [make_batch() for _ in range(steps + 1)]
+    frozen = {k: p.detach().clone() for m in (tr.model, tr.vae, tr.clip)
+              for k, p in m.named_parameters(prefix=type(m).__name__) if not p.requires_grad}
+    train_before = {k: p.detach().clone() for k, p in tr.train_params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, per_step = [], [], []
+    K.reset_launches()
+    for b in batches[:steps]:
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = tr.train_step(b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+        per_step.append({m: K.LAUNCHES[m] - before[m] for m in K.LAUNCHES})
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {**{m: 0 for m in K.LAUNCHES}, **plan}
+    for i, got in enumerate(per_step):
+        if got != expect:
+            raise AssertionError(f"stage-3 step {i + 1}: launches {got}, plan {expect}")
+    if not all(torch.isfinite(torch.tensor(losses))):
+        raise AssertionError(f"non-finite stage-3 losses {losses}")
+    for m in (tr.model, tr.vae, tr.clip):
+        for k, p in m.named_parameters(prefix=type(m).__name__):
+            if not p.requires_grad and not torch.equal(p.detach(), frozen[k]):
+                raise AssertionError(f"frozen parameter {k} changed")
+    moved = sum(int(not torch.equal(p.detach(), train_before[k]))
+                for k, p in tr.train_params.items())
+    if moved == 0:
+        raise AssertionError("no motion-module parameter moved")
+    del frozen, train_before
+    steady = sum(secs[1:]) / max(1, len(secs) - 1)
+    log(f"  {steps} stage-3 steps of {clips} clip x {frames} frames at 512x512: losses "
+        f"{[round(x, 5) for x in losses]}, seconds per step {[round(x, 3) for x in secs]} "
+        f"(first {secs[0]:.3f}, steady {steady:.3f}), {clips / steady:.4f} clips/s "
+        f"({n / steady:.3f} frames/s), peak memory {peak / 2**30:.2f} GiB; {moved}/"
+        f"{len(tr.train_params)} motion tensors moved, frozen weights bit-identical")
+    log(f"  launches per step {per_step[0]} = plan {plan}")
+    breakdown = training_breakdown(tr, batches[steps])
+    return dict(seconds_per_step=secs, losses=losses, clips_per_s=clips / steady,
+                peak_bytes=peak, launches=launches,
+                launches_per_step={m: k for m, k in per_step[0].items() if k},
+                trainable_params=n_train, breakdown_ms=breakdown)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
@@ -951,6 +1483,25 @@ def main(argv=None) -> int:
 
     log("== phase 9: training path (full SD1.5 width, stage 2, B = 2, 512x512)")
     train = full_width_training(steps=4, batch=frames)
+    torch.cuda.empty_cache()
+
+    log("== phase 10: grouped (temporal) kernel G vs plain versions (full-width motion shapes)")
+    grouped_rows, grouped_errs, grouped_checked = check_grouped_kernels()
+
+    log("== phase 11: small-input video references (narrow temporal model, card vs CPU)")
+    small_video = small_video_check()
+    small_stage3 = small_stage3_check()
+
+    log(f"== phase 12: video path (full SD1.5 width + motion modules, 16 frames at 512x512, "
+        f"DDIM-{steps})")
+    vpipe, video = video_main_path(requests, 16, steps)
+    log("== phase 12b: where one video request's time goes (time per piece, 16 frames)")
+    video["breakdown_ms"] = step_breakdown(vpipe, 16, num_frames=16)
+    del vpipe
+    torch.cuda.empty_cache()
+
+    log("== phase 13: stage-3 training path (full SD1.5 width, one 16-frame clip, 512x512)")
+    stage3 = full_width_stage3(steps=3)
 
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
@@ -961,25 +1512,34 @@ def main(argv=None) -> int:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["launches_per_step"]
         return max(by, key=by.get)
 
+    paths = {"image serving (2 requests x 50 DDIM steps)": e2e["launches"],
+             "image training (stage 2, 4 steps)": train["launches"],
+             "video serving (2 requests x 50 DDIM steps)": video["launches"],
+             "video training (stage 3, 3 steps)": stage3["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
-        serving = [r for r in rows if r["kernel"] == name]
-        training = [r for r in train_rows if r["mode"] in meta["modes"]]
-        served = sum(e2e["launches"][m] for m in meta["modes"])
-        trained = sum(train["launches"][m] for m in meta["modes"])
-        main_rows = serving if serving else training
+        by_path = {p: sum(launches[m] for m in meta["modes"]) for p, launches in paths.items()}
+        if name.startswith("grouped"):
+            main_rows = [r for r in grouped_rows if r["mode"] in meta["modes"]]
+            serving, training = (main_rows, []) if name == "grouped_attention" else ([], main_rows)
+            err, n_checked = grouped_errs[name], grouped_checked[name]
+        else:
+            serving = [r for r in rows if r["kernel"] == name]
+            training = [r for r in train_rows if r["mode"] in meta["modes"]]
+            main_rows = serving if serving else training
+            err = max(errs.get(name, 0.0), train_errs[name])
+            n_checked = checked.get(name, 0) + train_checked[name]
         entry = dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-            launches=served + trained,
-            launches_by_path={"serving (2 requests x 50 DDIM steps)": served,
-                              "training (4 steps)": trained},
-            max_abs_err=max(errs.get(name, 0.0), train_errs[name]),
+            launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
             ms=per_step(main_rows, "kernel_ms"), plain_ms=per_step(main_rows, "plain_ms"),
             bound_ms=per_step(main_rows, "bound_ms"), bound_by=bound_by(main_rows),
             library_ms=per_step(main_rows, "library_ms"),
-            per=("one DDIM step of the serving path (sum over its launches)" if serving
-                 else "one training step (sum over its launches)"),
-            check=f"{checked.get(name, 0) + train_checked[name]} comparisons within tolerance")
+            per=("one DDIM step of the " + ("video" if name.startswith("grouped") else "image")
+                 + " serving path (sum over its launches)" if serving
+                 else "one " + ("stage-3" if name.startswith("grouped") else "stage-2")
+                 + " training step (sum over its launches)"),
+            check=f"{n_checked} comparisons within tolerance")
         if name in ratios:
             entry["max_err_over_rms"] = ratios[name]
         if serving and training:
@@ -993,8 +1553,10 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(dict(card=card, shapes=rows, main_path=e2e, training_shapes=train_rows,
-                           small_training=small_train, training=train, kernels=kernels),
-                      f, indent=1)
+                           small_training=small_train, training=train,
+                           grouped_shapes=grouped_rows, small_video=small_video,
+                           small_stage3=small_stage3, video=video, stage3=stage3,
+                           kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

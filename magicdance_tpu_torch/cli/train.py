@@ -1,14 +1,16 @@
-"""Training CLI: the two-stage MagicPose image curriculum on one GPU.
+"""Training CLI: the MagicPose curriculum on one GPU.
 
-Counterpart of `magicdance_tpu.cli.train` for stages 1 and 2 (ref
-train_tiktok.py:546 main; scripts/appearance_control_pretraining.sh and
-scripts/appearance_disentangle_pose_control.sh). Stage selection is explicit
-(`--stage 1|2` or a JSON TrainConfig). Runs on the GPU unless `--device cpu`.
+Counterpart of `magicdance_tpu.cli.train` (ref train_tiktok.py:546 main;
+scripts/appearance_control_pretraining.sh and
+scripts/appearance_disentangle_pose_control.sh): stages 1 and 2 train on
+(reference, target, pose) image pairs, stage 3 (the motion modules) on
+clips of `video_frames` frames folded into the batch. Stage selection is
+explicit (`--stage 1|2|3` or a JSON TrainConfig). Runs on the GPU unless
+`--device cpu`.
 
-Not in this slice: `--stage 3` and `--motion_module_checkpoint` (the video
-slice) and `--init_checkpoint` (the conversion slice) raise
-NotImplementedError. Without a checkpoint the weights are seeded random
-(every leaf), which is for smoke runs.
+Not ported yet: `--init_checkpoint` and `--motion_module_checkpoint` (the
+conversion slice) raise NotImplementedError. Without a checkpoint the
+weights are seeded random (every leaf), which is for smoke runs.
 
 Usage:
   python -m magicdance_tpu_torch.cli.train --stage 2 --data TikTok-v4 \\
@@ -32,7 +34,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--init_checkpoint", default=None,
                    help="torch checkpoint to initialize from (not ported yet)")
     p.add_argument("--motion_module_checkpoint", default=None,
-                   help="stage-3 motion-module checkpoint (not ported yet)")
+                   help="AnimateDiff motion-module checkpoint for stage 3 "
+                        "(not ported yet)")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--batch", type=int, default=None, help="per-device batch")
     p.add_argument("--lr", type=float, default=None)
@@ -49,7 +52,8 @@ def main(argv=None) -> None:
     if args.init_checkpoint:
         raise NotImplementedError("--init_checkpoint comes with the conversion slice")
     if args.motion_module_checkpoint:
-        raise NotImplementedError("--motion_module_checkpoint comes with the video slice")
+        raise NotImplementedError("--motion_module_checkpoint comes with the conversion "
+                                  "slice")
 
     import numpy as np
     import torch
@@ -57,6 +61,7 @@ def main(argv=None) -> None:
     from magicdance_tpu_torch import config as C
     from magicdance_tpu_torch.data.loader import PrefetchLoader
     from magicdance_tpu_torch.data.tiktok import TikTokPairDataset
+    from magicdance_tpu_torch.data.tiktok_video import TikTokClipDataset
     from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids
     from magicdance_tpu_torch.train.checkpoint import CheckpointManager
     from magicdance_tpu_torch.train.trainer import Trainer
@@ -64,12 +69,9 @@ def main(argv=None) -> None:
 
     if args.config:
         cfg = C.load_json(args.config, C.TrainConfig)
-    elif args.stage == 3:
-        raise NotImplementedError("--stage 3 comes with the video slice")
     else:
-        cfg = {1: C.stage1_appearance_pretrain, 2: C.stage2_pose_control}[args.stage]()
-    if cfg.model.has_temporal:
-        raise NotImplementedError("temporal (stage-3) training comes with the video slice")
+        cfg = {1: C.stage1_appearance_pretrain, 2: C.stage2_pose_control,
+               3: C.stage3_motion}[args.stage]()
     updates = {"output_dir": args.output, "seed": args.seed, "image_size": args.image_size}
     if args.steps:
         updates["num_train_steps"] = args.steps
@@ -99,14 +101,22 @@ def main(argv=None) -> None:
         start_step = trainer.step
         print(f"[train] resumed from step {start_step}")
 
-    # ---- data: (reference, target, pose) pairs, empty prompts ------------
-    ids = empty_prompt_ids(global_batch, cfg.model.clip.max_length)
+    # ---- data: (reference, target, pose) pairs, or F-frame clips folded
+    # into the batch axis (ref train_tiktok.py:1189-1200); empty prompts ----
+    F = trainer.num_frames
+    ids = empty_prompt_ids(global_batch * F, cfg.model.clip.max_length)
 
     def it_factory(worker: int):
-        ds = TikTokPairDataset(root=args.data, image_size=cfg.image_size,
-                               img_bin_limit=cfg.img_bin_limit,
-                               use_pose=cfg.model.has_pose,
-                               seed=cfg.seed * 1000 + worker)
+        if cfg.model.has_temporal:
+            ds = TikTokClipDataset(root=args.data, image_size=cfg.image_size,
+                                   clip_len=cfg.video_frames, frame_stride=cfg.frame_stride,
+                                   use_pose=cfg.model.has_pose,
+                                   seed=cfg.seed * 1000 + worker)
+        else:
+            ds = TikTokPairDataset(root=args.data, image_size=cfg.image_size,
+                                   img_bin_limit=cfg.img_bin_limit,
+                                   use_pose=cfg.model.has_pose,
+                                   seed=cfg.seed * 1000 + worker)
         for batch in ds.batches(global_batch):
             batch["input_ids"] = ids
             if not cfg.model.has_pose:
@@ -135,6 +145,7 @@ def main(argv=None) -> None:
         pose = batch["pose"][:n] if "pose" in batch else None
         ref = batch["reference"][:1]
         gen = pipe.sample_frames(pose, ref, SampleConfig(steps=cfg.vis_steps, cfg_scale=7.0),
+                                 video=cfg.model.has_temporal,
                                  generator=torch.Generator(device=device).manual_seed(it))
         gen = gen.cpu().numpy()
         rows = []
@@ -163,7 +174,7 @@ def main(argv=None) -> None:
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - t_last
                 t_last = time.time()
-                ips = cfg.logging_steps * global_batch / dt
+                ips = cfg.logging_steps * global_batch * F / dt
                 logger.log(it + 1, {**m, "images_per_sec": ips})
                 print(f"[train] step {it + 1} loss={m['loss']:.4f} {ips:.1f} img/s")
             if vis_batch is not None:

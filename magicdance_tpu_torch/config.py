@@ -428,8 +428,8 @@ def stage2_pose_control() -> TrainConfig:
 
 def stage3_motion() -> TrainConfig:
     """Motion-module training (code-present-but-unshipped stage 3,
-    ref train_tiktok.py:847-956). The port's trainer does not run it yet
-    (the video slice); the preset is kept so configs round-trip."""
+    ref train_tiktok.py:847-956): one clip of `video_frames` frames per
+    step, only the motion modules train."""
     return TrainConfig(
         model=ModelConfig(
             variant=ModelVariant.APPEARANCE_POSE_TEMPORAL,

@@ -8,6 +8,9 @@ a walk over the Flax tree with one rule per leaf name:
   * norm `scale`, Embed `embedding` -> `weight`
   * anything else (`bias`, `position_embedding`) keeps its name and layout.
 
+The motion modules (`enc_motion_*`, `dec_motion_*`) are Dense, LayerNorm
+and GroupNorm leaves too, so they cross by the same rules.
+
 Input: the JAX pipeline's {"model", "vae", "clip"} variables, each
 {"params": {...}} (or the bare param tree), with numpy arrays as leaves; or a
 JAX trainer's `TrainState` (`load_train_state`), whose trainable and frozen

@@ -39,12 +39,15 @@ def output_to_eps(parameterization: Parameterization, sched: DiffusionSchedule,
 
 
 def draw_timesteps_and_noise(sched: DiffusionSchedule, x_start: torch.Tensor,
-                             generator: Optional[torch.Generator] = None):
+                             generator: Optional[torch.Generator] = None,
+                             num_frames: int = 1):
     """t ~ U{0, ..., T-1} per sample and standard-normal noise like x_start,
-    on x_start's device."""
+    on x_start's device. With num_frames > 1 the batch holds clips of that
+    many frames (clip major) and each clip draws one timestep, shared by its
+    frames (the AnimateDiff convention, JAX diffusion.py:43-52)."""
     b = x_start.shape[0]
-    t = torch.randint(0, sched.num_timesteps, (b,), generator=generator,
-                      device=x_start.device)
+    t = torch.randint(0, sched.num_timesteps, (b // num_frames,), generator=generator,
+                      device=x_start.device).repeat_interleave(num_frames)
     noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
                         dtype=x_start.dtype)
     return t, noise
@@ -63,11 +66,13 @@ def diffusion_loss(
     pose_hint: Optional[torch.Tensor] = None,
     wonoise: bool = True,
     ref_noise: Optional[torch.Tensor] = None,
+    num_frames: int = 1,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One training loss evaluation at the given timesteps `t` (B,) and
     `noise` (like x_start). apply_fn(x_noisy, t, context, reference_noisy=,
-    pose_hint=) -> model output. Without `wonoise` the reference latent is
-    noised with `ref_noise` at its sample's timestep."""
+    pose_hint=, num_frames=) -> model output. Without `wonoise` the reference
+    latent is noised with `ref_noise` at its sample's (or clip's) timestep.
+    `num_frames`: frames per clip of a temporal batch (B = clips x frames)."""
     b = x_start.shape[0]
     x_noisy = q_sample(sched, x_start, t, noise)
 
@@ -83,7 +88,7 @@ def diffusion_loss(
             reference_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
 
     model_out = apply_fn(x_noisy, t, context, reference_noisy=reference_noisy,
-                         pose_hint=pose_hint)
+                         pose_hint=pose_hint, num_frames=num_frames)
 
     if dcfg.parameterization is Parameterization.EPS:
         target = noise

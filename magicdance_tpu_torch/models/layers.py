@@ -9,7 +9,8 @@ enters them through a permute of its NHWC input, so activations are
 channels_last in memory and no transpose copies happen inside. Norms run in
 fp32 and cast back (ref openaimodel GroupNorm32). The appearance bank is
 explicit: a transformer block returns its bank entry in write mode and
-receives one in read mode.
+receives one in read mode. The temporal motion module (`TemporalTransformer`)
+attends over the frame axis of (B*F, C, H, W) activations.
 
 Precision: every product runs in the dtype of the activations it is given.
 `Linear` and `Conv2d` cast their weights to that dtype at use, as a Flax
@@ -28,6 +29,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -72,9 +74,19 @@ def layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def group_norm_f32(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm over (B, C, H, W) computed in fp32 (result stays fp32)."""
-    return F.group_norm(x.float(), gn.num_groups, gn.weight.float(),
-                        gn.bias.float(), gn.eps)
+    """GroupNorm over (B, C, H, W) computed in fp32 (result stays fp32).
+
+    When the affine parameters need a gradient and the input does not (a
+    trainable norm behind frozen layers: the first motion module of stage 3)
+    the affine is applied after an affine-free group norm: PyTorch's CPU
+    group-norm backward crashes on a channels_last input in that case
+    (torch 2.13)."""
+    w, b = gn.weight.float(), gn.bias.float()
+    needs_affine_grad = w.requires_grad or b.requires_grad
+    if torch.is_grad_enabled() and needs_affine_grad and not x.requires_grad:
+        y = F.group_norm(x.float(), gn.num_groups, None, None, gn.eps)
+        return y * w[:, None, None] + b[:, None, None]
+    return F.group_norm(x.float(), gn.num_groups, w, b, gn.eps)
 
 
 class GroupNorm32(nn.Module):
@@ -264,3 +276,69 @@ class SpatialTransformer(nn.Module):
                 written.append(w_i)
         z = z.reshape(b, hh, ww, inner).permute(0, 3, 1, 2)
         return x + self.proj_out(z), tuple(written)
+
+
+class SinusoidalPositionalEncoding(nn.Module):
+    """Fixed sinusoidal encoding over the frame axis (ref motion_module.py:
+    227-245, max_len 24), added to (N, F, C) inputs. The table is built in
+    fp32 numpy over the channel count C, as the JAX package builds it, and
+    cast to the input's dtype at use; it is a buffer, not a parameter."""
+
+    def __init__(self, channels: int, max_len: int = 24):
+        super().__init__()
+        position = np.arange(max_len)[:, None]
+        div = np.exp(np.arange(0, channels, 2) * (-np.log(10000.0) / channels))
+        pe = np.zeros((max_len, channels), dtype=np.float32)
+        pe[:, 0::2] = np.sin(position * div)
+        pe[:, 1::2] = np.cos(position * div)
+        self.register_buffer("pe", torch.from_numpy(pe), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pe[: x.shape[1]].to(x.dtype)[None]
+
+
+class TemporalTransformer(nn.Module):
+    """AnimateDiff temporal motion module (ref motion_module.py:50-331):
+    GroupNorm (eps 1e-6) -> proj_in -> `num_layers` x (`attns_per_block` x
+    {LayerNorm, frame PE, self-attention over the frames}, LayerNorm, GEGLU
+    FF) -> zero-initialised proj_out -> residual.
+
+    Takes (B*F, C, H, W) activations (frames folded into the batch, clip
+    major) and attends over the F frames of every spatial position: the rows
+    are reordered once to (B*H*W, F, C), frames inner, so each attention is
+    a grouped site of B*H*W sequences of F rows, and restored after proj_out.
+    Submodule names are the Flax ones (`norm_attn_i_j`, `pe_i_j`, `attn_i_j`,
+    `norm_ff_i`, `ff_i`)."""
+
+    def __init__(self, channels: int, num_heads: int, max_len: int = 24,
+                 num_layers: int = 1, attns_per_block: int = 2):
+        super().__init__()
+        self.num_layers, self.attns_per_block = num_layers, attns_per_block
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.proj_in = Linear(channels, channels)
+        for i in range(num_layers):
+            for j in range(attns_per_block):
+                self.add_module(f"norm_attn_{i}_{j}", nn.LayerNorm(channels, eps=1e-5))
+                self.add_module(f"pe_{i}_{j}",
+                                SinusoidalPositionalEncoding(channels, max_len))
+                self.add_module(f"attn_{i}_{j}", CrossAttention(
+                    channels, None, num_heads, channels // num_heads))
+            self.add_module(f"norm_ff_{i}", nn.LayerNorm(channels, eps=1e-5))
+            self.add_module(f"ff_{i}", GEGLUFeedForward(channels))
+        self.proj_out = Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+        bf, c, hh, ww = x.shape
+        b = bf // num_frames
+        z = self.norm(x).permute(0, 2, 3, 1)  # (B*F, H, W, C)
+        z = z.reshape(b, num_frames, hh * ww, c).transpose(1, 2)
+        z = self.proj_in(z.reshape(b * hh * ww, num_frames, c))
+        for i in range(self.num_layers):
+            for j in range(self.attns_per_block):
+                h = layer_norm_f32(getattr(self, f"norm_attn_{i}_{j}"), z)
+                h = getattr(self, f"pe_{i}_{j}")(h)
+                z = z + getattr(self, f"attn_{i}_{j}")(h)
+            h = layer_norm_f32(getattr(self, f"norm_ff_{i}"), z)
+            z = z + getattr(self, f"ff_{i}")(h)
+        z = self.proj_out(z).reshape(b, hh * ww, num_frames, c).transpose(1, 2)
+        return x + z.reshape(bf, hh, ww, c).permute(0, 3, 1, 2)

@@ -1,9 +1,13 @@
 """MagicPose composed denoiser: main UNet + appearance UNet + pose ControlNet.
 
-Counterpart of `magicdance_tpu.models.magicpose.MagicPoseModel` for the image
-path: the appearance branch is a second UNet run on the reference latent in
-bank-write mode; the pose branch returns the 13 ControlNet residuals; the CFG
-uncond pass (`uc=True`) is a vanilla SD forward that skips both branches.
+Counterpart of `magicdance_tpu.models.magicpose.MagicPoseModel` without the
+image-control branch and the turbo levers: the appearance branch is a second
+UNet run on the reference latent in bank-write mode; the pose branch returns
+the 13 ControlNet residuals; the CFG uncond pass (`uc=True`) is a vanilla SD
+forward that skips both branches. With motion modules (the temporal variant)
+the batch holds clips of `num_frames` frames, clip major; the appearance
+UNet and the ControlNet stay per frame, and one reference per clip serves its
+frames.
 VAE and CLIP live outside (applied once per request, or once per training
 batch). The networks compute in `cfg.dtype` whatever dtype their weights are
 stored in (a trainer holds fp32 trainable masters beside frozen weights in
@@ -86,13 +90,15 @@ class MagicPoseModel(nn.Module):
                 context: torch.Tensor, *,
                 reference_noisy: Optional[torch.Tensor] = None,
                 pose_hint: Optional[torch.Tensor] = None,
-                bank: Optional[Bank] = None, uc: bool = False) -> torch.Tensor:
+                bank: Optional[Bank] = None, uc: bool = False,
+                num_frames: int = 1) -> torch.Tensor:
         """eps prediction (B, h, w, 4) fp32. Pass `reference_noisy` (bank
-        computed inline: the training path, one reference per sample, or one
-        for every frame) or a precomputed `bank`; `uc=True` is the CFG uncond
-        vanilla-SD pass."""
+        computed inline: the training path, one reference per sample, per
+        clip, or one for every frame) or a precomputed `bank`; `uc=True` is
+        the CFG uncond vanilla-SD pass. `num_frames`: frames per clip for the
+        motion modules."""
         if uc:
-            return self.unet(x_noisy, timesteps, context)[0]
+            return self.unet(x_noisy, timesteps, context, num_frames=num_frames)[0]
         b = x_noisy.shape[0]
         if bank is not None and len(bank) and bank[0].shape[0] not in (1, b):
             bank = _repeat_bank(bank, b)
@@ -112,4 +118,4 @@ class MagicPoseModel(nn.Module):
                 bank = _repeat_bank(bank, b)
         residuals = self.compute_control_residuals(x_noisy, pose_hint, timesteps, context)
         return self.unet(x_noisy, timesteps, context, bank=bank,
-                         pose_residuals=residuals)[0]
+                         pose_residuals=residuals, num_frames=num_frames)[0]

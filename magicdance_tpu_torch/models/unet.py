@@ -1,6 +1,8 @@
-"""SD1.5 UNet with appearance-bank and pose-ControlNet hooks (PyTorch).
+"""SD1.5 UNet with appearance-bank, pose-ControlNet and motion-module hooks
+(PyTorch).
 
-Counterpart of `magicdance_tpu.models.unet.UNet` for the image path:
+Counterpart of `magicdance_tpu.models.unet.UNet` without the turbo levers
+(DeepCache, self-KV pooling, the bank mask):
 
   * `collect_bank=True` -- appearance "write" pass: every transformer block
     returns norm1 of its input; the tuple of all entries, in traversal order
@@ -10,13 +12,19 @@ Counterpart of `magicdance_tpu.models.unet.UNet` for the image path:
   * neither -- plain SD1.5 forward (the CFG uncond pass).
   * `pose_residuals=(r0..r11, r_mid)` -- ControlNet residuals, NHWC, added
     to the middle block output and to each decoder skip.
+  * `cfg.use_motion_modules` -- an AnimateDiff temporal module
+    (`layers.TemporalTransformer`) after every encoder res unit
+    (`enc_motion_i`) and every decoder unit before its upsample
+    (`dec_motion_i`), none in the middle block: 20 at SD1.5 width. The batch
+    holds clips of `num_frames` frames, clip major; with num_frames = 1 the
+    modules still run, over one frame, as in JAX.
 
 Public layout is NHWC like the JAX package: x (B, h, w, C) in, eps
 (B, h, w, C) fp32 out. The compute dtype is `compute_dtype` when set (the
 composite model sets it from `ModelConfig.dtype`), else the dtype of the
 parameters. With `cfg.remat` every ResBlock and SpatialTransformer is
-recomputed in the backward pass (`layers.remat`); bank entries written inside
-a recomputed block keep their gradient.
+recomputed in the backward pass (`layers.remat`), and so is every motion
+module; bank entries written inside a recomputed block keep their gradient.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from magicdance_tpu_torch.models.layers import (
     GroupNorm32,
     ResBlock,
     SpatialTransformer,
+    TemporalTransformer,
     TimestepEmbedMLP,
     Upsample,
     conv3x3,
@@ -68,7 +77,8 @@ def unet_plan(cfg: UNetConfig):
 def decoder_plan(cfg: UNetConfig):
     """Decoder units in traversal order (deepest level first) with their
     module names: {level, ch, attn, ds, upsample, name_res, name_attn,
-    name_up}. The forward loop and `num_bank_entries` both derive from it."""
+    name_mm, name_up}. The forward loop and `num_bank_entries` both derive
+    from it."""
     units = []
     ds = max(1, 2 ** (len(cfg.channel_mult) - 1))
     attn_i = up_i = 0
@@ -85,6 +95,7 @@ def decoder_plan(cfg: UNetConfig):
                 upsample=upsample,
                 name_res=f"dec_res_{idx}",
                 name_attn=f"dec_attn_{attn_i}" if attn else None,
+                name_mm=f"dec_motion_{idx}",
                 name_up=f"dec_up_{up_i}" if upsample else None,
             ))
             if attn:
@@ -115,8 +126,6 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.use_motion_modules:
-            raise NotImplementedError("motion modules are not ported yet")
         self.cfg = cfg
         self.compute_dtype: Optional[torch.dtype] = None
         mc = cfg.model_channels
@@ -125,6 +134,12 @@ class UNet(nn.Module):
 
         def st(ch):
             return SpatialTransformer(ch, heads, ch // heads, depth, ctx_dim)
+
+        def add_motion(name, ch):
+            if cfg.use_motion_modules:
+                self.add_module(name, TemporalTransformer(
+                    ch, cfg.motion_num_heads, cfg.motion_max_len, cfg.motion_layers,
+                    cfg.motion_attn_blocks))
 
         self.time_embed = TimestepEmbedMLP(mc)
         self.conv_in = conv3x3(cfg.in_channels, mc)
@@ -135,10 +150,11 @@ class UNet(nn.Module):
             if u["kind"] == "res":
                 self.add_module(f"enc_res_{res_i}", ResBlock(ch, u["ch"], emb_dim))
                 ch = u["ch"]
-                res_i += 1
                 if u["attn"]:
                     self.add_module(f"enc_attn_{attn_i}", st(ch))
                     attn_i += 1
+                add_motion(f"enc_motion_{res_i}", ch)
+                res_i += 1
             else:
                 self.add_module(f"enc_down_{down_i}", Downsample(ch))
                 down_i += 1
@@ -153,6 +169,7 @@ class UNet(nn.Module):
             ch = u["ch"]
             if u["attn"]:
                 self.add_module(u["name_attn"], st(ch))
+            add_motion(u["name_mm"], ch)
             if u["upsample"]:
                 self.add_module(u["name_up"], Upsample(ch))
         self.norm_out = GroupNorm32(ch, act=True)
@@ -167,10 +184,11 @@ class UNet(nn.Module):
         bank: Optional[Bank] = None,
         collect_bank: bool = False,
         pose_residuals: Optional[Sequence[torch.Tensor]] = None,
+        num_frames: int = 1,
     ):
-        """x: (B, h, w, C); timesteps: (B,); context: (B, 77, context_dim);
-        bank: entries (Bb, S_i, C_i), Bb in {1, B}; pose_residuals: 13 NHWC
-        tensors, [0..11] per encoder skip, [12] middle.
+        """x: (B, h, w, C), B = clips x num_frames; timesteps: (B,); context:
+        (B, 77, context_dim); bank: entries (Bb, S_i, C_i), Bb in {1, B};
+        pose_residuals: 13 NHWC tensors, [0..11] per encoder skip, [12] middle.
         Returns (eps (B, h, w, out_channels) fp32, bank_written)."""
         cfg = self.cfg
         if bank is not None and collect_bank:
@@ -191,6 +209,11 @@ class UNet(nn.Module):
         def residual(i):
             return nhwc_to_nchw(pose_residuals[i])
 
+        def motion(h, name):
+            if not cfg.use_motion_modules:
+                return h
+            return remat(cfg.remat, getattr(self, name), h, num_frames)
+
         emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels,
                                                  dtype=dtype))
         if context is not None:
@@ -203,12 +226,13 @@ class UNet(nn.Module):
         for u in units:
             if u["kind"] == "res":
                 h = remat(cfg.remat, getattr(self, f"enc_res_{res_i}"), h, emb)
-                res_i += 1
                 if u["attn"]:
                     h, written = remat(cfg.remat, getattr(self, f"enc_attn_{attn_i}"),
                                        h, context, take_bank(), collect_bank)
                     attn_i += 1
                     bank_written.extend(written)
+                h = motion(h, f"enc_motion_{res_i}")
+                res_i += 1
             else:
                 h = getattr(self, f"enc_down_{down_i}")(h)
                 down_i += 1
@@ -231,6 +255,7 @@ class UNet(nn.Module):
                 h, written = remat(cfg.remat, getattr(self, u["name_attn"]),
                                    h, context, take_bank(), collect_bank)
                 bank_written.extend(written)
+            h = motion(h, u["name_mm"])
             if u["upsample"]:
                 h = getattr(self, u["name_up"])(h)
         if bank_read:

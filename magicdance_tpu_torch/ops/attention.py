@@ -13,13 +13,20 @@ dispatched by what the caller needs:
     (dK/dV); on a CPU tensor the same Functions run their plain versions.
     This mirrors JAX, whose fast primal kernels run only when no gradient is
     requested and whose training path is the custom VJP.
-  * no gradient, on a CUDA tensor: kernel A (self-attention) or kernel B
-    (bank read).
+  * no gradient: kernel A (self-attention) or kernel B (bank read), whose
+    wrappers take their plain versions on a CPU tensor -- so a CPU run calls
+    the wrappers exactly where the card launches the kernels.
+
+Packed self-attention over many short sequences (a grouped site: the motion
+module's attention over S = F frames, and at small images the S <= 32
+spatial sites; `_grouped_site`, the JAX package's `flash_grouped` rule) is
+dispatched the same way to the grouped kernel G (`ops.kernels.grouped`):
+`mha_grouped` with a gradient, the kernel's wrapper without one.
 
 All else -- cross-attention over the 77 context tokens, the S = 64 middle
-block, the VAE's single 512-wide head, and CPU tensors that need no gradient
--- takes the kernels' plain versions (`*_ref` in `ops.kernels`), which mirror
-the JAX package's XLA path and are differentiable by autograd. So on a card
+block, the VAE's single 512-wide head -- takes the kernels' plain versions
+(`*_ref` in `ops.kernels`), which mirror the JAX package's XLA path and are
+differentiable by autograd. So on a card
 the plain math runs only at the sites JAX left to XLA, never at a kernel
 site. The thresholds are the JAX package's; H100-specific ones come from
 measurements on the card.
@@ -32,13 +39,21 @@ from typing import Optional
 import torch
 
 from magicdance_tpu_torch.ops.kernels import (
-    self_attention, self_attention_ref, two_source_attention,
+    grouped_attention, self_attention, self_attention_ref, two_source_attention,
     two_source_attention_ref)
-from magicdance_tpu_torch.ops.kernels.flash_vjp import mha, mha_two_source
+from magicdance_tpu_torch.ops.kernels.flash_vjp import mha, mha_grouped, mha_two_source
 
 
 def _kernel_site(sq: int, sk_total: int, d: int) -> bool:
     return sq >= 256 and sk_total >= 256 and d <= 256
+
+
+def _grouped_site(sq: int, sk: int, d: int, batch: int) -> bool:
+    """A packed self-attention (never a bank read) over `batch` sequences
+    that the grouped kernel takes: `_pick_impl_packed`'s `flash_grouped`
+    rule without its TPU-backend term."""
+    return (sq == sk and sq <= 32 and 128 % sq == 0 and batch > 0
+            and batch * sq % 128 == 0 and d <= 256)
 
 
 def _wants_grad(*ts: torch.Tensor) -> bool:
@@ -58,14 +73,17 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _kernel_site(q.shape[1], k.shape[1], q.shape[-1]):
         if _wants_grad(q, k, v):
             return mha(q, k, v, scale)
-        if q.is_cuda:
-            return self_attention(q, k, v, scale)
+        return self_attention(q, k, v, scale)
     return self_attention_ref(q, k, v, scale)
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention on packed (B, S, H*D) projection outputs."""
+    if _grouped_site(q.shape[1], k.shape[1], q.shape[-1] // num_heads, q.shape[0]):
+        if _wants_grad(q, k, v):
+            return mha_grouped(q, k, v, scale, num_heads)
+        return grouped_attention(q, k, v, scale, num_heads)
     out = dot_product_attention(_split_heads(q, num_heads),
                                 _split_heads(k, num_heads),
                                 _split_heads(v, num_heads), scale=scale)
@@ -84,8 +102,7 @@ def bank_read_attention(q: torch.Tensor, k_self: torch.Tensor,
     if _kernel_site(q.shape[1], k_self.shape[1] + k_bank.shape[1], q.shape[-1]):
         if _wants_grad(q, k_self, v_self, k_bank, v_bank):
             return mha_two_source(q, k_self, v_self, k_bank, v_bank, scale)
-        if q.is_cuda:
-            return two_source_attention(q, k_self, v_self, k_bank, v_bank, scale)
+        return two_source_attention(q, k_self, v_self, k_bank, v_bank, scale)
     return two_source_attention_ref(q, k_self, v_self, k_bank, v_bank, scale)
 
 

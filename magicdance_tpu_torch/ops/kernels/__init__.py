@@ -4,7 +4,9 @@ Kernel A (`self_attention`) and kernel B (`two_source_attention`) replace the
 three Pallas attention kernels on the exact image-serving path; with their
 LSE output (`flash_vjp.self_attention_lse` / `two_source_attention_lse`)
 they are the training forward, and kernels C (`flash_vjp.attention_dq`) and
-D (`flash_vjp.attention_dkv`) the backward. Sources are under `csrc/`;
+D (`flash_vjp.attention_dkv`) the backward. Kernel G (`grouped_attention`,
+`grouped.grouped_attention_bwd`) replaces the Pallas grouped (temporal)
+attention kernel and its backward on the video path. Sources are under `csrc/`;
 `build` compiles them with nvcc at first use.
 """
 
@@ -15,4 +17,8 @@ from magicdance_tpu_torch.ops.kernels.attention import (  # noqa: F401
     self_attention_ref,
     two_source_attention,
     two_source_attention_ref,
+)
+from magicdance_tpu_torch.ops.kernels.grouped import (  # noqa: F401
+    grouped_attention,
+    grouped_attention_ref,
 )

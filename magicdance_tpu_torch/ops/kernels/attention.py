@@ -29,7 +29,8 @@ import torch
 from magicdance_tpu_torch.ops.kernels import build
 
 # one counter per kernel mode: A and B plain (serving) and with the LSE
-# output (training forward), C with one or two sources, D
+# output (training forward), C with one or two sources, D, and the grouped
+# (temporal) kernel's forward and backward (`ops.kernels.grouped`)
 LAUNCHES = {
     "self_attention": 0,
     "two_source_attention": 0,
@@ -38,6 +39,8 @@ LAUNCHES = {
     "attention_dq": 0,
     "attention_dq_two_source": 0,
     "attention_dkv": 0,
+    "grouped": 0,
+    "grouped_bwd": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,8 +145,8 @@ def _check_no_grad(name: str, *ts: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             f"{name}: an input requires grad, and this kernel has no backward; "
-            "use ops.kernels.flash_vjp.mha / mha_two_source (or ops.attention), "
-            "which train through the backward kernels")
+            "use the autograd Functions of ops.kernels.flash_vjp (or "
+            "ops.attention), which train through the backward kernels")
 
 
 def _strides(t: torch.Tensor, batched: bool = True) -> list[int]:

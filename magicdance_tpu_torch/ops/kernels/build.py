@@ -21,7 +21,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-SOURCES = ("self_attention", "two_source_attention", "attention_dq", "attention_dkv")
+SOURCES = ("self_attention", "two_source_attention", "attention_dq", "attention_dkv",
+           "grouped_attention", "grouped_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -113,6 +114,13 @@ _SIGNATURES = {
     "attention_dkv": ("md_attention_dkv",
                       [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                        _I, _I, _I, _I, _I, _I, _F, _VP]),
+    # dtype, q, k, v, o, strides, N, H, D, S, scale, stream
+    "grouped_attention": ("md_grouped_attention",
+                          [_I, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _F, _VP]),
+    # dtype, q, k, v, dout, dq, dk, dv, strides, N, H, D, S, scale, stream
+    "grouped_attention_bwd": ("md_grouped_attention_bwd",
+                              [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+                               _I, _I, _I, _I, _F, _VP]),
 }
 
 

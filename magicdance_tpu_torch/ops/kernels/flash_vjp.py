@@ -14,6 +14,10 @@ Counterpart of `magicdance_tpu.ops.pallas.flash_vjp`:
     summed over the query batch (JAX sums its B-fold result afterwards).
   * `mha`, `mha_packed`, `mha_two_source`, `mha_two_source_packed` -- the
     custom-VJP entry points, as `torch.autograd.Function`s.
+  * `mha_grouped` -- the custom VJP of JAX's `mha_grouped`: grouped
+    (temporal) attention whose backward is the grouped kernel's
+    (`ops.kernels.grouped`); it keeps q, k and v only and recomputes the
+    probabilities, as JAX does.
 
 delta = rowsum(dO o O) is a plain torch reduction (`attention_delta`), as JAX
 computes it in XLA (`_delta`). Unlike the Pallas dQ kernel, which recomputes
@@ -44,6 +48,7 @@ from magicdance_tpu_torch.ops.kernels.attention import (
     self_attention_cuda,
     two_source_attention_cuda,
 )
+from magicdance_tpu_torch.ops.kernels.grouped import grouped_attention, grouped_attention_bwd
 
 # --------------------------------------------------------------------------
 # plain versions
@@ -351,3 +356,27 @@ def mha_two_source_packed(q: torch.Tensor, k_self: torch.Tensor,
     sp = lambda t: t.unflatten(-1, (num_heads, t.shape[-1] // num_heads))  # noqa: E731
     return mha_two_source(sp(q), sp(k_self), sp(v_self), sp(k_bank), sp(v_bank),
                           scale).reshape(q.shape)
+
+
+class _MHAGrouped(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return grouped_attention(q, k, v, scale, num_heads)  # grad mode is off here
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        if not any(need):
+            return None, None, None, None, None
+        q, k, v = ctx.saved_tensors
+        grads = grouped_attention_bwd(q, k, v, g.contiguous(), ctx.scale, ctx.num_heads)
+        return tuple(d if n else None for d, n in zip(grads, need)) + (None, None)
+
+
+def mha_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: Optional[float], num_heads: int) -> torch.Tensor:
+    """Packed (B, S, H*D) grouped attention over B sequences of S <= 64 rows
+    (S | 128, 128 | B*S), differentiable: the motion module's training path."""
+    return _MHAGrouped.apply(q, k, v, scale, num_heads)

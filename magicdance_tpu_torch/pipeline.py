@@ -1,10 +1,14 @@
 """Inference pipeline: reference image + pose maps -> frames (PyTorch).
 
-Counterpart of `magicdance_tpu.pipeline.MagicPosePipeline` for exact image
+Counterpart of `magicdance_tpu.pipeline.MagicPosePipeline` for exact
 serving: CLIP-encode the (empty) prompt once, VAE-encode the reference once
-(posterior mode), denoise all pose frames of a request as one batch with the
-exact DDIM sampler, decode in chunks of 8. Runs on the GPU unless the caller
-passes device="cpu"; the denoiser runs in `cfg.dtype`, VAE in
+(posterior mode), denoise the pose frames of a request with the exact DDIM
+sampler, decode in chunks of 8. Images: all frames are one batch. Video
+(`video=True` on the temporal variant): the overlap-window sampler
+(`sampling.overlap`), windows of `scfg.window` frames `scfg.stride` apart;
+a temporal model asked for images samples them with one frame per clip.
+Runs on the GPU unless the caller passes device="cpu"; the denoiser runs in
+`cfg.dtype`, VAE in
 `cfg.vae.compute_dtype`, CLIP in fp32. The pipeline owns that precision:
 every public call runs its fp32 work in full fp32 (TF32 off in cuBLAS and
 cuDNN for the call, whatever the process-wide flags say), as the JAX
@@ -14,7 +18,7 @@ package's fp32 reference computes it.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -26,6 +30,7 @@ from magicdance_tpu_torch.models.magicpose import model_dtype
 from magicdance_tpu_torch.models.vae import encode_to_latent, latent_to_decoder_input
 from magicdance_tpu_torch.ops.schedules import make_ddim_schedule, make_schedule
 from magicdance_tpu_torch.sampling.ddim import ddim_sample
+from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
 
 DECODE_CHUNK = 8
 
@@ -48,8 +53,6 @@ class MagicPosePipeline:
 
     def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
                  tokenizer: Optional[CLIPTokenizer] = None):
-        if cfg.has_temporal:
-            raise NotImplementedError("the video variant is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         vae_dtype = torch.bfloat16 if cfg.vae.compute_dtype == "bfloat16" else torch.float32
@@ -123,6 +126,7 @@ class MagicPosePipeline:
         video: bool = False,
         x_T: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        window_offsets: Optional[Sequence[int]] = None,
     ) -> torch.Tensor:
         """pose_maps: (F, H, W, 3) in [0, 1] or None; reference_image:
         (1, H, W, 3) in [-1, 1] or None. Returns (F, H, W, 3) images in
@@ -130,10 +134,12 @@ class MagicPosePipeline:
 
         x_T: optional (F, h, w, 4) initial noise; otherwise it is drawn from
         `generator` (a torch.Generator on the pipeline's device), one draw
-        shared by every frame when scfg.shared_noise."""
-        if video:
-            raise NotImplementedError("video sampling is not ported yet")
+        shared by every frame when scfg.shared_noise. `video=True` on the
+        temporal variant samples through the overlap windows, whose per-step
+        cyclic offsets are `window_offsets` or drawn from `generator`; on
+        any other variant it samples images, as in JAX."""
         cfg = self.cfg
+        video = video and cfg.has_temporal
         if pose_maps is not None:
             F, H = pose_maps.shape[0], pose_maps.shape[1]
             pose_maps = pose_maps.to(self.device)
@@ -150,8 +156,11 @@ class MagicPosePipeline:
             x_T = x_T.expand(F, latent, latent, 4)
         x_T = x_T.to(self.device, torch.float32).contiguous()
         ddim = make_ddim_schedule(self.sched, scfg.steps, eta=scfg.eta)
-        lat = ddim_sample(self.model, self.sched, ddim, scfg, x_T, ctx, uctx,
-                          reference_latent=ref_latent, pose_hint=pose_maps,
-                          parameterization=cfg.diffusion.parameterization,
-                          generator=generator)
+        kw = dict(reference_latent=ref_latent, pose_hint=pose_maps,
+                  parameterization=cfg.diffusion.parameterization, generator=generator)
+        if video:
+            lat = ddim_sample_video(self.model, self.sched, ddim, scfg, x_T, ctx, uctx,
+                                    window_offsets=window_offsets, **kw)
+        else:
+            lat = ddim_sample(self.model, self.sched, ddim, scfg, x_T, ctx, uctx, **kw)
         return self.decode_latents(lat) if decode else lat

@@ -1,4 +1,4 @@
-"""One-GPU training step for stages 1-2 (PyTorch).
+"""One-GPU training step for stages 1-3 (PyTorch).
 
 Counterpart of `magicdance_tpu.train.trainer`:
 
@@ -16,6 +16,10 @@ Counterpart of `magicdance_tpu.train.trainer`:
   * the frozen VAE encodes the image and the reference (posterior samples,
     chunked by `vae_encode_chunk`) and the frozen CLIP the prompt, without
     gradients; the loss is `models.diffusion.diffusion_loss`.
+  * stage 3 (the temporal variant, `MOTION_ONLY`: only the motion modules
+    train): a batch holds clips of `cfg.video_frames` frames folded into the
+    batch axis, (B_clips * F, H, W, C), with one reference per clip; each clip
+    draws one timestep for all its frames.
 
 Precision, by explicit cast at use (not torch.autocast): trainable master
 weights, their gradients and the AdamW moments are fp32; frozen parameters
@@ -31,11 +35,10 @@ from the loss, and a caller may hand its own `Draws` to `train_step`; the
 generator's state is part of the checkpointed state, so a resumed run
 continues the same stream.
 
-Not in this slice (each raises NotImplementedError): `frozen_dtype="int8"`
+Not ported yet (each raises NotImplementedError): `frozen_dtype="int8"`
 (train/quant.py), a mesh of more than one device (ZeRO-1 and data parallel:
 on one device the ZeRO-1 sharding of `shard_opt_state` is the identity),
-`attention_impl` other than "auto", dropout > 0, and temporal (stage-3)
-training.
+`attention_impl` other than "auto", and dropout > 0.
 """
 
 from __future__ import annotations
@@ -194,8 +197,10 @@ class Optimizer:
 @dataclass
 class Draws:
     """The random numbers of one step: timesteps (B,), the diffusion noise
-    and the VAE posterior noise of the image and the reference, each
-    (B, h, w, embed_dim) standard normal."""
+    and the VAE posterior noise of the image, each (B, h, w, embed_dim)
+    standard normal, and that of the reference, (B_ref, h, w, embed_dim). In
+    a temporal batch B = clips x frames, B_ref = clips, and the timesteps
+    repeat each clip's draw over its frames."""
 
     t: torch.Tensor
     noise: torch.Tensor
@@ -225,12 +230,11 @@ class Trainer:
         if cfg.attention_impl != "auto":
             raise NotImplementedError(f"attention_impl={cfg.attention_impl!r}: the "
                                       "port's trainer takes only 'auto'")
-        if cfg.model.has_temporal or cfg.freeze is FreezeRegime.MOTION_ONLY:
-            raise NotImplementedError("temporal (stage-3) training comes with the "
-                                      "video slice")
         if cfg.model.unet.dropout > 0:
             raise NotImplementedError("dropout is not ported")
         self.cfg = cfg
+        # video clips arrive frame-folded into the batch: (B_clips * F, ...)
+        self.num_frames = cfg.video_frames if cfg.model.has_temporal else 1
         self.device = resolve_device(device)
         self.model = MagicPoseModel(cfg.model).to(self.device)
         self.vae = AutoencoderKL(cfg.model.vae).to(self.device)
@@ -301,14 +305,19 @@ class Trainer:
     def draw(self, batch: Mapping[str, torch.Tensor]) -> Draws:
         """This step's random numbers from the trainer's generator."""
         f = 2 ** (len(self.cfg.model.vae.channel_mult) - 1)  # the VAE's downsampling
-        b, h, w, _ = batch["image"].shape
-        shape = (b, h // f, w // f, self.cfg.model.vae.embed_dim)
+
+        def latent_shape(images):
+            b, h, w, _ = images.shape
+            return (b, h // f, w // f, self.cfg.model.vae.embed_dim)
+
+        shape = latent_shape(batch["image"])
         g, dev = self.generator, self.device
         vae_image = torch.randn(shape, generator=g, device=dev)
-        vae_ref = (torch.randn(shape, generator=g, device=dev)
+        vae_ref = (torch.randn(latent_shape(batch["reference"]), generator=g, device=dev)
                    if self.cfg.model.has_appearance else None)
         t, noise = draw_timesteps_and_noise(
-            self.sched, torch.empty(shape, device=dev), generator=g)
+            self.sched, torch.empty(shape, device=dev), generator=g,
+            num_frames=self.num_frames)
         return Draws(t=t, noise=noise, vae_image=vae_image, vae_reference=vae_ref)
 
     def to_device(self, batch: Mapping) -> dict[str, torch.Tensor]:
@@ -337,7 +346,8 @@ class Trainer:
         pose = batch.get("pose") if cfg.model.has_pose else None
         return diffusion_loss(self.model, self.sched, cfg.model.diffusion, x0, context,
                               draws.t.to(self.device), draws.noise.to(self.device),
-                              reference_latent=ref, pose_hint=pose, wonoise=True)
+                              reference_latent=ref, pose_hint=pose, wonoise=True,
+                              num_frames=self.num_frames)
 
     def grads(self) -> dict[str, torch.Tensor]:
         """The trainable parameters' gradients after a backward pass, fp32,

@@ -1,8 +1,8 @@
 """Image grids for the trainer's periodic visualization.
 
 The PyTorch port's own copy of `save_image_grid` from
-`magicdance_tpu.utils.video` (numpy and PIL only); GIF and MP4 writing come
-with the video slice.
+`magicdance_tpu.utils.video` (numpy and PIL only); GIF and MP4 writing are
+not ported yet.
 """
 
 from __future__ import annotations

@@ -52,7 +52,7 @@ def test_cli_train_end_to_end_and_resume(tmp_path):
     assert "step_00000003" in os.listdir(out / "checkpoints")
 
 
-@pytest.mark.parametrize("flag", [["--stage", "3"], ["--init_checkpoint", "x.th"],
+@pytest.mark.parametrize("flag", [["--init_checkpoint", "x.th"],
                                   ["--motion_module_checkpoint", "mm.ckpt"]])
 def test_cli_train_refuses_other_slices(tmp_path, flag):
     with pytest.raises(NotImplementedError):

@@ -250,3 +250,55 @@ def test_kernels_refuse_to_drop_gradients(cuda):
         K.two_source_attention(q, q, q, q, q)
     with torch.no_grad():
         K.self_attention(q, q, q)
+
+
+# --------------------------------------------------------------------------
+# video path: the grouped (temporal) kernel G, forward and backward
+# --------------------------------------------------------------------------
+
+GROUPED_SHAPES = [
+    (4096, 16, 8, 40), (1024, 16, 8, 80), (256, 16, 8, 160), (64, 16, 8, 160),  # motion
+    (8192, 1, 8, 40),                                  # one frame per clip
+    (128, 4, 2, 16), (8, 16, 2, 256), (4, 32, 4, 64), (2, 64, 2, 256),  # other S and D
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,s,h,d", GROUPED_SHAPES)
+def test_grouped_forward_and_backward_match_plain(cuda, dtype, n, s, h, d):
+    from magicdance_tpu_torch.ops.kernels import grouped as G
+
+    q, k, v, g = (_rand(cuda, n, s, h * d, dtype=dtype, seed=30 + i) for i in range(4))
+    K.reset_launches()
+    _close(G.grouped_attention(q, k, v, None, h), G.grouped_attention_ref(q, k, v, None, h),
+           dtype)
+    got = G.grouped_attention_bwd(q, k, v, g, None, h)
+    want = G.grouped_attention_bwd_ref(q, k, v, g, None, h)
+    for a, b in zip(got, want):
+        _grad_close(a, b, dtype)
+    assert K.LAUNCHES["grouped"] == K.LAUNCHES["grouped_bwd"] == 1
+
+
+def test_grouped_dispatch_and_autograd(cuda):
+    """A motion-module shape goes to the grouped kernel without a gradient
+    and through mha_grouped (forward and backward kernels) with one; the
+    gradients equal autograd through the plain version."""
+    from magicdance_tpu_torch.ops.attention import attention_packed
+    from magicdance_tpu_torch.ops.kernels import grouped as G
+
+    q, k, v = (_rand(cuda, 256, 16, 320, dtype=torch.float32, seed=40 + i) for i in range(3))
+    K.reset_launches()
+    with torch.no_grad():
+        attention_packed(q, k, v, num_heads=8)
+    assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES}, "grouped": 1}
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    attention_packed(qs, ks, vs, num_heads=8).square().sum().backward()
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    G.grouped_attention_ref(qr, kr, vr, None, 8).square().sum().backward()
+    for a, b in ((qs, qr), (ks, kr), (vs, vr)):
+        _grad_close(a.grad, b.grad, torch.float32)
+    assert K.LAUNCHES["grouped"] == 2 and K.LAUNCHES["grouped_bwd"] == 1
+    with pytest.raises(RuntimeError):  # the forward kernel alone drops gradients
+        G.grouped_attention(qs, ks, vs, None, 8)
+    with pytest.raises(ValueError):  # 64 rows are not a whole 128-row tile
+        G.grouped_attention(q[:4], k[:4], v[:4], None, 8)

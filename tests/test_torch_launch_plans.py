@@ -1,0 +1,109 @@
+"""chip_smoke.py holds the card's video request and stage-3 train step to
+exact kernel launch plans (`serving_launch_plan`, `stage3_launch_plan`).
+Here each plan meets the wrapper calls of one narrow run on the CPU, where
+every kernel site calls the same wrappers and Functions as on the card (they
+take their plain versions here): one overlap-sampler step over overlapping
+windows, and one stage-3 train step. The narrow model at 128x128 reaches
+kernels A and B at its first level (256 positions) and the grouped kernel
+at its six motion modules. At SD1.5 width the plans give the numbers the
+card is held to."""
+
+import torch
+
+import chip_smoke
+from magicdance_tpu_torch import config as T
+from magicdance_tpu_torch.ops import attention as A
+from magicdance_tpu_torch.ops.kernels import flash_vjp as V
+from magicdance_tpu_torch.ops.schedules import make_ddim_schedule
+from magicdance_tpu_torch.pipeline import MagicPosePipeline
+from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
+from magicdance_tpu_torch.train.trainer import Trainer
+from torch_port_util import torch_single_thread  # noqa: F401  (autouse fixture)
+
+
+def count_calls(monkeypatch) -> dict:
+    """Count every wrapper call that launches a kernel on the card, by the
+    LAUNCHES mode it counts under there."""
+    calls = {}
+
+    def counting(module, name, mode_of):
+        real = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            mode = mode_of(a, kw)
+            calls[mode] = calls.get(mode, 0) + 1
+            return real(*a, **kw)
+        monkeypatch.setattr(module, name, wrapped)
+
+    def dq_mode(a, kw):
+        two = (a[7] if len(a) > 7 else kw.get("k_bank")) is not None
+        return "attention_dq_two_source" if two else "attention_dq"
+
+    for module, name in ((A, "self_attention"), (A, "two_source_attention"),
+                         (V, "self_attention_lse"), (V, "two_source_attention_lse"),
+                         (V, "attention_dkv"), (V, "grouped_attention_bwd")):
+        mode = {"grouped_attention_bwd": "grouped_bwd"}.get(name, name)
+        counting(module, name, lambda a, kw, mode=mode: mode)
+    counting(A, "grouped_attention", lambda a, kw: "grouped")
+    counting(V, "grouped_attention", lambda a, kw: "grouped")
+    counting(V, "attention_dq", dq_mode)
+    return calls
+
+
+def test_full_width_plans():
+    temporal = T.ModelConfig(variant=T.ModelVariant.APPEARANCE_POSE_TEMPORAL,
+                             unet=T.UNetConfig(use_motion_modules=True))
+    # a 16-frame window at 512x512: 20 motion modules x 2 units x 2 passes
+    assert chip_smoke.serving_launch_plan(temporal, 64, 16, 16) == {
+        "self_attention": 36, "two_source_attention": 15, "grouped": 80}
+    assert chip_smoke.serving_launch_plan(T.ModelConfig(), 64, 2, 1) == {
+        "self_attention": chip_smoke.SELF_PER_STEP,
+        "two_source_attention": chip_smoke.TWO_SOURCE_PER_STEP}
+    assert chip_smoke.stage3_launch_plan(T.stage3_motion(), 512, 1) == {
+        "self_attention": 21, "two_source_attention": 1, "two_source_attention_lse": 28,
+        "attention_dq_two_source": 14, "attention_dkv": 14, "grouped": 80,
+        "grouped_bwd": 40}
+
+
+def test_video_serving_plan_matches_counted_calls(monkeypatch):
+    """One step of the overlap sampler, F = 10 frames in windows of 4,
+    stride 3: four windows, 16 frames per pass."""
+    cfg = chip_smoke.narrow_temporal_config()
+    pipe = MagicPosePipeline(cfg, device="cpu")
+    pipe.init_params(seed=0, scale=0.1)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(10, 16, 16, 4, generator=g)
+    hint = torch.rand(10, 128, 128, 3, generator=g)
+    ref = torch.randn(1, 16, 16, 4, generator=g)
+    ctx = torch.randn(1, 77, 16, generator=g)
+    scfg = T.SampleConfig(steps=1, window=4, stride=3)
+    calls = count_calls(monkeypatch)
+    out = ddim_sample_video(pipe.model, pipe.sched, make_ddim_schedule(pipe.sched, 1), scfg,
+                            x, ctx, ctx, reference_latent=ref, pose_hint=hint,
+                            window_offsets=[5])
+    assert torch.isfinite(out).all()
+    plan = chip_smoke.serving_launch_plan(cfg, 16, 16, 4)
+    assert calls == plan
+    # write pass 3 + ControlNet 1 + uncond 3; 3 bank reads; 6 motion
+    # modules x 2 units x (cond + uncond)
+    assert plan == {"self_attention": 3 + 1 + 3, "two_source_attention": 3,
+                    "grouped": 6 * 2 * 2}
+
+
+def test_stage3_plan_matches_counted_calls(monkeypatch):
+    """One narrow stage-3 step, one clip of 4 frames at 128x128."""
+    cfg = chip_smoke.narrow_stage3_config()
+    tr = Trainer(cfg, device="cpu")
+    tr.init_random(seed=0, scale=0.1)
+    g = torch.Generator().manual_seed(1)
+    batch = {"image": torch.rand(4, 128, 128, 3, generator=g) * 2 - 1,
+             "reference": torch.rand(1, 128, 128, 3, generator=g) * 2 - 1,
+             "pose": torch.rand(4, 128, 128, 3, generator=g),
+             "input_ids": torch.zeros(4, 77, dtype=torch.long)}
+    calls = count_calls(monkeypatch)
+    metrics = tr.train_step(batch)
+    assert torch.isfinite(metrics["loss"])
+    plan = chip_smoke.stage3_launch_plan(cfg, 128, 1)
+    assert calls == plan
+    assert plan["grouped"] == 2 * plan["grouped_bwd"] > 0
+    assert plan["two_source_attention"] == 1 and plan["attention_dq_two_source"] >= 1

@@ -184,8 +184,20 @@ def test_pipeline_runs_fp32_without_tf32(pipelines, monkeypatch):
     assert seen == [(False, False)]
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
     with pytest.raises(NotImplementedError):
-        tp.sample_frames(None, None, video=True)
+        tp.sample_frames(None, None, tcfg.SampleConfig(steps=2, deepcache_every=2))
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+
+
+def test_video_flag_on_an_image_variant_samples_images(pipelines):
+    """As in JAX (`video = video and cfg.has_temporal`): without motion
+    modules `video=True` is the image path."""
+    _, tp = pipelines
+    pose = to_t(np_rand((2, 64, 64, 3), 95, 0.0, 1.0))
+    ref = to_t(np_rand((1, 64, 64, 3), 96, -1.0, 1.0))
+    x_T = to_t(np_rand((2, 8, 8, 4), 97))
+    scfg = tcfg.SampleConfig(steps=2)
+    assert torch.equal(tp.sample_frames(pose, ref, scfg, decode=False, video=True, x_T=x_T),
+                       tp.sample_frames(pose, ref, scfg, decode=False, x_T=x_T))
 
 
 def test_cuda_device_raises_without_gpu(monkeypatch):

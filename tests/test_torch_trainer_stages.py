@@ -152,7 +152,7 @@ def test_diffusion_loss_variants_match_jax(param, loss_type, elbo, wonoise):
     def j_apply(x, tt, c, reference_noisy=None, pose_hint=None, num_frames=1):
         return 0.5 * x + 0.1 * reference_noisy + c.mean() + 1e-3 * tt[:, None, None, None]
 
-    def t_apply(x, tt, c, reference_noisy=None, pose_hint=None):
+    def t_apply(x, tt, c, reference_noisy=None, pose_hint=None, num_frames=1):
         return 0.5 * x + 0.1 * reference_noisy + c.mean() + 1e-3 * tt[:, None, None, None]
 
     ref_noise = jax.random.normal(rng_ref, ref.shape)
@@ -171,16 +171,13 @@ def test_diffusion_loss_variants_match_jax(param, loss_type, elbo, wonoise):
 
 
 @pytest.mark.parametrize("field,value", [("frozen_dtype", "int8"), ("mesh_axes", ("data", "model")),
-                                         ("attention_impl", "xla"), ("stage3", None),
-                                         ("dropout", 0.1)])
+                                         ("attention_impl", "xla"), ("dropout", 0.1)])
 def test_trainer_refuses_what_is_not_ported(field, value):
     from magicdance_tpu_torch.train.trainer import Trainer
 
     cfg = port_train_cfg(jax_train_cfg())
     if field == "frozen_dtype":
         cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, frozen_dtype=value))
-    elif field == "stage3":
-        cfg = T.stage3_motion()
     elif field == "dropout":
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, unet=dataclasses.replace(cfg.model.unet, dropout=value)))

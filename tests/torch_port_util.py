@@ -57,6 +57,15 @@ def tiny_model_cfg_jax() -> jcfg.ModelConfig:
     )
 
 
+def tiny_temporal_cfg_jax() -> jcfg.ModelConfig:
+    """The tiny config with motion modules (tests/test_sampling.py's
+    `tiny_cfg(motion=True)`: motion_num_heads 2) on the video variant."""
+    cfg = tiny_model_cfg_jax()
+    return dataclasses.replace(
+        cfg, variant=jcfg.ModelVariant.APPEARANCE_POSE_TEMPORAL,
+        unet=dataclasses.replace(cfg.unet, use_motion_modules=True, motion_num_heads=2))
+
+
 def port_cfg(cfg):
     """The same configuration as the port's dataclass (via to_dict/from_dict)."""
     return tcfg.from_dict(getattr(tcfg, type(cfg).__name__), jcfg.to_dict(cfg))
@@ -174,24 +183,29 @@ def make_train_batch(seed: int = 0, pose: bool = True) -> dict:
     return batch
 
 
-def jax_draws(jc: jcfg.TrainConfig, rng) -> Draws:
-    """The JAX trainer's draws for `rng`, reproduced from its splits."""
-    shape = (B, LAT, LAT, 4)
+def jax_draws(jc: jcfg.TrainConfig, rng, n_image: int = B, n_ref: int = B,
+              frames: int = 1) -> Draws:
+    """The JAX trainer's draws for `rng`, reproduced from its splits, for
+    `n_image` images (clips x `frames` in a temporal batch, one timestep per
+    clip) and `n_ref` references."""
     rng_vae, rng_ref, rng_loss = jax.random.split(rng, 3)
 
-    def vae_noise(r):  # Trainer._loss.vae_encode: one key per chunk
+    def vae_noise(r, n):  # Trainer._loss.vae_encode: one key per chunk
         chunk = jc.vae_encode_chunk
-        if chunk and B > chunk and B % chunk == 0:
-            keys = jax.random.split(r, B // chunk)
-            return np.concatenate([np.asarray(jax.random.normal(k, (chunk,) + shape[1:]))
+        if chunk and n > chunk and n % chunk == 0:
+            keys = jax.random.split(r, n // chunk)
+            return np.concatenate([np.asarray(jax.random.normal(k, (chunk, LAT, LAT, 4)))
                                    for k in keys])
-        return np.asarray(jax.random.normal(r, shape))
+        return np.asarray(jax.random.normal(r, (n, LAT, LAT, 4)))
 
     rng_t, rng_noise, _ = jax.random.split(rng_loss, 3)
-    t = jax.random.randint(rng_t, (B,), 0, jc.model.diffusion.timesteps, dtype=jnp.int32)
-    return Draws(t=to_t(t).long(), noise=to_t(jax.random.normal(rng_noise, shape)),
-                 vae_image=to_t(vae_noise(rng_vae)),
-                 vae_reference=to_t(vae_noise(rng_ref)) if jc.model.has_appearance else None)
+    t = jnp.repeat(jax.random.randint(rng_t, (n_image // frames,), 0,
+                                      jc.model.diffusion.timesteps, dtype=jnp.int32), frames)
+    return Draws(t=to_t(t).long(),
+                 noise=to_t(jax.random.normal(rng_noise, (n_image, LAT, LAT, 4))),
+                 vae_image=to_t(vae_noise(rng_vae, n_image)),
+                 vae_reference=(to_t(vae_noise(rng_ref, n_ref)) if jc.model.has_appearance
+                                else None))
 
 
 class JaxReference:
