@@ -74,7 +74,31 @@ Phases, in order; every check raises, so any failure exits non-zero:
      frozen weights bit-identical, motion modules moved, every step exactly
      the launches of `stage3_launch_plan`; s/step, clips/s, peak memory and
      the encode / forward / backward / optimizer split.
-  14. the `kernels` JSON line, the card line, then the result line.
+  14. kernel B's gated mode (fused CFG) against its plain version at every
+     fused-CFG shape ((2F, S, 8, D) for (S, D) = (4096, 40), (1024, 80),
+     (256, 160), a batch-1 bank, cond gates 1 and uncond gates 0, and one
+     case with gates of 0.5), kernels A and B at the pooled self-key lengths
+     of the turbo stacks (S_k = 1024 and 256 at S = 4096), and K8 (fused
+     GroupNorm+SiLU) at every (B, HW >= 256, C) where the appearance UNet,
+     the ControlNet and the main UNet call it, read from the model by
+     forward hooks; bf16 timed against the bound, the plain version and the
+     library call (SDPA over the concatenated keys with a boolean mask
+     hiding the bank from gate-0 rows; F.group_norm then F.silu).
+  15. narrow models at 128x128, card vs CPU in fp32, each held to its launch
+     plan: a fused-CFG sample, bench.py's `turbo` and `turbo_max` stacks, the
+     `turbo` stack through the overlap sampler (temporal model), and an exact
+     sample with MAGICDANCE_FUSED_GN=1.
+  16. full SD1.5 width, 2 requests x F = 2 at 512x512 each, in turns: the
+     exact recipe, fused_cfg=True (DDIM-50), MAGICDANCE_FUSED_GN=1 (DDIM-50),
+     the `turbo` stack (DDIM-50), `turbo_max` (DDIM-20), the exact recipe
+     again; every request held to its launch plan (`request_launch_plan`,
+     from the sampler's own host masks); seconds per request, frames/s and
+     peak memory, beside phase 5's exact requests.
+  17. the temporal model at full width, 2 requests x 16 frames at 512x512,
+     one window, DDIM-50, under the `turbo` stack, held to its launch plan,
+     beside phase 12's exact video requests.
+  18. the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
+     gated mode and K8, launches by path), the card line, the result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -132,6 +156,14 @@ KERNELS = {
         source="magicdance_tpu_torch/ops/kernels/csrc/grouped_attention_bwd.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:230 (_grouped_bwd_kernel)",
         modes=("grouped_bwd",)),
+    "two_source_attention_gated": dict(
+        source="magicdance_tpu_torch/ops/kernels/csrc/two_source_attention.cu",
+        replaces="magicdance_tpu/ops/pallas/flash.py:135 (_attn2_kernel)",
+        modes=("two_source_attention_gated",)),
+    "groupnorm_silu": dict(
+        source="magicdance_tpu_torch/ops/kernels/csrc/groupnorm_silu.cu",
+        replaces="magicdance_tpu/ops/pallas/groupnorm.py:31 (_gn_silu_kernel)",
+        modes=("groupnorm_silu",)),
 }
 TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
                "attention_dq_two_source", "attention_dkv")
@@ -331,19 +363,11 @@ def check_kernels(frames: int, heads: int = 8):
 def small_reference_check():
     import torch
 
-    from magicdance_tpu_torch.config import (
-        CLIPTextConfig, ControlNetConfig, ModelConfig, SampleConfig, UNetConfig,
-        VAEConfig)
+    from magicdance_tpu_torch.config import SampleConfig
     from magicdance_tpu_torch.ops import kernels as K
     from magicdance_tpu_torch.pipeline import MagicPosePipeline
 
-    narrow = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
-                  attention_resolutions=(1, 2), num_heads=2, context_dim=16)
-    cfg = ModelConfig(unet=UNetConfig(**narrow), pose_control=ControlNetConfig(**narrow),
-                      vae=VAEConfig(base_channels=32, channel_mult=(1, 1, 2, 2),
-                                    num_res_blocks=1),
-                      clip=CLIPTextConfig(hidden_size=16, num_layers=1, num_heads=2),
-                      latent_size=16, dtype="float32")
+    cfg = narrow_model_config()
     g = torch.Generator().manual_seed(7)
     pose = torch.rand(2, 128, 128, 3, generator=g)
     ref = torch.rand(1, 128, 128, 3, generator=g) * 2 - 1
@@ -641,27 +665,161 @@ def serving_launch_plan(model_cfg, latent: int, batch: int, frames: int) -> dict
     the appearance write pass on the batch-1 reference, the ControlNet, the
     main UNet's cond pass reading the bank and its uncond pass, each on
     `batch` frames (clips of `frames`)."""
+    from magicdance_tpu_torch.config import SampleConfig
+
+    return request_launch_plan(model_cfg, latent, batch, SampleConfig(steps=1),
+                               frames=frames, video=frames > 1)
+
+
+def pass_sites(ucfg, latent: int, decoder: bool = True, shallow_level=None,
+               pool_mid: bool = True):
+    """The sites of one UNet (or, decoder=False, ControlNet) pass in
+    traversal order: ("gn", hw, C) per GroupNorm+SiLU (each ResBlock's two
+    norms, the UNet's output norm), ("spatial", S, D, poolable) per
+    transformer block's self-attention, ("motion", hw, C) per motion module.
+    `shallow_level`: the DeepCache shallow pass over levels 0..shallow_level
+    (models/unet.py). `pool_mid`: whether the middle block's self keys may
+    be pooled (the UNet's may, the ControlNet's never, as in JAX)."""
+    from magicdance_tpu_torch.models.unet import decoder_plan, unet_plan
+
+    units, skip_ch, ds_mid = unet_plan(ucfg)
+    out = []
+    shallow = shallow_level is not None
+
+    def hw(ds):
+        return (latent // ds) ** 2
+
+    def spatial(ds, ch, poolable=True):
+        out.extend([("spatial", hw(ds), ch // ucfg.num_heads, poolable)]
+                   * ucfg.transformer_depth)
+
+    def res(ds, cin, cout):
+        out.extend([("gn", hw(ds), cin), ("gn", hw(ds), cout)])
+
+    ch = ucfg.model_channels
+    for u in units:
+        if shallow and (u["level"] > shallow_level
+                        or (u["kind"] == "down" and u["level"] == shallow_level)):
+            break
+        if u["kind"] == "res":
+            res(u["ds"], ch, u["ch"])
+            ch = u["ch"]
+            if u["attn"]:
+                spatial(u["ds"], ch)
+            if ucfg.use_motion_modules:
+                out.append(("motion", hw(u["ds"]), ch))
+    mid_ch = ucfg.model_channels * ucfg.channel_mult[-1]
+    if not shallow:
+        res(ds_mid, ch, mid_ch)
+        spatial(ds_mid, mid_ch, pool_mid)
+        res(ds_mid, mid_ch, mid_ch)
+    if decoder:
+        ch, skips = mid_ch, list(skip_ch)
+        for u in decoder_plan(ucfg):
+            skip = skips.pop()
+            if not shallow or u["level"] <= shallow_level:
+                res(u["ds"], ch + skip, u["ch"])
+                if u["attn"]:
+                    spatial(u["ds"], u["ch"])
+                if ucfg.use_motion_modules:
+                    out.append(("motion", hw(u["ds"]), u["ch"]))
+            ch = u["ch"]
+        out.append(("gn", hw(1), ucfg.model_channels))
+    return out
+
+
+def request_launch_plan(model_cfg, latent: int, batch: int, scfg, frames: int = 1,
+                        fused_gn: bool = False, video: bool = False) -> dict:
+    """Kernel launches of one request of the image sampler (frames = 1) or
+    of the overlap sampler (frames = the window, batch = windows x window)
+    under `scfg`, a reference and pose maps given, from the host masks the
+    sampler itself runs (`sampling.ddim.TurboPlan`): per step the bank write
+    pass (on bank-refresh steps), the ControlNet (when the residuals are not
+    reused), the cond pass (full, or DeepCache-shallow on reuse steps) and
+    the uncond pass (on refresh steps; full or shallow) -- or, with fused
+    CFG on the image path, the ControlNet and one gated pass over 2B rows.
+    `video`: the overlap sampler (no fused CFG, a vanilla-SD uncond pass).
+    Self keys are pooled at read/plain sites of at least self_kv_min_seq
+    tokens (not in the write pass), bank entries at sites of at least
+    bank_downsample_min_seq. `fused_gn`: MAGICDANCE_FUSED_GN=1 (every
+    GN+SiLU with H*W >= 256 launches K8)."""
     from collections import Counter
 
     from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
     from magicdance_tpu_torch.models.magicpose import appearance_unet_config
     from magicdance_tpu_torch.ops.attention import _kernel_site
+    from magicdance_tpu_torch.ops.schedules import make_ddim_schedule, make_schedule
+    from magicdance_tpu_torch.sampling.ddim import TurboPlan
+
+    sched = make_schedule(model_cfg.diffusion)
+    ddim = make_ddim_schedule(sched, scfg.steps, eta=scfg.eta)
+    use_cfg = scfg.cfg_scale != 1.0
+    fused = use_cfg and scfg.fused_cfg and not video
+    plan = TurboPlan(scfg, sched, ddim, use_cfg, True, True,
+                     fused_cfg=scfg.fused_cfg and not video)
+    pool = scfg.self_kv_downsample
+    main = model_cfg.unet
+    cn = controlnet_unet_config(model_cfg.pose_control, main.in_channels)
+    app = appearance_unet_config(model_cfg)
+
+    def pooled(s, poolable, write=False):
+        side = int(round(s ** 0.5))
+        if (pool > 1 and poolable and not write and s >= scfg.self_kv_min_seq
+                and side % pool == 0):
+            return s // pool ** 2
+        return s
+
+    def bank_len(s):
+        f, side = scfg.bank_downsample, int(round(s ** 0.5))
+        if f > 1 and s >= scfg.bank_downsample_min_seq and side % f == 0:
+            return s // f ** 2
+        return s
+
+    def run(c, ucfg, kind, b, shallow_level=None, decoder=True, pool_mid=True):
+        """kind: "write", "self" (ControlNet, uncond), "read", "gated"."""
+        for site in pass_sites(ucfg, latent, decoder, shallow_level, pool_mid):
+            if site[0] == "gn":
+                if fused_gn and site[1] >= 256:
+                    c["groupnorm_silu"] += 1
+            elif site[0] == "motion":
+                c["grouped"] += _motion_launches(ucfg, site[1], site[2], b // frames, frames)
+            else:
+                _, s, d, poolable = site
+                sk = pooled(s, poolable, write=kind == "write")
+                if kind == "gated":
+                    c["two_source_attention_gated" if _kernel_site(s, s + bank_len(s), d)
+                      else None] += 1
+                elif kind == "read":
+                    c["two_source_attention" if _kernel_site(s, sk + bank_len(s), d)
+                      else None] += 1
+                elif sk != s:
+                    c["self_attention" if _kernel_site(s, sk, d) else None] += 1
+                else:
+                    c[_self_mode(s, d, b)] += 1
 
     c = Counter()
-    for _, s, d in unet_sites(appearance_unet_config(model_cfg), latent):
-        c[_self_mode(s, d, 1)] += 1
-    cn = controlnet_unet_config(model_cfg.pose_control, model_cfg.unet.in_channels)
-    for _, s, d in unet_sites(cn, latent, decoder=False):
-        c[_self_mode(s, d, batch)] += 1
-    main = model_cfg.unet
-    for cond in (True, False):
-        for kind, s, x in unet_sites(main, latent):
-            if kind == "motion":
-                c["grouped"] += _motion_launches(main, s, x, batch // frames, frames)
-            elif cond:
-                c["two_source_attention" if _kernel_site(s, 2 * s, x) else None] += 1
+    for i in range(ddim.num_steps):
+        step = ddim.num_steps - 1 - i
+        if plan.bank_refresh[step]:
+            run(c, app, "write", 1)
+        if fused:
+            run(c, cn, "self", batch, decoder=False, pool_mid=False)
+            run(c, main, "gated", 2 * batch)
+            continue
+        if not plan.pose_reuse or plan.pose_refresh[step]:
+            run(c, cn, "self", batch, decoder=False, pool_mid=False)
+        shallow = (plan.deep_level if plan.deepcache and not plan.deep_refresh[step]
+                   else None)
+        run(c, main, "read", batch, shallow)
+        if use_cfg and plan.refresh[step]:
+            if scfg.control_mode == "balance" and not video:
+                if not plan.pose_reuse:
+                    run(c, cn, "self", batch, decoder=False, pool_mid=False)
+                run(c, main, "read", batch)
             else:
-                c[_self_mode(s, x, batch)] += 1
+                ushallow = (plan.deep_level if plan.uncond_deepcache
+                            and not plan.udeep_refresh[step] else None)
+                run(c, main, "self", batch, ushallow)
     return {m: n for m, n in c.items() if m and n}
 
 
@@ -855,21 +1013,33 @@ def narrow_train_config():
         learning_rate=1e-4, warmup_steps=1, adam_eps=1e-4, frozen_dtype="float32"))
 
 
+NARROW = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+              attention_resolutions=(1, 2), num_heads=2, context_dim=16)
+
+
+def narrow_model_config():
+    """A narrow image model at 128x128 (S = 256 at the first level, so the
+    kernels run), fp32."""
+    from magicdance_tpu_torch import config as C
+
+    return C.ModelConfig(unet=C.UNetConfig(**NARROW), pose_control=C.ControlNetConfig(**NARROW),
+                         vae=C.VAEConfig(base_channels=32, channel_mult=(1, 1, 2, 2),
+                                         num_res_blocks=1),
+                         clip=C.CLIPTextConfig(hidden_size=16, num_layers=1, num_heads=2),
+                         latent_size=16, dtype="float32")
+
+
 def narrow_temporal_config():
     """The narrow model with motion modules (2 heads of 16 and 32 channels)
     at 128x128: the first level's 256 positions take kernels A and B, and
     windows of 4 frames make its motion attention a grouped site."""
+    import dataclasses
+
     from magicdance_tpu_torch import config as C
 
-    narrow = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
-                  attention_resolutions=(1, 2), num_heads=2, context_dim=16)
-    return C.ModelConfig(
-        variant=C.ModelVariant.APPEARANCE_POSE_TEMPORAL,
-        unet=C.UNetConfig(**narrow, use_motion_modules=True, motion_num_heads=2),
-        pose_control=C.ControlNetConfig(**narrow),
-        vae=C.VAEConfig(base_channels=32, channel_mult=(1, 1, 2, 2), num_res_blocks=1),
-        clip=C.CLIPTextConfig(hidden_size=16, num_layers=1, num_heads=2),
-        latent_size=16, dtype="float32")
+    return dataclasses.replace(
+        narrow_model_config(), variant=C.ModelVariant.APPEARANCE_POSE_TEMPORAL,
+        unet=C.UNetConfig(**NARROW, use_motion_modules=True, motion_num_heads=2))
 
 
 def narrow_stage3_config(frames: int = 4):
@@ -1407,6 +1577,365 @@ def full_width_stage3(steps: int = 3):
                 trainable_params=n_train, breakdown_ms=breakdown)
 
 
+# --------------------------------------------------------------------------
+# phases 14-17: fused CFG, the turbo levers, the fused GroupNorm+SiLU
+# --------------------------------------------------------------------------
+
+# bench.py's stacks (bench.py:229-231 `turbo`, :254-259 `turbo_max`)
+TURBO = dict(deepcache_every=3, pose_every=3, uncond_every=2, cfg_interval=(0.15, 0.85),
+             bank_every=3, bank_downsample=2, self_kv_downsample=2)
+TURBO_MAX = dict(deepcache_every=5, pose_every=5, uncond_every=4, cfg_interval=(0.15, 0.85),
+                 bank_every=8, bank_downsample=4, bank_downsample_min_seq=4096,
+                 self_kv_downsample=4, self_kv_min_seq=4096, reuse_exact_first=2,
+                 reuse_exact_last=2)
+# the narrow models' 256-token first level stands for the 4096-token sites
+NARROW_POOL = dict(bank_downsample_min_seq=256, self_kv_min_seq=256)
+
+
+def check(errs, checked, name, got, want, tol, label):
+    """Hold `got` to `want`: fp32 max-abs <= tol, bf16 also <= a tenth of
+    the plain output's RMS (phase 3's gates)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rms = want.float().pow(2).mean().sqrt().item()
+    if got.dtype == torch.bfloat16:
+        tol = min(tol, BF16_REL_TOL * rms)
+    if not (err <= tol and got.shape == want.shape and got.dtype == want.dtype):
+        raise AssertionError(f"{name} {label}: max|kernel - plain| = {err:.3e} > {tol:.3e} "
+                             f"(plain rms {rms:.3e})")
+    errs[name] = max(errs.get(name, 0.0), err)
+    checked[name] = checked.get(name, 0) + 1
+    log(f"  ok  {name:26s} {label:52s} max_abs_err={err:.3e} rms={rms:.3e} (tol {tol:.3e})")
+
+
+def gated_bound_ms(b, sq, h, d, sk, sb, gates, itemsize=2) -> tuple[float, str]:
+    """Least time of one gated kernel-B launch on these gates: every row
+    reads its self keys, only rows with a nonzero gate the bank (a row gated
+    by 0 is plain self-attention); a batch-1 bank is read once."""
+    open_rows = sum(1 for g in gates if g != 0)
+    flops = 4.0 * h * sq * d * (b * sk + open_rows * sb)
+    nbytes = itemsize * h * d * (2 * b * sq + 2 * b * sk + (2 * sb if open_rows else 0))
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int = 8):
+    """Phase 14a: kernel B's gated mode at every fused-CFG shape (2F rows,
+    cond gates 1 and uncond gates 0, a batch-1 bank; plus gates with a 0.5),
+    and kernels A and B at the pooled self-key lengths of the turbo stacks
+    (S_k = S / 4 and S / 16 at the S = 4096 sites, the bank pooled alike),
+    bf16 (timed) and fp32. `fused_plan`: {(S, D): gated launches per DDIM
+    step}."""
+    import torch
+    import torch.nn.functional as F
+
+    from magicdance_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    errs, checked, rows = {}, {}, []
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    b = 2 * frames
+    cases = [(s, d, tuple([1.0] * frames + [0.0] * frames)) for s, d in
+             ((4096, 40), (1024, 80), (256, 160))]
+    cases.append((1024, 80, tuple([0.5] * frames + [0.0] * frames)))
+    for s, d, gates in cases:
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            q, k, v = (rnd(b, s, heads, d, dtype=dtype) for _ in range(3))
+            kb, vb = (rnd(1, s, heads, d, dtype=dtype) for _ in range(2))
+            mask = torch.tensor(gates, device=dev)
+            args = (q, k, v, kb, vb)
+            label = f"{str(dtype)[6:]} B={b} S={s} D={d} bank_batch=1 gates={gates}"
+            check(errs, checked, "two_source_attention_gated",
+                  K.two_source_attention(*args, bank_mask=mask),
+                  K.two_source_attention_ref(*args, bank_mask=mask), tol, label)
+            if dtype != torch.bfloat16 or 0.5 in gates:
+                continue
+            ms = cuda_time_ms(lambda: K.two_source_attention(*args, bank_mask=mask))
+            plain_ms = cuda_time_ms(lambda: K.two_source_attention_ref(*args, bank_mask=mask),
+                                    min_total_s=0.1, max_iters=5)
+            qh = q.transpose(1, 2)
+            kh = torch.cat([k, kb.expand(b, -1, -1, -1)], 1).transpose(1, 2)
+            vh = torch.cat([v, vb.expand(b, -1, -1, -1)], 1).transpose(1, 2)
+            # the library call: SDPA over the concatenated keys, the bank
+            # hidden from the gate-0 rows by a boolean mask
+            allowed = torch.ones(b, 1, 1, 2 * s, dtype=torch.bool, device=dev)
+            allowed[mask == 0, :, :, s:] = False
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                         attn_mask=allowed))
+            bound, by = gated_bound_ms(b, s, heads, d, s, s, gates)
+            rows.append(dict(kernel="two_source_attention_gated", B=b, S=s, D=d, H=heads,
+                             gates=list(gates), launches_per_step=fused_plan.get((s, d), 0),
+                             kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound, bound_by=by))
+            log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.4f} ({by}) x{fused_plan.get((s, d), 0)}/step")
+            del q, k, v, kb, vb, args, kh, vh
+            torch.cuda.empty_cache()
+
+    # pooled self keys (self_kv_downsample 2 and 4) at the S = 4096 sites:
+    # kernel A in the uncond pass and the ControlNet, kernel B in the cond
+    # pass with the bank pooled by the same factor
+    for p in (2, 4):
+        sk = 4096 // p ** 2
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            q = rnd(frames, 4096, heads, 40, dtype=dtype)
+            k, v = (rnd(frames, sk, heads, 40, dtype=dtype) for _ in range(2))
+            kb, vb = (rnd(1, sk, heads, 40, dtype=dtype) for _ in range(2))
+            tag = f"{str(dtype)[6:]} B={frames} S=4096 S_k={sk} D=40"
+            check(errs, checked, "self_attention", K.self_attention(q, k, v),
+                  K.self_attention_ref(q, k, v), tol, f"{tag} (pooled {p}x{p})")
+            check(errs, checked, "two_source_attention", K.two_source_attention(q, k, v, kb, vb),
+                  K.two_source_attention_ref(q, k, v, kb, vb), tol,
+                  f"{tag} bank S_b={sk} (pooled {p}x{p})")
+            if dtype != torch.bfloat16:
+                continue
+            qh = q.transpose(1, 2)
+            for name, kern, plain, kv, kk, vv in (
+                    ("self_attention", lambda: K.self_attention(q, k, v),
+                     lambda: K.self_attention_ref(q, k, v), [(frames, sk)], k, v),
+                    ("two_source_attention", lambda: K.two_source_attention(q, k, v, kb, vb),
+                     lambda: K.two_source_attention_ref(q, k, v, kb, vb),
+                     [(frames, sk), (1, sk)], torch.cat([k, kb.expand(frames, -1, -1, -1)], 1),
+                     torch.cat([v, vb.expand(frames, -1, -1, -1)], 1))):
+                ms = cuda_time_ms(kern)
+                plain_ms = cuda_time_ms(plain, min_total_s=0.1, max_iters=5)
+                kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
+                lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                bound, by = attention_bound_ms(frames, 4096, heads, 40, kv)
+                rows.append(dict(kernel=name, B=frames, S=4096, S_k=sk, D=40, H=heads,
+                                 pooled=p, launches_per_step=0, kernel_ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=bound, bound_by=by))
+                log(f"      {name} pooled {p}x{p}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by})")
+            del q, k, v, kb, vb
+            torch.cuda.empty_cache()
+    return rows, errs, checked
+
+
+def groupnorm_sites(pipe, frames: int) -> list:
+    """Every (B, HW, C, groups, eps) at which the appearance UNet (B = 1),
+    the ControlNet and the main UNet (B = frames) call GroupNorm+SiLU with
+    HW >= 256 at 512x512, read from the model itself: forward hooks on its
+    GroupNorm32(act=True) modules over one call of each pass."""
+    import torch
+
+    from magicdance_tpu_torch.models.layers import GroupNorm32
+
+    seen = {}
+
+    def hook(mod, inputs, _out):
+        b, c, hh, ww = inputs[0].shape
+        if hh * ww >= 256:
+            key = (b, hh * ww, c, mod.norm.num_groups, mod.norm.eps)
+            seen[key] = seen.get(key, 0) + 1
+
+    m = pipe.model
+    handles = [mod.register_forward_hook(hook) for mod in m.modules()
+               if isinstance(mod, GroupNorm32) and mod.act]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(frames, 64, 64, 4, generator=gen, device="cuda")
+    t = torch.full((frames,), 501, dtype=torch.int64, device="cuda")
+    hint = torch.rand(frames, 512, 512, 3, generator=gen, device="cuda")
+    try:
+        with torch.inference_mode():
+            ctx = pipe.encode_empty(1).expand(frames, -1, -1)
+            bank = m.compute_bank(x[:1], t[:1], ctx[:1])
+            res = m.compute_control_residuals(x, hint, t, ctx)
+            m.unet(x, t, ctx, bank=bank, pose_residuals=res)
+    finally:
+        for h in handles:
+            h.remove()
+    return sorted(seen.items(), key=lambda kv: (-kv[0][1], kv[0][2], kv[0][0]))
+
+
+def check_groupnorm_kernel(sites, per_step: dict):
+    """Phase 14b: K8 against its plain version at every GN+SiLU site of the
+    model (bf16, timed, and fp32). Bound: one read and one write of x over
+    the memory rate vs ~10 operations per element. Library: F.group_norm
+    then F.silu (two calls; no single PyTorch call computes it).
+    `per_step`: {(B, HW, C): launches per DDIM step under MAGICDANCE_FUSED_GN=1}."""
+    import torch
+    import torch.nn.functional as F
+
+    from magicdance_tpu_torch.ops.kernels import groupnorm as GN
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    errs, checked, rows = {}, {}, []
+    for (b, hw, c, groups, eps), n_calls in sites:
+        w = torch.randn(c, generator=gen, device=dev) * 0.2 + 1
+        bias = torch.randn(c, generator=gen, device=dev) * 0.2
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            x = torch.randn(b, hw, c, generator=gen, device=dev).to(dtype)
+            label = f"{str(dtype)[6:]} B={b} HW={hw} C={c} groups={groups} eps={eps:g}"
+            check(errs, checked, "groupnorm_silu", GN.groupnorm_silu(x, w, bias, groups, eps),
+                  GN.groupnorm_silu_ref(x, w, bias, groups, eps), tol, label)
+            if dtype != torch.bfloat16:
+                continue
+            side = int(round(hw ** 0.5))
+            xn = x.view(b, side, side, c).permute(0, 3, 1, 2)  # NCHW, channels_last
+            wb, bb = w.to(dtype), bias.to(dtype)
+            ms = cuda_time_ms(lambda: GN.groupnorm_silu(x, w, bias, groups, eps))
+            plain_ms = cuda_time_ms(lambda: GN.groupnorm_silu_ref(x, w, bias, groups, eps),
+                                    min_total_s=0.1, max_iters=10)
+            lib_ms = cuda_time_ms(lambda: F.silu(F.group_norm(xn, groups, wb, bb, eps)))
+            n = b * hw * c
+            t_mem = 2 * n * x.element_size() / PEAK_BYTES * 1e3
+            t_ops = 10.0 * n / PEAK_BF16_FLOPS * 1e3
+            bound, by = (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+            launches = per_step.get((b, hw, c), 0)
+            rows.append(dict(kernel="groupnorm_silu", B=b, HW=hw, C=c, groups=groups, eps=eps,
+                             sites_per_pass=n_calls, launches_per_step=launches, kernel_ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by))
+            log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.4f} ({by}) x{launches}/step")
+    return rows, errs, checked
+
+
+def gn_plan_by_shape(model_cfg, latent: int, frames: int) -> dict:
+    """K8 launches per DDIM step of the exact recipe under
+    MAGICDANCE_FUSED_GN=1, by (B, HW, C): write pass (B = 1), ControlNet,
+    cond and uncond passes (B = frames)."""
+    from collections import Counter
+
+    from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
+    from magicdance_tpu_torch.models.magicpose import appearance_unet_config
+
+    c = Counter()
+    cn = controlnet_unet_config(model_cfg.pose_control, model_cfg.unet.in_channels)
+    for ucfg, b, decoder, passes in ((appearance_unet_config(model_cfg), 1, True, 1),
+                                     (cn, frames, False, 1), (model_cfg.unet, frames, True, 2)):
+        for site in pass_sites(ucfg, latent, decoder):
+            if site[0] == "gn" and site[1] >= 256:
+                c[b, site[1], site[2]] += passes
+    return dict(c)
+
+
+def small_turbo_checks():
+    """Phase 15: narrow models at 128x128, the card (kernels) against the CPU
+    (plain versions), fp32, the same weights and x_T: one fused-CFG sample,
+    the `turbo` and `turbo_max` stacks (pooling thresholds at the narrow
+    model's 256-token first level), the `turbo` stack through the overlap
+    sampler on the temporal model (F = 10, windows of 4, stride 3), and an
+    exact sample with MAGICDANCE_FUSED_GN=1. Each card run is held to its
+    launch plan (request_launch_plan, plus the reference's VAE encode)."""
+    import torch
+
+    from magicdance_tpu_torch.config import SampleConfig
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline
+
+    out = {}
+    pipes = {}
+    for video in (False, True):
+        cfg = narrow_temporal_config() if video else narrow_model_config()
+        cpu = MagicPosePipeline(cfg, device="cpu")
+        cpu.init_params(seed=12 + video, scale=0.1)
+        gpu = MagicPosePipeline(cfg, device="cuda")
+        for name in ("model", "vae", "clip"):
+            getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+        pipes[video] = (cfg, cpu, gpu)
+    cases = {"fused_cfg": (False, dict(steps=4, fused_cfg=True), False),
+             "turbo": (False, dict(steps=4, **TURBO, **NARROW_POOL), False),
+             "turbo_max": (False, dict(TURBO_MAX, steps=6, **NARROW_POOL), False),
+             "video_turbo": (True, dict(steps=4, window=4, stride=3, **TURBO, **NARROW_POOL),
+                             False),
+             "fused_gn": (False, dict(steps=3), True)}
+    for name, (video, kw, fused_gn) in cases.items():
+        cfg, cpu, gpu = pipes[video]
+        frames = 10 if video else 2
+        g = torch.Generator().manual_seed(21)
+        pose = torch.rand(frames, 128, 128, 3, generator=g)
+        ref = torch.rand(1, 128, 128, 3, generator=g) * 2 - 1
+        x_T = torch.randn(frames, 16, 16, 4, generator=g)
+        scfg = SampleConfig(**kw)
+        sk = dict(decode=False, x_T=x_T, video=video)
+        if video:
+            sk["window_offsets"] = [3, 7, 0, 5]
+        want = cpu.sample_frames(pose, ref, scfg, **sk)
+        saved = os.environ.get("MAGICDANCE_FUSED_GN")
+        if fused_gn:
+            os.environ["MAGICDANCE_FUSED_GN"] = "1"
+        try:
+            K.reset_launches()
+            got = gpu.sample_frames(pose, ref, scfg, **sk).cpu()
+            launches = {m: n for m, n in K.LAUNCHES.items() if n}
+        finally:
+            if saved is None:
+                os.environ.pop("MAGICDANCE_FUSED_GN", None)
+            else:
+                os.environ["MAGICDANCE_FUSED_GN"] = saved
+        expect = request_launch_plan(cfg, 16, 16 if video else frames, scfg,
+                                     frames=4 if video else 1, fused_gn=fused_gn, video=video)
+        for m, n in _vae_launches(cfg.vae, 16, 1).items():  # the reference's encode
+            expect[m] = expect.get(m, 0) + n
+        if launches != expect:
+            raise AssertionError(f"narrow {name} launches {launches}, plan {expect}")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = 1e-4 * max(1.0, scale)  # fp32, CFG 7 over a few steps (as phase 4)
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"narrow {name} card vs CPU: max abs err {err:.3e} > {tol:.3e}")
+        log(f"  ok  narrow 128x128 {name} ({', '.join(f'{k}={v}' for k, v in kw.items())}), "
+            f"card vs CPU: max_abs_err={err:.3e} (tol {tol:.1e}, |out|max={scale:.3f}), "
+            f"launches {launches}")
+        out[name] = dict(err=err, scale=scale, launches=launches)
+    return out
+
+
+def serve_requests(pipe, scfg, requests: int, frames: int, plan: dict, label: str,
+                   video: bool = False, fused_gn: bool = False):
+    """`requests` full-width requests of `frames` pose maps at 512x512 under
+    `scfg`, each held to `plan` (launches per request); seconds per request,
+    frames/s and peak memory."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = [(torch.rand(frames, 512, 512, 3, generator=gen, device="cuda"),
+               torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1)
+              for _ in range(requests)]
+    saved = os.environ.get("MAGICDANCE_FUSED_GN")
+    if fused_gn:
+        os.environ["MAGICDANCE_FUSED_GN"] = "1"
+    torch.cuda.reset_peak_memory_stats()
+    secs, per_request = [], []
+    try:
+        for pose, ref in inputs:
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = pipe.sample_frames(pose, ref, scfg, generator=gen, video=video)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            per_request.append({m: n for m, n in K.LAUNCHES.items() if n})
+            if tuple(out.shape) != (frames, 512, 512, 3) or not torch.isfinite(out).all():
+                raise AssertionError(f"{label}: bad output {tuple(out.shape)}, finite="
+                                     f"{bool(torch.isfinite(out).all())}")
+    finally:
+        if saved is None:
+            os.environ.pop("MAGICDANCE_FUSED_GN", None)
+        else:
+            os.environ["MAGICDANCE_FUSED_GN"] = saved
+    for i, got in enumerate(per_request):
+        if got != plan:
+            raise AssertionError(f"{label} request {i + 1}: launches {got}, plan {plan}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {label}: {requests} requests x {frames} frames, DDIM-{scfg.steps}: seconds per "
+        f"request {[round(s, 3) for s in secs]}, frames/s {[round(frames / s, 4) for s in secs]}, "
+        f"peak memory {peak / 2**30:.2f} GiB; launches per request {plan}")
+    return dict(seconds_per_request=secs, frames=frames, steps=scfg.steps,
+                frames_per_s=[frames / s for s in secs], peak_bytes=peak,
+                launches_per_request=plan, launches={m: n * requests for m, n in plan.items()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
@@ -1502,6 +2031,63 @@ def main(argv=None) -> int:
 
     log("== phase 13: stage-3 training path (full SD1.5 width, one 16-frame clip, 512x512)")
     stage3 = full_width_stage3(steps=3)
+    torch.cuda.empty_cache()
+
+    from magicdance_tpu_torch.config import ModelConfig
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline
+
+    model_cfg = ModelConfig()
+    fused_plan = {}
+    for site in pass_sites(model_cfg.unet, 64):
+        if site[0] == "spatial" and site[1] >= 256:
+            fused_plan[site[1], site[2]] = fused_plan.get((site[1], site[2]), 0) + 1
+    log("== phase 14: kernel B gated (fused CFG) and pooled key lengths; K8 (fused "
+        "GroupNorm+SiLU) at every site of the model")
+    fused_rows, fused_errs, fused_checked = check_fused_cfg_and_pooled_kernels(frames, fused_plan)
+    pipe = MagicPosePipeline(model_cfg, device="cuda")
+    pipe.init_params(seed=0)
+    gn_sites = groupnorm_sites(pipe, frames)
+    gn_per_step = gn_plan_by_shape(model_cfg, 64, frames)
+    if {key[:3] for key, _ in gn_sites} != set(gn_per_step):
+        raise AssertionError(f"GN+SiLU sites of the model {[k for k, _ in gn_sites]} differ "
+                             f"from the launch plan's {sorted(gn_per_step)}")
+    gn_rows, gn_errs, gn_checked = check_groupnorm_kernel(gn_sites, gn_per_step)
+
+    log("== phase 15: small-input references of fused CFG, the turbo stacks and the fused "
+        "GroupNorm (narrow models, card vs CPU)")
+    small_turbo = small_turbo_checks()
+
+    log(f"== phase 16: fused CFG, turbo, turbo_max and fused GroupNorm requests (full SD1.5 "
+        f"width, {requests} x {frames} frames at 512x512), in turns with the exact recipe")
+    served = {}
+    for label, scfg, fused_gn in (
+            ("exact", SampleConfig(steps=steps), False),
+            ("fused_cfg", SampleConfig(steps=steps, fused_cfg=True), False),
+            ("fused_gn", SampleConfig(steps=steps), True),
+            ("turbo", SampleConfig(steps=steps, **TURBO), False),
+            ("turbo_max", SampleConfig(steps=20, **TURBO_MAX), False),
+            ("exact_again", SampleConfig(steps=steps), False)):
+        plan = request_launch_plan(model_cfg, 64, frames, scfg, fused_gn=fused_gn)
+        served[label] = serve_requests(pipe, scfg, requests, frames, plan, label,
+                                       fused_gn=fused_gn)
+    log(f"  beside phase 5's exact requests (same process): seconds per request "
+        f"{[round(x, 3) for x in e2e['seconds_per_request']]}, peak memory "
+        f"{e2e['peak_bytes'] / 2**30:.2f} GiB")
+    del pipe
+    torch.cuda.empty_cache()
+
+    log(f"== phase 17: video turbo (full SD1.5 width + motion modules, 16 frames at 512x512, "
+        f"DDIM-{steps}, bench.py's turbo stack)")
+    vpipe = MagicPosePipeline(temporal_model_config(), device="cuda")
+    vpipe.init_params(seed=0)
+    vscfg = SampleConfig(steps=steps, **TURBO)
+    vplan = request_launch_plan(temporal_model_config(), 64, 16, vscfg, frames=16, video=True)
+    video_turbo = serve_requests(vpipe, vscfg, requests, 16, vplan, "video turbo", video=True)
+    log(f"  beside phase 12's exact video requests (same process): seconds per request "
+        f"{[round(x, 3) for x in video['seconds_per_request']]}, peak memory "
+        f"{video['peak_bytes'] / 2**30:.2f} GiB")
+    del vpipe
+    torch.cuda.empty_cache()
 
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
@@ -1515,10 +2101,30 @@ def main(argv=None) -> int:
     paths = {"image serving (2 requests x 50 DDIM steps)": e2e["launches"],
              "image training (stage 2, 4 steps)": train["launches"],
              "video serving (2 requests x 50 DDIM steps)": video["launches"],
-             "video training (stage 3, 3 steps)": stage3["launches"]}
+             "video training (stage 3, 3 steps)": stage3["launches"],
+             **{f"image serving, {label} (2 requests x {r['steps']} DDIM steps)": r["launches"]
+                for label, r in served.items()},
+             "video serving, turbo (2 requests x 50 DDIM steps)": video_turbo["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
-        by_path = {p: sum(launches[m] for m in meta["modes"]) for p, launches in paths.items()}
+        by_path = {p: sum(launches.get(m, 0) for m in meta["modes"])
+                   for p, launches in paths.items()}
+        if name in ("two_source_attention_gated", "groupnorm_silu"):
+            main_rows = [r for r in (fused_rows if name.startswith("two") else gn_rows)
+                         if r["kernel"] == name]
+            err = (fused_errs if name.startswith("two") else gn_errs)[name]
+            n_checked = (fused_checked if name.startswith("two") else gn_checked)[name]
+            kernels.append(dict(
+                name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+                launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
+                ms=per_step(main_rows, "kernel_ms"), plain_ms=per_step(main_rows, "plain_ms"),
+                bound_ms=per_step(main_rows, "bound_ms"), bound_by=bound_by(main_rows),
+                library_ms=per_step(main_rows, "library_ms"),
+                per="one DDIM step of the image serving path with "
+                    + ("fused_cfg=True" if name.startswith("two") else "MAGICDANCE_FUSED_GN=1")
+                    + " (sum over its launches)",
+                check=f"{n_checked} comparisons within tolerance"))
+            continue
         if name.startswith("grouped"):
             main_rows = [r for r in grouped_rows if r["mode"] in meta["modes"]]
             serving, training = (main_rows, []) if name == "grouped_attention" else ([], main_rows)
@@ -1527,8 +2133,9 @@ def main(argv=None) -> int:
             serving = [r for r in rows if r["kernel"] == name]
             training = [r for r in train_rows if r["mode"] in meta["modes"]]
             main_rows = serving if serving else training
-            err = max(errs.get(name, 0.0), train_errs[name])
-            n_checked = checked.get(name, 0) + train_checked[name]
+            err = max(errs.get(name, 0.0), train_errs[name], fused_errs.get(name, 0.0))
+            n_checked = (checked.get(name, 0) + train_checked[name]
+                         + fused_checked.get(name, 0))
         entry = dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
@@ -1556,6 +2163,8 @@ def main(argv=None) -> int:
                            small_training=small_train, training=train,
                            grouped_shapes=grouped_rows, small_video=small_video,
                            small_stage3=small_stage3, video=video, stage3=stage3,
+                           fused_and_pooled_shapes=fused_rows, groupnorm_shapes=gn_rows,
+                           small_turbo=small_turbo, served=served, video_turbo=video_turbo,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

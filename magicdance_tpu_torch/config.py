@@ -203,12 +203,11 @@ class SampleConfig:
     window: int = 16
     stride: int = 12
     # batch cond+uncond into ONE UNet forward (numerically identical to the
-    # reference's two sequential passes). Not ported yet: the port's sampler
-    # raises when it is set.
+    # reference's two sequential passes); the uncond rows read the bank
+    # through a gate of 0 (kernel B's gated mode). Image sampler only.
     fused_cfg: bool = False
     # ---- opt-in turbo modes (NOT reference-parity; defaults are exact) ----
-    # The JAX package's sampler implements them; the port's sampler runs the
-    # exact path only and raises when any of them is set.
+    # Ignored when fused_cfg is set (as in the JAX package).
     # cfg_interval=(lo, hi): apply classifier-free guidance only while t/T
     # is inside [lo, hi] ("Applying Guidance in a Limited Interval",
     # Kynkäänniemi et al. 2024).

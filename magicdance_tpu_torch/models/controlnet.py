@@ -6,7 +6,9 @@ block run on `conv_in(x) + hint`, and 13 1x1 "zero" convolutions (zero at
 initialisation in training) tap the residual stream: one per encoder skip
 (12 at SD1.5 width) plus one after the middle block. The 13 residuals are
 returned NHWC in fp32, in the order `UNet(pose_residuals=...)` consumes them.
-Compute dtype and `remat` as in `models.unet`.
+Compute dtype and `remat` as in `models.unet`; `self_kv_pool` /
+`self_kv_min_seq` pool the encoder sites' self keys/values as the UNet's do
+(the middle block stays exact, as in JAX).
 """
 
 from __future__ import annotations
@@ -99,7 +101,8 @@ class PoseControlNet(nn.Module):
         self.zero_conv_mid = conv1x1(mid_ch, mid_ch)
 
     def forward(self, x: torch.Tensor, hint: torch.Tensor, timesteps: torch.Tensor,
-                context: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+                context: Optional[torch.Tensor], self_kv_pool: int = 1,
+                self_kv_min_seq: int = 4096) -> Tuple[torch.Tensor, ...]:
         """x: (B, h, w, 4) noisy latent; hint: (B, 8h, 8w, 3) pose map in
         [0, 1]. Returns the 13 zero-conv residuals, NHWC, fp32."""
         dtype = self.compute_dtype or self.conv_in.weight.dtype
@@ -108,8 +111,9 @@ class PoseControlNet(nn.Module):
                                                  dtype=dtype))
         if context is not None:
             context = context.to(dtype)
-        guided = self.hint_encoder(nhwc_to_nchw(hint.to(dtype)))
-        h = self.conv_in(nhwc_to_nchw(x.to(dtype))) + guided
+        # contiguous NHWC inputs keep the activations channels_last (as the UNet's)
+        guided = self.hint_encoder(nhwc_to_nchw(hint.to(dtype).contiguous()))
+        h = self.conv_in(nhwc_to_nchw(x.to(dtype).contiguous())) + guided
         outs = [self.zero_conv_0(h)]
         res_i = down_i = attn_i = 0
         for zc, u in enumerate(unet_plan(self.ucfg)[0], start=1):
@@ -117,7 +121,10 @@ class PoseControlNet(nn.Module):
                 h = remat(rm, getattr(self, f"enc_res_{res_i}"), h, emb)
                 res_i += 1
                 if u["attn"]:
-                    h, _ = remat(rm, getattr(self, f"enc_attn_{attn_i}"), h, context)
+                    kvp = (self_kv_pool if self_kv_pool > 1
+                           and h.shape[2] * h.shape[3] >= self_kv_min_seq else 1)
+                    h, _ = remat(rm, getattr(self, f"enc_attn_{attn_i}"), h, context,
+                                 None, False, None, kvp)
                     attn_i += 1
             else:
                 h = getattr(self, f"enc_down_{down_i}")(h)

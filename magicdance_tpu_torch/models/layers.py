@@ -27,7 +27,8 @@ JAX package's `nn.remat` does for every ResBlock and SpatialTransformer.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +66,10 @@ from magicdance_tpu_torch.ops.attention import (
     attention_packed,
     bank_read_attention_packed,
 )
+from magicdance_tpu_torch.ops.kernels.groupnorm import groupnorm_silu
+
+# devices on which `GroupNorm32` may take the fused GroupNorm+SiLU kernel
+FUSED_GN_DEVICES = ("cuda",)
 
 
 def layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +97,13 @@ def group_norm_f32(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
 class GroupNorm32(nn.Module):
     """GroupNorm(32) in fp32, cast back to the input dtype, optionally
     followed by SiLU in the input dtype. When C % 32 != 0 the group count is
-    gcd(C, 32), as in the JAX package."""
+    gcd(C, 32), as in the JAX package.
+
+    With ``MAGICDANCE_FUSED_GN=1`` (the JAX package's opt-in switch),
+    GroupNorm+SiLU runs as one kernel (`ops.kernels.groupnorm`, SiLU on the
+    fp32 affine output) where the JAX package's conditions hold
+    (`fused_site`): act=True, a tensor on the card, no gradient asked for,
+    H*W >= 256."""
 
     def __init__(self, channels: int, eps: float = 1e-5, act: bool = False,
                  num_groups: int = 32):
@@ -101,7 +112,26 @@ class GroupNorm32(nn.Module):
         self.norm = nn.GroupNorm(groups, channels, eps=eps)
         self.act = act
 
+    def fused_site(self, x: torch.Tensor) -> bool:
+        gn = self.norm
+        return (self.act and x.dim() == 4
+                and os.environ.get("MAGICDANCE_FUSED_GN", "0") == "1"
+                and x.device.type in FUSED_GN_DEVICES
+                and not (torch.is_grad_enabled()
+                         and (x.requires_grad or gn.weight.requires_grad
+                              or gn.bias.requires_grad))
+                and x.shape[2] * x.shape[3] >= 256
+                and x.shape[1] % gn.num_groups == 0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_site(x):
+            b, c, hh, ww = x.shape
+            # (B, HW, C) rows of channels: a view of channels_last activations
+            # (any other layout fails the kernel's unit channel stride)
+            rows = x.permute(0, 2, 3, 1).view(b, hh * ww, c)
+            y = groupnorm_silu(rows, self.norm.weight, self.norm.bias,
+                               self.norm.num_groups, self.norm.eps)
+            return y.view(b, hh, ww, c).permute(0, 3, 1, 2)
         h = group_norm_f32(self.norm, x).to(x.dtype)
         return F.silu(h) if self.act else h
 
@@ -206,12 +236,14 @@ class CrossAttention(nn.Module):
         self.to_out = Linear(inner, query_dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
-                kv_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_extra: Optional[torch.Tensor] = None,
+                bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if kv_extra is not None:
             kb, vb = self.to_k(kv_extra), self.to_v(kv_extra)
-            out = bank_read_attention_packed(q, k, v, kb, vb, num_heads=self.num_heads)
+            out = bank_read_attention_packed(q, k, v, kb, vb, num_heads=self.num_heads,
+                                             bank_mask=bank_mask)
         else:
             out = attention_packed(q, k, v, num_heads=self.num_heads)
         return self.to_out(out)
@@ -222,8 +254,15 @@ class BasicTransformerBlock(nn.Module):
 
     write mode (collect=True): also returns norm1(x), the bank entry, taken
     before attn1. read mode (bank_entry given): attn1's keys/values are the
-    union of norm1(x) and the bank entry. plain mode: vanilla self-attention
-    (the CFG uncond pass)."""
+    union of norm1(x) and the bank entry, the bank gated per batch row by
+    `bank_mask` when given (fused CFG). plain mode: vanilla self-attention
+    (the CFG uncond pass).
+
+    kv_pool > 1 (turbo, SampleConfig.self_kv_downsample): attn1's own
+    keys/values come from norm1(x) average-pooled kv_pool x kv_pool in fp32
+    over the site's (h, w) grid `hw` (tokens row-major over (h, w)); queries
+    and outputs stay at full resolution. A grid not divisible by kv_pool
+    stays exact."""
 
     def __init__(self, dim: int, context_dim: int, num_heads: int, head_dim: int):
         super().__init__()
@@ -235,10 +274,23 @@ class BasicTransformerBlock(nn.Module):
         self.ff = GEGLUFeedForward(dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
-                bank_entry: Optional[torch.Tensor] = None, collect: bool = False):
+                bank_entry: Optional[torch.Tensor] = None, collect: bool = False,
+                bank_mask: Optional[torch.Tensor] = None, kv_pool: int = 1,
+                hw: Optional[Tuple[int, int]] = None):
         h = layer_norm_f32(self.norm1, x)
         written = h if collect else None
-        x = x + self.attn1(h, kv_extra=bank_entry)
+        kv_self = None  # None: keys/values from h itself (exact)
+        if kv_pool > 1 and hw is not None:
+            if bank_mask is not None:
+                raise ValueError("self-KV pooling with a gated bank_mask is not supported "
+                                 "(as in the JAX package)")
+            hh, ww = hw
+            if hh % kv_pool == 0 and ww % kv_pool == 0:
+                b, _, c = h.shape
+                p = kv_pool
+                kv_self = (h.reshape(b, hh // p, p, ww // p, p, c).float().mean(dim=(2, 4))
+                           .reshape(b, (hh // p) * (ww // p), c).to(h.dtype))
+        x = x + self.attn1(h, context=kv_self, kv_extra=bank_entry, bank_mask=bank_mask)
         x = x + self.attn2(layer_norm_f32(self.norm2, x), context=context)
         x = x + self.ff(layer_norm_f32(self.norm3, x))
         return x, written
@@ -262,7 +314,8 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 bank_entries: Optional[Sequence[torch.Tensor]] = None,
-                collect: bool = False):
+                collect: bool = False, bank_mask: Optional[torch.Tensor] = None,
+                kv_pool: int = 1):
         b, _, hh, ww = x.shape
         z = self.proj_in(self.norm(x))
         inner = z.shape[1]
@@ -271,7 +324,8 @@ class SpatialTransformer(nn.Module):
         for i in range(self.depth):
             entry = bank_entries[i] if bank_entries is not None else None
             z, w_i = getattr(self, f"block_{i}")(z, context, bank_entry=entry,
-                                                 collect=collect)
+                                                 collect=collect, bank_mask=bank_mask,
+                                                 kv_pool=kv_pool, hw=(hh, ww))
             if collect:
                 written.append(w_i)
         z = z.reshape(b, hh, ww, inner).permute(0, 3, 1, 2)

@@ -1,13 +1,15 @@
 """MagicPose composed denoiser: main UNet + appearance UNet + pose ControlNet.
 
 Counterpart of `magicdance_tpu.models.magicpose.MagicPoseModel` without the
-image-control branch and the turbo levers: the appearance branch is a second
+image-control branch (DUAL_CONTROL raises): the appearance branch is a second
 UNet run on the reference latent in bank-write mode; the pose branch returns
 the 13 ControlNet residuals; the CFG uncond pass (`uc=True`) is a vanilla SD
 forward that skips both branches. With motion modules (the temporal variant)
 the batch holds clips of `num_frames` frames, clip major; the appearance
 UNet and the ControlNet stay per frame, and one reference per clip serves its
-frames.
+frames. The sampler's turbo levers reach the networks through `forward`
+(cached `pose_residuals`, DeepCache, self-KV pooling) and `cfg_fused_eps`
+(cond and uncond rows in one batch, the bank gated per row).
 VAE and CLIP live outside (applied once per request, or once per training
 batch). The networks compute in `cfg.dtype` whatever dtype their weights are
 stored in (a trainer holds fp32 trainable masters beside frozen weights in
@@ -80,10 +82,14 @@ class MagicPoseModel(nn.Module):
     def compute_control_residuals(self, x_noisy: torch.Tensor,
                                   pose_hint: Optional[torch.Tensor],
                                   timesteps: torch.Tensor,
-                                  context: torch.Tensor) -> Optional[Tuple[torch.Tensor, ...]]:
-        """The pose branch's 13 residuals, or None without a pose branch/hint."""
+                                  context: torch.Tensor, self_kv_pool: int = 1,
+                                  self_kv_min_seq: int = 4096
+                                  ) -> Optional[Tuple[torch.Tensor, ...]]:
+        """The pose branch's 13 residuals, or None without a pose branch/hint
+        (the quantity the turbo sampler caches)."""
         if self.cfg.has_pose and pose_hint is not None:
-            return self.pose_control(x_noisy, pose_hint, timesteps, context)
+            return self.pose_control(x_noisy, pose_hint, timesteps, context,
+                                     self_kv_pool, self_kv_min_seq)
         return None
 
     def forward(self, x_noisy: torch.Tensor, timesteps: torch.Tensor,
@@ -91,14 +97,27 @@ class MagicPoseModel(nn.Module):
                 reference_noisy: Optional[torch.Tensor] = None,
                 pose_hint: Optional[torch.Tensor] = None,
                 bank: Optional[Bank] = None, uc: bool = False,
-                num_frames: int = 1) -> torch.Tensor:
+                num_frames: int = 1,
+                pose_residuals: Optional[Tuple[torch.Tensor, ...]] = None,
+                collect_deep: bool = False,
+                deep_cache_in: Optional[torch.Tensor] = None,
+                deep_level: int = 0,
+                self_kv_pool: int = 1, self_kv_min_seq: int = 4096):
         """eps prediction (B, h, w, 4) fp32. Pass `reference_noisy` (bank
         computed inline: the training path, one reference per sample, per
         clip, or one for every frame) or a precomputed `bank`; `uc=True` is
         the CFG uncond vanilla-SD pass. `num_frames`: frames per clip for the
-        motion modules."""
+        motion modules. `pose_residuals`, if given, replace the pose branch
+        (the turbo cache); `collect_deep` / `deep_cache_in` / `deep_level`
+        are the UNet's DeepCache arguments (with collect_deep the return is
+        (eps, deep feature)); `self_kv_pool` / `self_kv_min_seq` pool the
+        self keys/values of the main UNet and the ControlNet."""
+        deep_kw = dict(collect_deep=collect_deep, deep_cache_in=deep_cache_in,
+                       deep_level=deep_level, self_kv_pool=self_kv_pool,
+                       self_kv_min_seq=self_kv_min_seq)
         if uc:
-            return self.unet(x_noisy, timesteps, context, num_frames=num_frames)[0]
+            res = self.unet(x_noisy, timesteps, context, num_frames=num_frames, **deep_kw)
+            return (res[0], res[2]) if collect_deep else res[0]
         b = x_noisy.shape[0]
         if bank is not None and len(bank) and bank[0].shape[0] not in (1, b):
             bank = _repeat_bank(bank, b)
@@ -116,6 +135,35 @@ class MagicPoseModel(nn.Module):
             bank = self.compute_bank(reference_noisy, t_ref, ctx_ref)
             if bank[0].shape[0] not in (1, b):
                 bank = _repeat_bank(bank, b)
+        if pose_residuals is None:
+            pose_residuals = self.compute_control_residuals(
+                x_noisy, pose_hint, timesteps, context, self_kv_pool, self_kv_min_seq)
+        res = self.unet(x_noisy, timesteps, context, bank=bank,
+                        pose_residuals=pose_residuals, num_frames=num_frames, **deep_kw)
+        return (res[0], res[2]) if collect_deep else res[0]
+
+    def cfg_fused_eps(self, x_noisy: torch.Tensor, timesteps: torch.Tensor,
+                      context: torch.Tensor, uncond_context: torch.Tensor, *,
+                      bank: Optional[Bank] = None,
+                      pose_hint: Optional[torch.Tensor] = None,
+                      num_frames: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fused classifier-free guidance: the cond and uncond passes as one
+        UNet forward over 2B rows. Uncond rows read the bank through a gate
+        of 0 (exactly plain self-attention) and get zero pose residuals: the
+        `controlnet_important` uncond pass, whatever `control_mode` asks for
+        (as in JAX). Returns (eps_cond, eps_uncond), each (B, h, w, 4)."""
+        b = x_noisy.shape[0]
+        xx = torch.cat([x_noisy, x_noisy])
+        tt = torch.cat([timesteps, timesteps])
+        cc = torch.cat([context.expand(b, *context.shape[1:]),
+                        uncond_context.expand(b, *uncond_context.shape[1:])])
+        mask = torch.cat([torch.ones(b), torch.zeros(b)]).to(x_noisy.device)
         residuals = self.compute_control_residuals(x_noisy, pose_hint, timesteps, context)
-        return self.unet(x_noisy, timesteps, context, bank=bank,
-                         pose_residuals=residuals, num_frames=num_frames)[0]
+        if residuals is not None:
+            residuals = tuple(torch.cat([r, torch.zeros_like(r)]) for r in residuals)
+        if bank is not None and self.cfg.has_appearance:
+            out = self.unet(xx, tt, cc, bank=bank, bank_mask=mask,
+                            pose_residuals=residuals, num_frames=num_frames)[0]
+        else:
+            out = self.unet(xx, tt, cc, pose_residuals=residuals, num_frames=num_frames)[0]
+        return out[:b], out[b:]

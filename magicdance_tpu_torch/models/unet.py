@@ -1,8 +1,7 @@
 """SD1.5 UNet with appearance-bank, pose-ControlNet and motion-module hooks
 (PyTorch).
 
-Counterpart of `magicdance_tpu.models.unet.UNet` without the turbo levers
-(DeepCache, self-KV pooling, the bank mask):
+Counterpart of `magicdance_tpu.models.unet.UNet`:
 
   * `collect_bank=True` -- appearance "write" pass: every transformer block
     returns norm1 of its input; the tuple of all entries, in traversal order
@@ -18,6 +17,16 @@ Counterpart of `magicdance_tpu.models.unet.UNet` without the turbo levers
     (`dec_motion_i`), none in the middle block: 20 at SD1.5 width. The batch
     holds clips of `num_frames` frames, clip major; with num_frames = 1 the
     modules still run, over one frame, as in JAX.
+  * `bank_mask` (B,) -- a gate on the bank per batch row (fused CFG: cond
+    rows 1, uncond rows 0, exactly plain self-attention).
+  * `self_kv_pool` / `self_kv_min_seq` -- self-attention keys/values
+    average-pooled at read/plain sites of at least `self_kv_min_seq` tokens
+    (turbo, `SampleConfig.self_kv_downsample`); the write pass stays exact.
+  * DeepCache (turbo): `collect_deep=True` also returns the hidden state
+    entering the first decoder unit of level `deep_level`; `deep_cache_in=`
+    that feature runs a shallow pass over levels 0..deep_level only
+    (`shallow_plan`). A shallow pass fed the deep feature of the same (x, t)
+    reproduces the full forward.
 
 Public layout is NHWC like the JAX package: x (B, h, w, C) in, eps
 (B, h, w, C) fp32 out. The compute dtype is `compute_dtype` when set (the
@@ -114,6 +123,18 @@ def num_bank_entries(cfg: UNetConfig) -> int:
     return (enc + 1 + dec) * cfg.transformer_depth
 
 
+def shallow_plan(cfg: UNetConfig, deep_level: int = 0):
+    """DeepCache shallow pass over levels 0..deep_level: (n_enc_bank,
+    n_dec_bank), the bank entries its encoder and decoder attention sites
+    consume (the first n_enc_bank and the last n_dec_bank of the bank)."""
+    enc_units, _, _ = unet_plan(cfg)
+    n_enc = sum(1 for u in enc_units
+                if u["kind"] == "res" and u["attn"] and u["level"] <= deep_level)
+    n_dec = sum(1 for u in decoder_plan(cfg) if u["level"] <= deep_level and u["attn"])
+    d = cfg.transformer_depth
+    return n_enc * d, n_dec * d
+
+
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     """A view: an NHWC tensor seen as NCHW (channels_last in memory)."""
     return x.permute(0, 3, 1, 2)
@@ -185,21 +206,50 @@ class UNet(nn.Module):
         collect_bank: bool = False,
         pose_residuals: Optional[Sequence[torch.Tensor]] = None,
         num_frames: int = 1,
+        bank_mask: Optional[torch.Tensor] = None,
+        collect_deep: bool = False,
+        deep_cache_in: Optional[torch.Tensor] = None,
+        deep_level: int = 0,
+        self_kv_pool: int = 1,
+        self_kv_min_seq: int = 4096,
     ):
         """x: (B, h, w, C), B = clips x num_frames; timesteps: (B,); context:
         (B, 77, context_dim); bank: entries (Bb, S_i, C_i), Bb in {1, B};
         pose_residuals: 13 NHWC tensors, [0..11] per encoder skip, [12] middle.
-        Returns (eps (B, h, w, out_channels) fp32, bank_written)."""
+        Returns (eps (B, h, w, out_channels) fp32, bank_written), and the deep
+        feature (NCHW, compute dtype) third when `collect_deep`."""
         cfg = self.cfg
+        shallow = deep_cache_in is not None
         if bank is not None and collect_bank:
             raise ValueError("bank write and read are exclusive")
+        if shallow and (collect_deep or collect_bank):
+            raise ValueError("a shallow (DeepCache) pass neither collects the deep "
+                             "feature nor writes the bank")
+        if (shallow or collect_deep) and not 0 <= deep_level < len(cfg.channel_mult) - 1:
+            raise ValueError(f"deep_level {deep_level} out of range for "
+                             f"{len(cfg.channel_mult)} levels")
         if bank is not None and len(bank) != num_bank_entries(cfg):
             raise ValueError(f"bank has {len(bank)} entries, expected "
                              f"{num_bank_entries(cfg)}")
         dtype = self.compute_dtype or self.conv_in.weight.dtype
         depth = cfg.transformer_depth
-        bank_read = list(bank) if bank is not None else None
+        if bank is not None and shallow:
+            # the shallow levels' sites: the first entries (encoder) and the
+            # last (decoder)
+            n_enc0, n_dec0 = shallow_plan(cfg, deep_level)
+            bank_read = list(bank[:n_enc0]) + (list(bank[-n_dec0:]) if n_dec0 else [])
+        else:
+            bank_read = list(bank) if bank is not None else None
         bank_written: list[torch.Tensor] = []
+
+        def kv_pool_at(h):
+            """Self-KV pool factor of the site at h's resolution: read/plain
+            sites of at least self_kv_min_seq tokens; the write pass stays
+            exact."""
+            if (self_kv_pool > 1 and not collect_bank
+                    and h.shape[2] * h.shape[3] >= self_kv_min_seq):
+                return self_kv_pool
+            return 1
 
         def take_bank():
             if bank_read is None:
@@ -219,18 +269,28 @@ class UNet(nn.Module):
         if context is not None:
             context = context.to(dtype)
 
-        h = self.conv_in(nhwc_to_nchw(x.to(dtype)))
+        def attention(name, h):
+            h, written = remat(cfg.remat, getattr(self, name), h, context, take_bank(),
+                               collect_bank, bank_mask, kv_pool_at(h))
+            bank_written.extend(written)
+            return h
+
+        # a contiguous NHWC input makes every activation channels_last (rows
+        # of channels, what the fused GroupNorm kernel takes), also when x
+        # is a view such as a slice of the VAE's moments
+        h = self.conv_in(nhwc_to_nchw(x.to(dtype).contiguous()))
         hs = [h]
         units, _, _ = unet_plan(cfg)
         res_i = down_i = attn_i = 0
         for u in units:
+            if shallow and (u["level"] > deep_level
+                            or (u["kind"] == "down" and u["level"] == deep_level)):
+                break  # the deeper levels come from the cached feature
             if u["kind"] == "res":
                 h = remat(cfg.remat, getattr(self, f"enc_res_{res_i}"), h, emb)
                 if u["attn"]:
-                    h, written = remat(cfg.remat, getattr(self, f"enc_attn_{attn_i}"),
-                                       h, context, take_bank(), collect_bank)
+                    h = attention(f"enc_attn_{attn_i}", h)
                     attn_i += 1
-                    bank_written.extend(written)
                 h = motion(h, f"enc_motion_{res_i}")
                 res_i += 1
             else:
@@ -238,28 +298,38 @@ class UNet(nn.Module):
                 down_i += 1
             hs.append(h)
 
-        h = remat(cfg.remat, self.mid_res_0, h, emb)
-        h, written = remat(cfg.remat, self.mid_attn, h, context, take_bank(), collect_bank)
-        bank_written.extend(written)
-        h = remat(cfg.remat, self.mid_res_1, h, emb)
-        if pose_residuals is not None:
-            h = h + residual(-1).to(h.dtype)
+        if not shallow:
+            h = remat(cfg.remat, self.mid_res_0, h, emb)
+            h = attention("mid_attn", h)
+            h = remat(cfg.remat, self.mid_res_1, h, emb)
+            if pose_residuals is not None:
+                h = h + residual(-1).to(h.dtype)
 
-        for u in decoder_plan(cfg):
+        deep_feature = None
+        dec_units = decoder_plan(cfg)
+        if shallow:
+            h = deep_cache_in.to(dtype)
+            dec_units = [u for u in dec_units if u["level"] <= deep_level]
+        for u in dec_units:
+            if collect_deep and deep_feature is None and u["level"] == deep_level:
+                deep_feature = h  # the hidden state entering level deep_level
             skip = hs.pop()
             if pose_residuals is not None:
                 skip = skip + residual(len(hs)).to(skip.dtype)
             h = remat(cfg.remat, getattr(self, u["name_res"]),
                       torch.cat([h, skip], dim=1), emb)
             if u["attn"]:
-                h, written = remat(cfg.remat, getattr(self, u["name_attn"]),
-                                   h, context, take_bank(), collect_bank)
-                bank_written.extend(written)
+                h = attention(u["name_attn"], h)
             h = motion(h, u["name_mm"])
             if u["upsample"]:
                 h = getattr(self, u["name_up"])(h)
+        if hs:
+            raise ValueError("skip bookkeeping mismatch")
         if bank_read:
             raise ValueError("unconsumed bank entries")
 
         h = self.conv_out(self.norm_out(h))
-        return nchw_to_nhwc(h).float(), tuple(bank_written)
+        out = nchw_to_nhwc(h).float()
+        if collect_deep:
+            return out, tuple(bank_written), deep_feature
+        return out, tuple(bank_written)

@@ -23,6 +23,11 @@ spatial sites; `_grouped_site`, the JAX package's `flash_grouped` rule) is
 dispatched the same way to the grouped kernel G (`ops.kernels.grouped`):
 `mha_grouped` with a gradient, the kernel's wrapper without one.
 
+A bank read gated per batch row (`bank_mask`, fused classifier-free
+guidance) is forward-only, as in JAX: a gated kernel site launches kernel B
+in its gated mode, any other gated site takes the gated plain version, and a
+gated site asked for a gradient raises.
+
 All else -- cross-attention over the 77 context tokens, the S = 64 middle
 block, the VAE's single 512-wide head -- takes the kernels' plain versions
 (`*_ref` in `ops.kernels`), which mirror the JAX package's XLA path and are
@@ -93,13 +98,26 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def bank_read_attention(q: torch.Tensor, k_self: torch.Tensor,
                         v_self: torch.Tensor, k_bank: torch.Tensor,
                         v_bank: torch.Tensor, *,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention whose keys/values are the union of the layer's own
     sequence and the appearance-bank sequence (one joint softmax). The bank
-    batch is 1 (one reference serving every frame, broadcast) or B."""
+    batch is 1 (one reference serving every frame, broadcast) or B.
+    `bank_mask` (B,): per-row gate on the bank; rows with 0 ignore it
+    (exactly plain self-attention). Forward-only."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _kernel_site(q.shape[1], k_self.shape[1] + k_bank.shape[1], q.shape[-1]):
+    site = _kernel_site(q.shape[1], k_self.shape[1] + k_bank.shape[1], q.shape[-1])
+    if bank_mask is not None:
+        if _wants_grad(q, k_self, v_self, k_bank, v_bank):
+            raise NotImplementedError("the gated bank read (fused CFG) is forward-only, "
+                                      "as in the JAX package")
+        if site:
+            return two_source_attention(q, k_self, v_self, k_bank, v_bank, scale,
+                                        bank_mask=bank_mask)
+        return two_source_attention_ref(q, k_self, v_self, k_bank, v_bank, scale,
+                                        bank_mask=bank_mask)
+    if site:
         if _wants_grad(q, k_self, v_self, k_bank, v_bank):
             return mha_two_source(q, k_self, v_self, k_bank, v_bank, scale)
         return two_source_attention(q, k_self, v_self, k_bank, v_bank, scale)
@@ -109,9 +127,10 @@ def bank_read_attention(q: torch.Tensor, k_self: torch.Tensor,
 def bank_read_attention_packed(q: torch.Tensor, k_self: torch.Tensor,
                                v_self: torch.Tensor, k_bank: torch.Tensor,
                                v_bank: torch.Tensor, *, num_heads: int,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None,
+                               bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bank-read attention on packed (B, S, H*D) inputs (bank batch 1 or B)."""
     sp = lambda t: _split_heads(t, num_heads)  # noqa: E731
     out = bank_read_attention(sp(q), sp(k_self), sp(v_self), sp(k_bank),
-                              sp(v_bank), scale=scale)
+                              sp(v_bank), scale=scale, bank_mask=bank_mask)
     return out.reshape(q.shape)

@@ -4,10 +4,12 @@ Kernel A (`self_attention`) and kernel B (`two_source_attention`) replace the
 three Pallas attention kernels on the exact image-serving path; with their
 LSE output (`flash_vjp.self_attention_lse` / `two_source_attention_lse`)
 they are the training forward, and kernels C (`flash_vjp.attention_dq`) and
-D (`flash_vjp.attention_dkv`) the backward. Kernel G (`grouped_attention`,
-`grouped.grouped_attention_bwd`) replaces the Pallas grouped (temporal)
-attention kernel and its backward on the video path. Sources are under `csrc/`;
-`build` compiles them with nvcc at first use.
+D (`flash_vjp.attention_dkv`) the backward. Kernel B with a `bank_mask` is
+the gated forward of fused classifier-free guidance. Kernel G
+(`grouped_attention`, `grouped.grouped_attention_bwd`) replaces the Pallas
+grouped (temporal) attention kernel and its backward on the video path, and
+K8 (`groupnorm.groupnorm_silu`) the fused GroupNorm+SiLU. Sources are under
+`csrc/`; `build` compiles them with nvcc at first use.
 """
 
 from magicdance_tpu_torch.ops.kernels.attention import (  # noqa: F401

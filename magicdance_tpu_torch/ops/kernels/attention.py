@@ -17,6 +17,11 @@ Kernels A and B produce no autograd graph. A CUDA call with grad enabled on
 an input that requires grad raises: a differentiable caller goes through the
 autograd Functions of `ops.kernels.flash_vjp` (kernels A/B with the LSE
 output forward, kernels C/D backward), as `ops.attention` does.
+
+Kernel B takes an optional `bank_mask`, a (B,) gate on the bank per batch row
+(fused classifier-free guidance: 1 for cond rows, 0 for uncond rows). It is
+forward-only, as in JAX; its launches count under
+`LAUNCHES["two_source_attention_gated"]`.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ import torch
 from magicdance_tpu_torch.ops.kernels import build
 
 # one counter per kernel mode: A and B plain (serving) and with the LSE
-# output (training forward), C with one or two sources, D, and the grouped
-# (temporal) kernel's forward and backward (`ops.kernels.grouped`)
+# output (training forward), C with one or two sources, D, the grouped
+# (temporal) kernel's forward and backward (`ops.kernels.grouped`), B gated
+# by a bank mask (fused CFG) and the fused GroupNorm+SiLU
+# (`ops.kernels.groupnorm`)
 LAUNCHES = {
     "self_attention": 0,
     "two_source_attention": 0,
@@ -41,6 +48,8 @@ LAUNCHES = {
     "attention_dkv": 0,
     "grouped": 0,
     "grouped_bwd": 0,
+    "two_source_attention_gated": 0,
+    "groupnorm_silu": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,11 +81,15 @@ def self_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def two_source_attention_ref(q: torch.Tensor, k_self: torch.Tensor,
                              v_self: torch.Tensor, k_bank: torch.Tensor,
                              v_bank: torch.Tensor,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None,
+                             bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Joint softmax over [q k_self^T ; q k_bank^T] * scale applied to
     [v_self ; v_bank]: one max and one denominator over both sources, as the
     JAX package's `bank_read_attention`. The bank batch is 1 or B; a batch-1
-    bank is contracted without its batch axis, never tiled."""
+    bank is contracted without its batch axis, never tiled. `bank_mask`
+    (B,): the bank probabilities of row b are multiplied by bank_mask[b]
+    after the exp, inside the joint max and denominator (a row gated by 0 is
+    plain self-attention)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     qf = q.float()
@@ -91,6 +104,8 @@ def two_source_attention_ref(q: torch.Tensor, k_self: torch.Tensor,
                       logits_b.amax(-1, keepdim=True))
     p_s = torch.exp(logits_s - m)
     p_b = torch.exp(logits_b - m)
+    if bank_mask is not None:
+        p_b = p_b * bank_mask.float()[:, None, None, None]
     denom = p_s.sum(-1, keepdim=True) + p_b.sum(-1, keepdim=True)
     out = torch.einsum("bhqk,bkhd->bqhd", p_s.to(v_self.dtype).float(),
                        v_self.float())
@@ -199,8 +214,10 @@ def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def two_source_attention_cuda(q: torch.Tensor, k_self: torch.Tensor,
                               v_self: torch.Tensor, k_bank: torch.Tensor,
-                              v_bank: torch.Tensor, scale: float, with_lse: bool):
-    """Launch kernel B on CUDA tensors; returns (out, lse or None)."""
+                              v_bank: torch.Tensor, scale: float, with_lse: bool,
+                              bank_mask: Optional[torch.Tensor] = None):
+    """Launch kernel B on CUDA tensors; returns (out, lse or None). With
+    `bank_mask` it is the gated forward (never with the LSE)."""
     _check_q(q)
     b, sq, h, d = q.shape
     _check_operand("q", q, q, (b,), sq)
@@ -208,15 +225,23 @@ def two_source_attention_cuda(q: torch.Tensor, k_self: torch.Tensor,
     _check_operand("v_self", v_self, q, (b,), k_self.shape[1])
     _check_operand("k_bank", k_bank, q, (1, b), None)
     _check_operand("v_bank", v_bank, q, (k_bank.shape[0],), k_bank.shape[1])
+    if bank_mask is not None:
+        if with_lse:
+            raise ValueError("the gated kernel B is forward-only (no LSE output)")
+        if bank_mask.shape != (b,) or bank_mask.device != q.device:
+            raise ValueError(f"bank_mask: expected ({b},) on {q.device}, got "
+                             f"{tuple(bank_mask.shape)} on {bank_mask.device}")
+        bank_mask = bank_mask.to(torch.float32).contiguous()
     bank_batched = k_bank.shape[0] == b and b > 1
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = _lse_buffer(q, with_lse)
     strides = (_strides(q) + _strides(k_self) + _strides(v_self)
                + _strides(k_bank, bank_batched) + _strides(v_bank, bank_batched)
                + _strides(out))
-    launch("two_source_attention",
-           "two_source_attention_lse" if with_lse else "two_source_attention",
-           q, [], [q, k_self, v_self, k_bank, v_bank, out, lse], strides,
+    counter = ("two_source_attention_gated" if bank_mask is not None else
+               "two_source_attention_lse" if with_lse else "two_source_attention")
+    launch("two_source_attention", counter, q, [],
+           [q, k_self, v_self, k_bank, v_bank, out, lse, bank_mask], strides,
            [b, h, d, sq, k_self.shape[1], k_bank.shape[1]], scale)
     return out, lse
 
@@ -237,16 +262,19 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def two_source_attention(q: torch.Tensor, k_self: torch.Tensor,
                          v_self: torch.Tensor, k_bank: torch.Tensor,
                          v_bank: torch.Tensor,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel B. q, k_self, v_self: (B, S*, H, D); k_bank, v_bank:
     (Bb, Sb, H, D) with Bb in {1, B} (a batch-1 bank is read with batch
-    stride 0) -> (B, Sq, H, D)."""
+    stride 0) -> (B, Sq, H, D). `bank_mask`: optional (B,) gate on the bank
+    (the gated mode)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return two_source_attention_ref(q, k_self, v_self, k_bank, v_bank, scale)
+        return two_source_attention_ref(q, k_self, v_self, k_bank, v_bank, scale,
+                                        bank_mask)
     if q.device.type != "cuda":
         raise ValueError(f"two_source_attention: unsupported device {q.device}")
     _check_no_grad("two_source_attention", q, k_self, v_self, k_bank, v_bank)
     return two_source_attention_cuda(q, k_self, v_self, k_bank, v_bank, scale,
-                                     with_lse=False)[0]
+                                     with_lse=False, bank_mask=bank_mask)[0]

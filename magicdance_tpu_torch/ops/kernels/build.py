@@ -22,7 +22,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("self_attention", "two_source_attention", "attention_dq", "attention_dkv",
-           "grouped_attention", "grouped_attention_bwd")
+           "grouped_attention", "grouped_attention_bwd", "groupnorm_silu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -99,10 +99,10 @@ _SIGNATURES = {
     "self_attention": ("md_self_attention",
                        [_I, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                         _I, _I, _I, _I, _I, _F, _VP]),
-    # dtype, q, k_self, v_self, k_bank, v_bank, o, lse, strides,
+    # dtype, q, k_self, v_self, k_bank, v_bank, o, lse, bank_mask, strides,
     # B, H, D, Sq, Sk, Sb, scale, stream
     "two_source_attention": ("md_two_source_attention",
-                             [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+                             [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                               _I, _I, _I, _I, _I, _I, _F, _VP]),
     # dtype, nsrc, q, k_self, v_self, k_bank, v_bank, dout, lse, delta, dq,
     # strides, B, H, D, Sq, Sk, Sb, scale, stream
@@ -121,6 +121,9 @@ _SIGNATURES = {
     "grouped_attention_bwd": ("md_grouped_attention_bwd",
                               [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                                _I, _I, _I, _I, _F, _VP]),
+    # dtype, x, gamma, beta, y, strides, B, HW, C, G, eps, stream
+    "groupnorm_silu": ("md_groupnorm_silu",
+                       [_I, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _F, _VP]),
 }
 
 

@@ -71,6 +71,9 @@ struct Params {
   const void* q;
   void* o;
   float* lse;  // optional (B, H, Sq) fp32 log-sum-exp output, or nullptr
+  // optional (B,) fp32 gate on the second source (NSRC = 2), indexed by the
+  // batch row of q, or nullptr (ungated)
+  const float* gate;
   long long q_sb, q_ss, q_sh;
   long long o_sb, o_ss, o_sh;
   Source src[2];
@@ -184,6 +187,11 @@ __global__ void __launch_bounds__(NT) attention_fwd(const Params p) {
 #pragma unroll
   for (int s = 0; s < NSRC; ++s) {
     const Source src = p.src[s];
+    // the gate scales the second source's probabilities after the exp, inside
+    // the joint max and denominator; a row gated by exactly 0 is plain
+    // self-attention, so its block skips the bank tiles
+    const float gate = (s == 1 && p.gate != nullptr) ? p.gate[b] : 1.f;
+    if (gate == 0.f) continue;
     const T* kb = static_cast<const T*>(src.k) + b * src.k_sb + h * src.k_sh;
     const T* vb = static_cast<const T*>(src.v) + b * src.v_sb + h * src.v_sh;
     for (int k0 = 0; k0 < src.len; k0 += BK) {
@@ -233,7 +241,7 @@ __global__ void __launch_bounds__(NT) attention_fwd(const Params p) {
         const float m_new = fmaxf(m_old, mx);  // finite: nk >= 1
         float sum = 0.f;
         for (int c = part; c < BK; c += 4) {
-          const float e = expf(srow[c] - m_new);  // masked keys: exp(-inf) = 0
+          const float e = expf(srow[c] - m_new) * gate;  // masked keys: exp(-inf) = 0
           srow[c] = e;
           sum += e;
         }

@@ -10,13 +10,19 @@
 // reference image shared by every frame) is read with batch stride 0. With
 // an `lse` pointer it is the training forward and replaces
 // magicdance_tpu/ops/pallas/flash_vjp.py::_fwd2_lse_kernel (the joint LSE
-// over both sources). What bounds it and how the design answers that: see
-// attention_common.cuh.
+// over both sources). With a `bank_mask` pointer it is the gated forward of
+// fused classifier-free guidance and replaces flash.py::_attn2_kernel (the
+// gate per batch row that the Pallas kernel reads by scalar prefetch): the
+// bank probabilities are multiplied by bank_mask[b] after the exp, inside the
+// joint max and denominator; a row whose gate is exactly 0 skips the bank
+// tiles and is plain self-attention. What bounds it and how the design
+// answers that: see attention_common.cuh.
 //
 // Plain C interface, loaded with ctypes. Strides are in elements:
 // strides[0..17] = q, k_self, v_self, k_bank, v_bank, o, each (batch, row,
-// head). lse: nullptr, or a contiguous (B, H, Sq) fp32 output. Returns
-// cudaGetLastError() of the launch (0 on success).
+// head). lse: nullptr, or a contiguous (B, H, Sq) fp32 output. bank_mask:
+// nullptr, or a (B,) fp32 gate. Returns cudaGetLastError() of the launch (0
+// on success).
 
 #include "attention_common.cuh"
 
@@ -24,6 +30,7 @@ extern "C" int md_two_source_attention(int dtype, const void* q,
                                        const void* k_self, const void* v_self,
                                        const void* k_bank, const void* v_bank,
                                        void* o, float* lse,
+                                       const float* bank_mask,
                                        const long long* strides, int B,
                                        int H, int D, int Sq, int Sk, int Sb,
                                        float scale, void* stream) {
@@ -31,6 +38,7 @@ extern "C" int md_two_source_attention(int dtype, const void* q,
   p.q = q;
   p.o = o;
   p.lse = lse;
+  p.gate = bank_mask;
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   const void* ks[2] = {k_self, k_bank};
   const void* vs[2] = {v_self, v_bank};

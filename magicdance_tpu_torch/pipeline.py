@@ -1,9 +1,10 @@
 """Inference pipeline: reference image + pose maps -> frames (PyTorch).
 
-Counterpart of `magicdance_tpu.pipeline.MagicPosePipeline` for exact
-serving: CLIP-encode the (empty) prompt once, VAE-encode the reference once
-(posterior mode), denoise the pose frames of a request with the exact DDIM
-sampler, decode in chunks of 8. Images: all frames are one batch. Video
+Counterpart of `magicdance_tpu.pipeline.MagicPosePipeline` on one device:
+CLIP-encode the (empty) prompt once, VAE-encode the reference once
+(posterior mode), denoise the pose frames of a request with the DDIM
+sampler under the caller's `SampleConfig` (exact recipe, fused CFG or any
+turbo lever), decode in chunks of 8. Images: all frames are one batch. Video
 (`video=True` on the temporal variant): the overlap-window sampler
 (`sampling.overlap`), windows of `scfg.window` frames `scfg.stride` apart;
 a temporal model asked for images samples them with one frame per clip.

@@ -1,6 +1,6 @@
 """Sliding-window ("overlap") DDIM sampling of a video (PyTorch).
 
-Counterpart of the exact path of `magicdance_tpu.sampling.overlap`
+Counterpart of `magicdance_tpu.sampling.overlap`
 (ref ldm/models/diffusion/ddim.py:569-594): the temporal UNet sees windows of
 `scfg.window` frames; a longer video is covered by windows `scfg.stride`
 apart whose per-frame eps predictions are averaged before the DDIM update.
@@ -11,8 +11,17 @@ encoding makes the result order-dependent, so the offset is never skipped.
 
 The offsets are an input: one per step, given (`window_offsets`) or drawn
 all at once from the caller's generator before the loop, so a request needs
-no host sync for them. The turbo levers and `window_sharding` are not
-ported and raise.
+no host sync for them.
+
+Turbo levers (the image sampler's masks, `ddim.TurboPlan`): the caches that
+depend on the window layout live in FRAME space, per absolute frame index --
+the uncond eps, the 13 pose residuals and the DeepCache deep features are
+scatter-averaged from the window batch onto the frames on refresh steps and
+gathered back through the CURRENT step's rotated layout on reuse steps, so
+they survive the rotation. The bank does not depend on the windows. As in
+JAX, `fused_cfg` does nothing here and the uncond pass is always the
+vanilla-SD forward; `window_sharding` (multi-device serving) is not ported
+and raises.
 """
 
 from __future__ import annotations
@@ -25,7 +34,13 @@ import torch
 from magicdance_tpu_torch.config import Parameterization, SampleConfig
 from magicdance_tpu_torch.models.diffusion import output_to_eps
 from magicdance_tpu_torch.ops.schedules import DDIMSchedule, DiffusionSchedule, q_sample
-from magicdance_tpu_torch.sampling.ddim import _check_exact, ddim_step
+from magicdance_tpu_torch.sampling.ddim import (
+    TurboPlan,
+    check_control_mode,
+    ddim_step,
+    downsample_bank,
+    self_kv_kwargs,
+)
 
 
 def window_starts(num_frames: int, window: int, stride: int) -> np.ndarray:
@@ -61,7 +76,7 @@ def ddim_sample_video(
     [0, F)), else drawn from `generator`, which also supplies the noise when
     eta > 0 or wonoise is off. The uncond pass is the vanilla-SD forward, as
     in the JAX video sampler."""
-    _check_exact(scfg)
+    check_control_mode(scfg)
     if window_sharding is not None:
         raise NotImplementedError("window_sharding is not ported yet (one device)")
     F = x_T.shape[0]
@@ -79,16 +94,25 @@ def ddim_sample_video(
         raise ValueError(f"window_offsets: expected {S} offsets, got {tuple(offsets.shape)}")
     use_cfg = scfg.cfg_scale != 1.0 and uncond_context is not None
     has_appearance = reference_latent is not None and model.cfg.has_appearance
+    has_controls = pose_hint is not None and model.cfg.has_pose
+    plan = TurboPlan(scfg, sched, ddim, use_cfg, has_appearance, has_controls,
+                     fused_cfg=False)
+    kv_kw = self_kv_kwargs(scfg)
 
     def tile(c):
         if c is None:
             return None
         return c.expand(n_win * W, *c.shape[1:]) if c.shape[0] == 1 else c
 
+    def to_eps(out, x, t):
+        return output_to_eps(parameterization, sched, out, x, t)
+
     win_ctx, win_uctx = tile(context), tile(uncond_context)
     ref_ctx = context[:1]
     frame = torch.arange(W, device=dev)
     x = x_T.float()
+    # frame-space caches, each refreshed by the schedules at its first use
+    eps_u = bank = pose_frames = deep = deep_u = None
     for i in range(S):
         step = S - 1 - i  # descending t
         t_scalar = int(ddim.timesteps[step])
@@ -97,8 +121,10 @@ def ddim_sample_video(
         xw = x[flat]
         t = torch.full((flat.shape[0],), t_scalar, dtype=torch.int64, device=dev)
 
-        bank = None
-        if has_appearance:
+        def to_frames(vals_w):
+            return scatter_mean(vals_w, idx, F)
+
+        if has_appearance and plan.bank_refresh[step]:
             t_ref = torch.full((reference_latent.shape[0],), t_scalar, dtype=torch.int64,
                                device=dev)
             if scfg.wonoise:
@@ -107,27 +133,52 @@ def ddim_sample_video(
                 ref_noise = torch.randn(reference_latent.shape, generator=generator,
                                         device=dev, dtype=reference_latent.dtype)
                 ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
-            bank = model.compute_bank(ref_noisy, t_ref, ref_ctx)
+            bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
+                                   scfg.bank_downsample, scfg.bank_downsample_min_seq)
 
         hint_w = pose_hint[flat] if pose_hint is not None else None
-        eps_w = output_to_eps(parameterization, sched,
-                              model(xw, t, win_ctx, bank=bank, pose_hint=hint_w,
-                                    num_frames=W), xw, t)
-        if use_cfg:
-            eps_u = output_to_eps(parameterization, sched,
-                                  model(xw, t, win_uctx, uc=True, num_frames=W), xw, t)
-            eps_w = eps_u + scfg.cfg_scale * (eps_w - eps_u)
+        pose_kw = {}
+        if plan.pose_reuse:
+            if plan.pose_refresh[step]:
+                res = model.compute_control_residuals(xw, hint_w, t, win_ctx, **kv_kw)
+                pose_frames = tuple(to_frames(r) for r in res)
+            pose_kw = dict(pose_residuals=tuple(r[flat] for r in pose_frames))
+        cond_kw = dict(bank=bank, pose_hint=hint_w, num_frames=W, **pose_kw, **kv_kw)
+        if plan.deepcache and plan.deep_refresh[step]:
+            out_c, d = model(xw, t, win_ctx, collect_deep=True, deep_level=plan.deep_level,
+                             **cond_kw)
+            deep = to_frames(d)
+        elif plan.deepcache:
+            out_c = model(xw, t, win_ctx, deep_cache_in=deep[flat],
+                          deep_level=plan.deep_level, **cond_kw)
+        else:
+            out_c = model(xw, t, win_ctx, **cond_kw)
+        eps_c = to_eps(out_c, xw, t)
 
-        # scatter-average onto the frames (ref ddim.py:586-594). Window by
-        # window: a window's frames are distinct, so each add is free of
-        # duplicate indices, and a frame's contributions are summed in window
-        # order on every device (JAX's order on the CPU).
-        eps = torch.zeros_like(x)
-        counts = torch.zeros((F,), dtype=torch.float32, device=dev)
-        for w in range(n_win):
-            eps.index_add_(0, idx[w], eps_w[w * W:(w + 1) * W])
-            counts.index_add_(0, idx[w], torch.ones((W,), device=dev))
-        eps = eps / counts[:, None, None, None]
+        uc_kw = dict(uc=True, num_frames=W, **kv_kw)
+        if not plan.turbo:
+            if use_cfg:
+                eps_uw = to_eps(model(xw, t, win_uctx, **uc_kw), xw, t)
+                eps_c = eps_uw + scfg.cfg_scale * (eps_c - eps_uw)
+            eps = to_frames(eps_c)
+        else:
+            # the turbo path averages cond and uncond onto the frames apart
+            # and combines them there (the uncond eps is a frame-space cache)
+            eps = to_frames(eps_c)
+            if use_cfg:
+                if plan.refresh[step]:
+                    if plan.uncond_deepcache and plan.udeep_refresh[step]:
+                        out_u, d = model(xw, t, win_uctx, collect_deep=True,
+                                         deep_level=plan.deep_level, **uc_kw)
+                        deep_u = to_frames(d)
+                    elif plan.uncond_deepcache:
+                        out_u = model(xw, t, win_uctx, deep_cache_in=deep_u[flat],
+                                      deep_level=plan.deep_level, **uc_kw)
+                    else:
+                        out_u = model(xw, t, win_uctx, **uc_kw)
+                    eps_u = to_frames(to_eps(out_u, xw, t))
+                if plan.active[step]:
+                    eps = eps_u + scfg.cfg_scale * (eps - eps_u)
 
         if scfg.eta > 0:
             noise = torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
@@ -136,3 +187,22 @@ def ddim_sample_video(
         x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
                          ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
     return x
+
+
+def scatter_mean(vals_w: torch.Tensor, idx: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """Average window-batched values (n_win*W, ...) onto the absolute frames
+    (num_frames, ...) in fp32, cast back to their dtype (ref ddim.py:586-594
+    pred_all/counts). Window by window: a window's frames are distinct, so
+    each add is free of duplicate indices, and a frame's contributions are
+    summed in window order on every device (JAX's order on the CPU)."""
+    n_win, w = idx.shape
+    acc = torch.zeros((num_frames,) + vals_w.shape[1:], dtype=torch.float32,
+                      device=vals_w.device)
+    if vals_w.dim() == 4 and vals_w.is_contiguous(memory_format=torch.channels_last):
+        acc = acc.contiguous(memory_format=torch.channels_last)  # deep features stay NHWC
+    counts = torch.zeros((num_frames,), dtype=torch.float32, device=vals_w.device)
+    ones = torch.ones((w,), dtype=torch.float32, device=vals_w.device)
+    for j in range(n_win):
+        acc.index_add_(0, idx[j], vals_w[j * w:(j + 1) * w].float())
+        counts.index_add_(0, idx[j], ones)
+    return (acc / counts.reshape((num_frames,) + (1,) * (vals_w.dim() - 1))).to(vals_w.dtype)

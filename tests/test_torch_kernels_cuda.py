@@ -1,6 +1,7 @@
 """CUDA kernels A (self_attention) and B (two_source_attention), with and
-without their LSE output, and the backward kernels C (attention_dq) and D
-(attention_dkv) against their plain PyTorch versions, on the card.
+without their LSE output and B in its gated (bank_mask) mode, the backward
+kernels C (attention_dq) and D (attention_dkv), the grouped kernel G and the
+fused GroupNorm+SiLU (K8) against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -302,3 +303,119 @@ def test_grouped_dispatch_and_autograd(cuda):
         G.grouped_attention(qs, ks, vs, None, 8)
     with pytest.raises(ValueError):  # 64 rows are not a whole 128-row tile
         G.grouped_attention(q[:4], k[:4], v[:4], None, 8)
+
+
+# --------------------------------------------------------------------------
+# kernel B gated by a bank mask (fused CFG) and the fused GroupNorm+SiLU
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,sk,d,gates", [
+    (4, 4096, 4096, 40, (1, 1, 0, 0)), (4, 1024, 1024, 80, (1, 1, 0, 0)),
+    (4, 256, 256, 160, (1, 1, 0, 0)), (2, 1024, 1024, 80, (0.5, 0)),
+    (4, 4096, 1024, 40, (1, 0.25, 0, 1)),  # pooled self keys (S_k = S / 4)
+    (3, 300, 200, 48, (0, 1, 0.5)),        # ragged tiles
+])
+def test_gated_two_source_matches_plain(cuda, dtype, b, s, sk, d, gates):
+    q = _rand(cuda, b, s, 8, d, dtype=dtype, seed=50)
+    k, v = (_rand(cuda, b, sk, 8, d, dtype=dtype, seed=51 + i) for i in range(2))
+    kb, vb = (_rand(cuda, 1, s, 8, d, dtype=dtype, seed=53 + i) for i in range(2))
+    mask = torch.tensor(gates, dtype=torch.float32, device=cuda)
+    K.reset_launches()
+    got = K.two_source_attention(q, k, v, kb, vb, bank_mask=mask)
+    _close(got, K.two_source_attention_ref(q, k, v, kb, vb, bank_mask=mask), dtype)
+    assert K.LAUNCHES["two_source_attention_gated"] == 1
+    assert K.LAUNCHES["two_source_attention"] == 0
+    # a gate of 0 is plain self-attention, a gate of 1 the ungated read
+    for row, g in enumerate(gates):
+        if g == 0:
+            _close(got[row:row + 1], K.self_attention_ref(q[row:row + 1], k[row:row + 1],
+                                                          v[row:row + 1]), dtype)
+        elif g == 1:
+            _close(got[row:row + 1], K.two_source_attention_ref(
+                q[row:row + 1], k[row:row + 1], v[row:row + 1], kb, vb), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,sk,d", [(2, 4096, 1024, 40), (2, 4096, 256, 40)])
+def test_pooled_key_lengths_match_plain(cuda, dtype, b, s, sk, d):
+    """self_kv_downsample 2 and 4 at the S = 4096 sites: S_k < S_q."""
+    q = _rand(cuda, b, s, 8, d, dtype=dtype, seed=60)
+    k, v = (_rand(cuda, b, sk, 8, d, dtype=dtype, seed=61 + i) for i in range(2))
+    kb, vb = (_rand(cuda, 1, s, 8, d, dtype=dtype, seed=63 + i) for i in range(2))
+    _close(K.self_attention(q, k, v), K.self_attention_ref(q, k, v), dtype)
+    _close(K.two_source_attention(q, k, v, kb, vb),
+           K.two_source_attention_ref(q, k, v, kb, vb), dtype)
+
+
+def test_gated_bank_read_dispatch(cuda):
+    """A gated kernel site launches the gated mode, the S = 64 site takes
+    the gated plain version; a gated site asked for a gradient raises."""
+    from magicdance_tpu_torch.ops.attention import bank_read_attention_packed
+
+    mask = torch.tensor([1.0, 0.0], device=cuda)
+    x = _rand(cuda, 2, 256, 64, dtype=torch.bfloat16, seed=70)
+    bank = _rand(cuda, 1, 256, 64, dtype=torch.bfloat16, seed=71)
+    small = _rand(cuda, 2, 64, 64, dtype=torch.bfloat16, seed=72)
+    K.reset_launches()
+    bank_read_attention_packed(x, x, x, bank, bank, num_heads=8, bank_mask=mask)
+    bank_read_attention_packed(small, small, small, small[:1], small[:1], num_heads=8,
+                               bank_mask=mask)
+    assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES},
+                          "two_source_attention_gated": 1}
+    xg = x.float().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        bank_read_attention_packed(xg, xg, xg, bank.float(), bank.float(), num_heads=8,
+                                   bank_mask=mask)
+    with pytest.raises(ValueError):  # the gated kernel has no LSE output
+        K.attention.two_source_attention_cuda(x.view(2, 256, 8, 8), x.view(2, 256, 8, 8),
+                                              x.view(2, 256, 8, 8), bank.view(1, 256, 8, 8),
+                                              bank.view(1, 256, 8, 8), 0.3, True, mask)
+
+
+# every (HW, C) where the SD1.5 UNets and the ControlNet call GN+SiLU at
+# 512x512 with HW >= 256, plus a gcd group count and a ragged group
+GN_SHAPES = [(4096, 320), (4096, 640), (4096, 960), (1024, 320), (1024, 640),
+             (1024, 960), (1024, 1280), (1024, 1920), (256, 640), (256, 1280),
+             (256, 1920), (256, 2560), (300, 48), (256, 80)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw,c", GN_SHAPES)
+def test_groupnorm_silu_matches_plain(cuda, dtype, hw, c):
+    from magicdance_tpu_torch.ops.kernels import groupnorm as GN
+
+    groups = 32 if c % 32 == 0 else __import__("math").gcd(c, 32)
+    x = (_rand(cuda, 2, hw, c, dtype=torch.float32, seed=80) * 3 + 1).to(dtype)
+    w = _rand(cuda, c, dtype=torch.float32, seed=81) * 0.2 + 1
+    b = _rand(cuda, c, dtype=torch.float32, seed=82) * 0.2
+    K.reset_launches()
+    _close(GN.groupnorm_silu(x, w, b, groups, 1e-5), GN.groupnorm_silu_ref(x, w, b, groups, 1e-5),
+           dtype)
+    assert K.LAUNCHES["groupnorm_silu"] == 1
+
+
+def test_fused_groupnorm_dispatch(cuda, monkeypatch):
+    """MAGICDANCE_FUSED_GN=1: GroupNorm32(act=True) on channels_last
+    activations with HW >= 256 and no gradient takes K8; a smaller grid, a
+    gradient, act=False or the switch off take the plain norm."""
+    from magicdance_tpu_torch.models.layers import GroupNorm32
+
+    gn = GroupNorm32(320, act=True).to(cuda)
+    x = _rand(cuda, 2, 320, 64, 64, dtype=torch.float32, seed=90).contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        plain = gn(x)
+        monkeypatch.setenv("MAGICDANCE_FUSED_GN", "1")
+        K.reset_launches()
+        fused = gn(x)
+        gn(x[:, :, :8, :8])
+        GroupNorm32(320).to(cuda)(x)
+    assert K.LAUNCHES["groupnorm_silu"] == 1
+    _close(fused, plain, torch.float32)
+    assert fused.is_contiguous(memory_format=torch.channels_last)
+    gn(x.requires_grad_())
+    assert K.LAUNCHES["groupnorm_silu"] == 1
+    with torch.no_grad(), pytest.raises(ValueError):  # NCHW-contiguous: not rows of channels
+        gn(x.detach().contiguous())

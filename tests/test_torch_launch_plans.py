@@ -1,5 +1,6 @@
-"""chip_smoke.py holds the card's video request and stage-3 train step to
-exact kernel launch plans (`serving_launch_plan`, `stage3_launch_plan`).
+"""chip_smoke.py holds the card's requests and stage-3 train step to exact
+kernel launch plans (`serving_launch_plan`, `request_launch_plan` for fused
+CFG, the turbo stacks and the fused GroupNorm, `stage3_launch_plan`).
 Here each plan meets the wrapper calls of one narrow run on the CPU, where
 every kernel site calls the same wrappers and Functions as on the card (they
 take their plain versions here): one overlap-sampler step over overlapping
@@ -8,14 +9,17 @@ kernels A and B at its first level (256 positions) and the grouped kernel
 at its six motion modules. At SD1.5 width the plans give the numbers the
 card is held to."""
 
+import pytest
 import torch
 
 import chip_smoke
 from magicdance_tpu_torch import config as T
+from magicdance_tpu_torch.models import layers
 from magicdance_tpu_torch.ops import attention as A
 from magicdance_tpu_torch.ops.kernels import flash_vjp as V
 from magicdance_tpu_torch.ops.schedules import make_ddim_schedule
 from magicdance_tpu_torch.pipeline import MagicPosePipeline
+from magicdance_tpu_torch.sampling.ddim import ddim_sample
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
 from magicdance_tpu_torch.train.trainer import Trainer
 from torch_port_util import torch_single_thread  # noqa: F401  (autouse fixture)
@@ -39,12 +43,17 @@ def count_calls(monkeypatch) -> dict:
         two = (a[7] if len(a) > 7 else kw.get("k_bank")) is not None
         return "attention_dq_two_source" if two else "attention_dq"
 
-    for module, name in ((A, "self_attention"), (A, "two_source_attention"),
+    for module, name in ((A, "self_attention"),
                          (V, "self_attention_lse"), (V, "two_source_attention_lse"),
                          (V, "attention_dkv"), (V, "grouped_attention_bwd")):
         mode = {"grouped_attention_bwd": "grouped_bwd"}.get(name, name)
         counting(module, name, lambda a, kw, mode=mode: mode)
+    counting(A, "two_source_attention", lambda a, kw: "two_source_attention_gated"
+             if kw.get("bank_mask") is not None else "two_source_attention")
     counting(A, "grouped_attention", lambda a, kw: "grouped")
+    # the fused GroupNorm: reached on the CPU once "cpu" is a fused device
+    monkeypatch.setattr(layers, "FUSED_GN_DEVICES", ("cuda", "cpu"))
+    counting(layers, "groupnorm_silu", lambda a, kw: "groupnorm_silu")
     counting(V, "grouped_attention", lambda a, kw: "grouped")
     counting(V, "attention_dq", dq_mode)
     return calls
@@ -107,3 +116,52 @@ def test_stage3_plan_matches_counted_calls(monkeypatch):
     assert calls == plan
     assert plan["grouped"] == 2 * plan["grouped_bwd"] > 0
     assert plan["two_source_attention"] == 1 and plan["attention_dq_two_source"] >= 1
+
+
+TURBO = dict(deepcache_every=3, pose_every=3, uncond_every=2, cfg_interval=(0.15, 0.85),
+             bank_every=3, bank_downsample=2, self_kv_downsample=2)
+TURBO_MAX = dict(deepcache_every=5, pose_every=5, uncond_every=4, cfg_interval=(0.15, 0.85),
+                 bank_every=8, bank_downsample=4, self_kv_downsample=4,
+                 reuse_exact_first=2, reuse_exact_last=2)
+# the narrow model's 256-token first level stands for the 4096-token sites
+NARROW_POOL = dict(bank_downsample_min_seq=256, self_kv_min_seq=256)
+
+
+@pytest.mark.parametrize("case", ["fused_cfg", "turbo", "turbo_max", "fused_gn",
+                                  "video_turbo"])
+def test_request_plans_match_counted_calls(monkeypatch, case):
+    """One narrow request at 128x128 (two frames; the video case ten frames
+    in windows of 4, stride 3) under each SampleConfig of chip_smoke.py's
+    phases 15-17: the plan derived from the sampler's host masks meets the
+    wrapper calls."""
+    video = case == "video_turbo"
+    cfg = chip_smoke.narrow_temporal_config() if video else chip_smoke.narrow_model_config()
+    pipe = MagicPosePipeline(cfg, device="cpu")
+    pipe.init_params(seed=0, scale=0.1)
+    g = torch.Generator().manual_seed(2)
+    frames = 10 if video else 2
+    x = torch.randn(frames, 16, 16, 4, generator=g)
+    hint = torch.rand(frames, 128, 128, 3, generator=g)
+    ref = torch.randn(1, 16, 16, 4, generator=g)
+    ctx = torch.randn(1, 77, 16, generator=g)
+    kw = {"fused_cfg": dict(steps=3, fused_cfg=True),
+          "turbo": dict(steps=4, **TURBO, **NARROW_POOL),
+          "turbo_max": dict(steps=6, **TURBO_MAX, **NARROW_POOL),
+          "fused_gn": dict(steps=1),
+          "video_turbo": dict(steps=4, window=4, stride=3, **TURBO, **NARROW_POOL)}[case]
+    scfg = T.SampleConfig(**kw)
+    calls = count_calls(monkeypatch)
+    if case == "fused_gn":
+        monkeypatch.setenv("MAGICDANCE_FUSED_GN", "1")
+    sampler = ddim_sample_video if video else ddim_sample
+    extra = dict(window_offsets=[1, 6, 0, 9]) if video else {}
+    out = sampler(pipe.model, pipe.sched, make_ddim_schedule(pipe.sched, scfg.steps), scfg,
+                  x, ctx, ctx, reference_latent=ref, pose_hint=hint, **extra)
+    assert torch.isfinite(out).all()
+    n_win = 4 if video else 1
+    plan = chip_smoke.request_launch_plan(cfg, 16, n_win * 4 if video else frames, scfg,
+                                          frames=4 if video else 1,
+                                          fused_gn=case == "fused_gn", video=video)
+    assert calls == plan
+    mode = {"fused_cfg": "two_source_attention_gated", "fused_gn": "groupnorm_silu"}.get(case)
+    assert mode is None or plan[mode] > 0

@@ -12,18 +12,27 @@ import torch
 from magicdance_tpu.models import layers as jl
 from magicdance_tpu_torch.convert.from_jax import load_flax_params
 from magicdance_tpu_torch.models import layers as tl
-from torch_port_util import assert_close, np_rand, randomize, to_t
+from torch_port_util import assert_close, np_rand, shaped_random, to_t
 from torch_port_util import torch_single_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
 
 def flax_run(module, args, seed, **kw):
-    """Init a Flax module, randomise every leaf, apply it. Returns
-    (numpy params, numpy output(s))."""
-    variables = module.init(jax.random.PRNGKey(0), *args, **kw)
-    params = randomize(jax.tree.map(np.asarray, dict(variables)), seed)
-    out = module.apply(jax.tree.map(jnp.asarray, params), *args, **kw)
+    """Randomise every leaf of a Flax module's variables (shapes from
+    jax.eval_shape of its init) and apply it, compiled once. Returns (numpy
+    params, numpy output(s)). Arguments that are not arrays (None, flags)
+    stay Python values."""
+    params = shaped_random(lambda: module.init(jax.random.PRNGKey(0), *args, **kw), seed)
+    dyn = [i for i, a in enumerate(args) if isinstance(a, jax.Array)]
+
+    def apply(p, *arrays):
+        full = list(args)
+        for i, a in zip(dyn, arrays):
+            full[i] = a
+        return module.apply(p, *full, **kw)
+
+    out = jax.jit(apply)(jax.tree.map(jnp.asarray, params), *(args[i] for i in dyn))
     return params, jax.tree.map(np.asarray, out)
 
 

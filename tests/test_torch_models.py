@@ -25,9 +25,10 @@ from magicdance_tpu_torch.models.unet import UNet, num_bank_entries
 from magicdance_tpu_torch.models.vae import AutoencoderKL
 from torch_port_util import (
     assert_close,
+    jit_apply,
     np_rand,
     port_cfg,
-    randomize,
+    shaped_random,
     tiny_model_cfg_jax,
     to_t,
 )
@@ -46,8 +47,7 @@ HINT = np_rand((B, 64, 64, 3), 3, 0.0, 1.0)
 
 
 def init_random(module, args, seed, **kw):
-    variables = module.init(jax.random.PRNGKey(0), *args, **kw)
-    return randomize(jax.tree.map(np.asarray, dict(variables)), seed)
+    return shaped_random(lambda: module.init(jax.random.PRNGKey(0), *args, **kw), seed)
 
 
 def jx(a):
@@ -81,8 +81,8 @@ def test_unet_modes(unets, mode):
         bb = 1 if mode == "read_bank1" else B
         rs = np.random.RandomState(20)
         # bank entries have the traversal's (S, C): take them from a write pass
-        _, shapes = jm.apply(params, jx(X[:1]), jx(T[:1]), jx(CTX[:1]),
-                             collect_bank=True, dtype=F32)
+        _, shapes = jax.eval_shape(jit_apply(jm, collect_bank=True, dtype=F32), params,
+                                   jx(X[:1]), jx(T[:1]), jx(CTX[:1]))
         bank = [rs.standard_normal((bb,) + tuple(e.shape[1:])).astype(np.float32)
                 for e in shapes]
         assert len(bank) == n
@@ -94,7 +94,8 @@ def test_unet_modes(unets, mode):
                for s, c in ((1, 32), (1, 32), (2, 32), (2, 64), (2, 64))]
         jkw["pose_residuals"] = tuple(jx(r) for r in res)
         tkw["pose_residuals"] = tuple(to_t(r) for r in res)
-    want, want_bank = jm.apply(params, jx(X), jx(T), jx(CTX), dtype=F32, **jkw)
+    static = {k: jkw.pop(k) for k in ("collect_bank",) if k in jkw}
+    want, want_bank = jit_apply(jm, dtype=F32, **static)(params, jx(X), jx(T), jx(CTX), **jkw)
     with torch.no_grad():
         got, got_bank = tm(to_t(X), torch.tensor(T), to_t(CTX), **tkw)
     assert_close(got, want, **TOL)
@@ -113,8 +114,8 @@ def test_unet_rejects_bad_bank(unets):
 def test_pose_controlnet_residuals():
     jm = JCN(JCFG.pose_control)
     params = init_random(jm, (jx(X), jx(HINT), jx(T), jx(CTX)), 30, dtype=F32)
-    want = jm.apply(jax.tree.map(jnp.asarray, params), jx(X), jx(HINT), jx(T), jx(CTX),
-                    dtype=F32)
+    want = jit_apply(jm, dtype=F32)(jax.tree.map(jnp.asarray, params), jx(X), jx(HINT),
+                                    jx(T), jx(CTX))
     tm = PoseControlNet(TCFG.pose_control, in_channels=4).eval()
     load_flax_params(tm, params)
     with torch.no_grad():
@@ -134,12 +135,12 @@ def test_magicpose_forward(uc):
     tm = MagicPoseModel(TCFG).eval()
     load_flax_params(tm, params)
     if uc:
-        want = jm.apply(jp, jx(X), jx(T), jx(CTX), uc=True)
+        want = jit_apply(jm, uc=True)(jp, jx(X), jx(T), jx(CTX))
         with torch.no_grad():
             got = tm(to_t(X), torch.tensor(T), to_t(CTX), uc=True)
     else:
-        bank = jm.apply(jp, jx(REF), jx(T[:1]), jx(CTX[:1]), method=jm.compute_bank)
-        want = jm.apply(jp, jx(X), jx(T), jx(CTX), bank=bank, pose_hint=jx(HINT))
+        bank = jit_apply(jm, method=jm.compute_bank)(jp, jx(REF), jx(T[:1]), jx(CTX[:1]))
+        want = jit_apply(jm)(jp, jx(X), jx(T), jx(CTX), bank=bank, pose_hint=jx(HINT))
         with torch.no_grad():
             tbank = tm.compute_bank(to_t(REF), torch.tensor(T[:1]), to_t(CTX[:1]))
             got = tm(to_t(X), torch.tensor(T), to_t(CTX), bank=tbank, pose_hint=to_t(HINT))
@@ -158,7 +159,7 @@ def test_clip_text_encoder():
     ids[:, 0] = 49406
     ids[1, 1:6] = [320, 1125, 539, 1000, 7]
     params = init_random(jm, (jx(ids),), 50)
-    want = jm.apply(jax.tree.map(jnp.asarray, params), jx(ids))
+    want = jit_apply(jm)(jax.tree.map(jnp.asarray, params), jx(ids))
     tm = CLIPTextEncoder(TCFG.clip).eval()
     load_flax_params(tm, params)
     with torch.no_grad():
@@ -172,16 +173,20 @@ def test_vae_encode_decode():
     img = np_rand((2, 64, 64, 3), 60, -1.0, 1.0)
     params = init_random(jm, (jx(img), jax.random.PRNGKey(1)), 61)
     jp = jax.tree.map(jnp.asarray, params)
-    post = jm.apply(jp, jx(img), method=jm.encode)
     z = np_rand((2, 8, 8, 4), 62)
-    dec = jm.apply(jp, jx(z), method=jm.decode)
+
+    def encode_decode(p, im, zz):
+        post = jm.apply(p, im, method=jm.encode)
+        return post.mode(), post.logvar, jm.apply(p, zz, method=jm.decode)
+
+    mode, logvar, dec = jax.jit(encode_decode)(jp, jx(img), jx(z))
     tm = AutoencoderKL(TCFG.vae).eval()
     load_flax_params(tm, params)
     with torch.no_grad():
         tpost = tm.encode(to_t(img))
         tdec = tm.decode(to_t(z))
-    assert_close(tpost.mode(), post.mode(), **TOL)
-    assert_close(tpost.logvar, post.logvar, **TOL)
+    assert_close(tpost.mode(), mode, **TOL)
+    assert_close(tpost.logvar, logvar, **TOL)
     assert tdec.shape == (2, 64, 64, 3)
     assert_close(tdec, dec, **TOL)
 

@@ -20,14 +20,20 @@ import magicdance_tpu_torch.config as tcfg
 from magicdance_tpu.data.tokenizer import empty_prompt_ids as j_empty_ids
 from magicdance_tpu.models.vae import encode_to_latent, latent_to_decoder_input
 from magicdance_tpu.ops import schedules as js
-from magicdance_tpu.pipeline import MagicPosePipeline as JPipeline
 from magicdance_tpu.sampling.ddim import ddim_sample as j_ddim_sample
 from magicdance_tpu.sampling.ddim import ddim_step as j_ddim_step
 from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids as t_empty_ids
 from magicdance_tpu_torch.ops import schedules as ts
 from magicdance_tpu_torch.pipeline import MagicPosePipeline as TPipeline
 from magicdance_tpu_torch.sampling.ddim import ddim_step as t_ddim_step
-from torch_port_util import assert_close, np_rand, port_cfg, randomize, tiny_model_cfg_jax, to_t
+from torch_port_util import (
+    assert_close,
+    make_pipelines,
+    np_rand,
+    port_cfg,
+    tiny_model_cfg_jax,
+    to_t,
+)
 from torch_port_util import torch_single_thread  # noqa: F401  (autouse fixture)
 
 
@@ -102,15 +108,7 @@ def test_config_and_tokenizer_copies_agree():
 
 @pytest.fixture(scope="module")
 def pipelines():
-    jc = tiny_model_cfg_jax()
-    jp = JPipeline(jc)
-    shapes = jp.fast_init_params(jax.random.PRNGKey(0), image_size=64)
-    params = {k: randomize(jax.tree.map(np.asarray, dict(v)), i)
-              for i, (k, v) in enumerate(sorted(shapes.items()))}
-    jp.params = jax.tree.map(jnp.asarray, params)
-    tp = TPipeline(port_cfg(jc), device="cpu")
-    tp.load_jax_params(params)
-    return jp, tp
+    return make_pipelines(tiny_model_cfg_jax())
 
 
 def test_sample_frames_matches_composed_jax_path(pipelines):
@@ -128,15 +126,20 @@ def test_sample_frames_matches_composed_jax_path(pipelines):
     sf = jp.cfg.vae.scale_factor
 
     ids = jnp.asarray(j_empty_ids(1))
-    ctx = jp.clip.apply(jp.params["clip"], ids)
-    post = jp.vae.apply(jp.params["vae"], jnp.asarray(ref), method=jp.vae.encode)
-    ref_lat = encode_to_latent(post.mode(), sf)
+
+    @jax.jit
+    def encode(params, ids_, ref_):  # one compile, not op-by-op dispatch
+        post = jp.vae.apply(params["vae"], ref_, method=jp.vae.encode)
+        return jp.clip.apply(params["clip"], ids_), encode_to_latent(post.mode(), sf)
+
+    ctx, ref_lat = encode(jp.params, ids, jnp.asarray(ref))
     ddim = js.make_ddim_schedule(jp.sched, 4)
     want_lat = j_ddim_sample(jp.model, jp.params["model"], jp.sched, ddim, scfg_j,
                              jax.random.PRNGKey(0), jnp.asarray(x_T), ctx, ctx,
                              reference_latent=ref_lat, pose_hint=jnp.asarray(pose))
-    want_img = jp.vae.apply(jp.params["vae"], latent_to_decoder_input(want_lat, sf),
-                            method=jp.vae.decode)
+    want_img = jax.jit(lambda p, lat: jp.vae.apply(p, latent_to_decoder_input(lat, sf),
+                                                   method=jp.vae.decode))(
+        jp.params["vae"], want_lat)
 
     got_lat = tp.sample_frames(to_t(pose), to_t(ref), scfg_t, decode=False, x_T=to_t(x_T))
     got_img = tp.decode_latents(got_lat)
@@ -160,8 +163,11 @@ def test_sample_frames_draws_noise_from_the_generator(pipelines):
 
     a, b, c = run(0), run(0), run(1)
     assert torch.equal(a, b) and not torch.equal(a, c)
-    with pytest.raises(NotImplementedError):
-        tp.sample_frames(pose, ref, tcfg.SampleConfig(steps=2, uncond_every=2))
+    # refused as in JAX (sampling/ddim.py:228-231): the gated bank read has
+    # no pooled variant
+    with pytest.raises(ValueError, match="self_kv_downsample"):
+        tp.sample_frames(pose, ref, tcfg.SampleConfig(steps=2, fused_cfg=True,
+                                                      self_kv_downsample=2))
 
 
 def test_pipeline_runs_fp32_without_tf32(pipelines, monkeypatch):
@@ -183,8 +189,9 @@ def test_pipeline_runs_fp32_without_tf32(pipelines, monkeypatch):
     tp.decode_latents(to_t(np_rand((1, 8, 8, 4), 90)))
     assert seen == [(False, False)]
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
-    with pytest.raises(NotImplementedError):
-        tp.sample_frames(None, None, tcfg.SampleConfig(steps=2, deepcache_every=2))
+    with pytest.raises(ValueError, match="self_kv_downsample"):
+        tp.sample_frames(None, None, tcfg.SampleConfig(steps=2, fused_cfg=True,
+                                                       self_kv_downsample=2))
     assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
 
 

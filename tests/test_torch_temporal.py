@@ -21,12 +21,12 @@ from magicdance_tpu.models.unet import UNet as JUNet
 from magicdance_tpu_torch.convert.from_jax import flax_to_state_dict, load_flax_params
 from magicdance_tpu_torch.models.layers import TemporalTransformer
 from magicdance_tpu_torch.models.magicpose import MagicPoseModel
-from magicdance_tpu_torch.models.unet import UNet
 from torch_port_util import (
     assert_close,
+    jit_apply,
     np_rand,
     port_cfg,
-    randomize,
+    shaped_random,
     tiny_temporal_cfg_jax,
     to_t,
 )
@@ -36,13 +36,6 @@ F32 = jnp.float32
 JCFG = tiny_temporal_cfg_jax()
 TCFG = port_cfg(JCFG)
 NET_TOL = dict(atol=5e-4, rtol=5e-4)
-
-
-def shaped_random(init, seed):
-    """Every leaf drawn with numpy on the shapes of `init()` (no Flax init)."""
-    shapes = jax.eval_shape(init)
-    return randomize(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), dict(shapes)),
-                     seed)
 
 
 def frames_nchw(x: np.ndarray) -> torch.Tensor:
@@ -60,7 +53,7 @@ def test_temporal_transformer_matches_flax(b, f, hw, c, heads):
     x = np_rand((b, f, hw, hw, c), 0)
     jm = JTT(num_heads=heads, dtype=F32)
     params = shaped_random(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), 1)
-    want = jm.apply(jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    want = jit_apply(jm)(jax.tree.map(jnp.asarray, params), jnp.asarray(x))
     tm = TemporalTransformer(c, heads).eval()
     load_flax_params(tm, params)
     with torch.no_grad():
@@ -81,14 +74,11 @@ def test_sinusoidal_pe_is_a_buffer_not_a_parameter():
 
 
 @pytest.fixture(scope="module")
-def unets():
-    jm = JUNet(JCFG.unet)
-    x = jnp.zeros((4, 8, 8, 4))
-    params = shaped_random(lambda: jm.init(jax.random.PRNGKey(0), x, jnp.zeros((4,), jnp.int32),
-                                           jnp.zeros((4, 77, 16)), dtype=F32, num_frames=4), 10)
-    tm = UNet(TCFG.unet).eval()
-    load_flax_params(tm, params)
-    return jm, jax.tree.map(jnp.asarray, params), tm
+def unets(models):
+    """The composite's main UNet on its own: the Flax `unet` subtree and the
+    port's `model.unet` (one random tree serves both fixtures)."""
+    _, params, tm = models
+    return JUNet(JCFG.unet), {"params": params["params"]["unet"]}, tm.unet
 
 
 def test_state_dict_keys_match_flax_tree(unets):
@@ -108,8 +98,8 @@ def test_temporal_unet_matches_flax(unets, clips, f):
     x = np_rand((b, 8, 8, 4), 20)
     t = np.repeat(np.array([17, 640])[:clips], f)
     ctx = np_rand((b, 77, 16), 21)
-    want, _ = jm.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
-                       dtype=F32, num_frames=f)
+    want, _ = jit_apply(jm, dtype=F32, num_frames=f)(params, jnp.asarray(x), jnp.asarray(t),
+                                                      jnp.asarray(ctx))
     with torch.no_grad():
         got, _ = tm(to_t(x), torch.tensor(t), to_t(ctx), num_frames=f)
     assert_close(got, want, **NET_TOL)
@@ -127,9 +117,18 @@ def models():
     return jm, jax.tree.map(jnp.asarray, params), tm
 
 
+@pytest.fixture(scope="module")
+def jax_bank(models):
+    """JAX's batch-1 bank of the read cases (one compile for both)."""
+    jm, params, _ = models
+    ref, ctx = np_rand((1, 8, 8, 4), 43), np_rand((8, 77, 16), 41)
+    return jit_apply(jm, method=jm.compute_bank)(params, jnp.asarray(ref), jnp.full((1,), 321),
+                                                  jnp.asarray(ctx[:1]))
+
+
 @pytest.mark.parametrize("mode,f", [("read", 4), ("uc", 4), ("read", 1),
                                     ("inline_per_clip", 4)])
-def test_magicpose_temporal_forward(models, mode, f):
+def test_magicpose_temporal_forward(models, jax_bank, mode, f):
     """A window of 8 frames (two clips of 4, or eight of 1): the bank read
     with a batch-1 bank, the uncond pass, and the training forward with one
     reference per clip (bank computed inline and repeated per frame)."""
@@ -139,26 +138,24 @@ def test_magicpose_temporal_forward(models, mode, f):
     t = np.full((b,), 321) if mode != "inline_per_clip" else np.repeat([55, 801], 4)
     ctx = np_rand((b, 77, 16), 41)
     hint = np_rand((b, 64, 64, 3), 42, 0.0, 1.0)
+    jx, jt, jc = jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx)
     with torch.no_grad():
         if mode == "uc":
-            want = jm.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
-                            uc=True, num_frames=f)
+            want = jit_apply(jm, uc=True, num_frames=f)(params, jx, jt, jc)
             got = tm(to_t(x), torch.tensor(t), to_t(ctx), uc=True, num_frames=f)
         elif mode == "read":
             ref = np_rand((1, 8, 8, 4), 43)
-            bank = jm.apply(params, jnp.asarray(ref), jnp.asarray(t[:1]),
-                            jnp.asarray(ctx[:1]), method=jm.compute_bank)
-            want = jm.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
-                            bank=bank, pose_hint=jnp.asarray(hint), num_frames=f)
+            want = jit_apply(jm, num_frames=f)(params, jx, jt, jc, bank=jax_bank,
+                                               pose_hint=jnp.asarray(hint))
             tbank = tm.compute_bank(to_t(ref), torch.tensor(t[:1]), to_t(ctx[:1]))
             assert all(e.shape[0] == 1 for e in tbank)
             got = tm(to_t(x), torch.tensor(t), to_t(ctx), bank=tbank, pose_hint=to_t(hint),
                      num_frames=f)
         else:
             ref = np_rand((2, 8, 8, 4), 44)
-            want = jm.apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
-                            reference_noisy=jnp.asarray(ref), pose_hint=jnp.asarray(hint),
-                            num_frames=f)
+            want = jit_apply(jm, num_frames=f)(params, jx, jt, jc,
+                                               reference_noisy=jnp.asarray(ref),
+                                               pose_hint=jnp.asarray(hint))
             got = tm(to_t(x), torch.tensor(t), to_t(ctx), reference_noisy=to_t(ref),
                      pose_hint=to_t(hint), num_frames=f)
     assert_close(got, want, **NET_TOL)

@@ -19,13 +19,18 @@ import torch
 import magicdance_tpu.config as jcfg
 import magicdance_tpu_torch.config as tcfg
 from magicdance_tpu.ops import schedules as js
-from magicdance_tpu.pipeline import MagicPosePipeline as JPipeline
 from magicdance_tpu.sampling.overlap import ddim_sample_video as j_video
 from magicdance_tpu.sampling.overlap import window_starts as j_starts
 from magicdance_tpu_torch.ops import schedules as ts
-from magicdance_tpu_torch.pipeline import MagicPosePipeline as TPipeline
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video, window_starts
-from torch_port_util import assert_close, np_rand, port_cfg, randomize, tiny_temporal_cfg_jax, to_t
+from torch_port_util import (
+    assert_close,
+    make_pipelines,
+    np_rand,
+    port_cfg,
+    tiny_temporal_cfg_jax,
+    to_t,
+)
 from torch_port_util import torch_single_thread  # noqa: F401  (autouse fixture)
 
 TOL = dict(atol=2e-3, rtol=2e-3)
@@ -50,15 +55,7 @@ def test_window_starts_match_jax():
 
 @pytest.fixture(scope="module")
 def pipelines():
-    jc = tiny_temporal_cfg_jax()
-    jp = JPipeline(jc)
-    shapes = jp.fast_init_params(jax.random.PRNGKey(0), image_size=64)
-    params = {k: randomize(jax.tree.map(np.asarray, dict(v)), i)
-              for i, (k, v) in enumerate(sorted(shapes.items()))}
-    jp.params = jax.tree.map(jnp.asarray, params)
-    tp = TPipeline(port_cfg(jc), device="cpu")
-    tp.load_jax_params(params)
-    return jp, tp
+    return make_pipelines(tiny_temporal_cfg_jax())
 
 
 def test_ddim_sample_video_matches_jax(pipelines):
@@ -129,7 +126,8 @@ def test_video_sampler_refuses_what_is_not_ported(pipelines):
     ddim = ts.make_ddim_schedule(tp.sched, 2)
     x = torch.zeros(F, 8, 8, 4)
     ctx = torch.zeros(1, 77, 16)
-    for scfg, kw in ((tcfg.SampleConfig(steps=2, deepcache_every=2), {}),
+    for scfg, kw in ((tcfg.SampleConfig(steps=2, deepcache_every=2),
+                      {"window_sharding": object()}),
                      (tcfg.SampleConfig(steps=2), {"window_sharding": object()}),
                      (tcfg.SampleConfig(steps=2), {"window_offsets": [0]})):
         with pytest.raises((NotImplementedError, ValueError)):

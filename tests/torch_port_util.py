@@ -10,6 +10,7 @@ into the port by `magicdance_tpu_torch.convert.from_jax`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +58,16 @@ def tiny_model_cfg_jax() -> jcfg.ModelConfig:
     )
 
 
+def micro_model_cfg_jax() -> jcfg.ModelConfig:
+    """The tiny config with attention at the first level only (and the middle
+    block): the sampler tests trace the JAX sampler once per SampleConfig,
+    and tracing time grows with the number of transformer blocks."""
+    cfg = tiny_model_cfg_jax()
+    return dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, attention_resolutions=(1,)),
+        pose_control=dataclasses.replace(cfg.pose_control, attention_resolutions=(1,)))
+
+
 def tiny_temporal_cfg_jax() -> jcfg.ModelConfig:
     """The tiny config with motion modules (tests/test_sampling.py's
     `tiny_cfg(motion=True)`: motion_num_heads 2) on the video variant."""
@@ -69,6 +80,57 @@ def tiny_temporal_cfg_jax() -> jcfg.ModelConfig:
 def port_cfg(cfg):
     """The same configuration as the port's dataclass (via to_dict/from_dict)."""
     return tcfg.from_dict(getattr(tcfg, type(cfg).__name__), jcfg.to_dict(cfg))
+
+
+def make_pipelines(jc: jcfg.ModelConfig, image_size: int = 64):
+    """The JAX pipeline and the port's (on the CPU) with the same weights:
+    every leaf drawn with numpy on `fast_init_params`' shapes."""
+    from magicdance_tpu.pipeline import MagicPosePipeline as JPipeline
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline as TPipeline
+
+    jp = JPipeline(jc)
+    shapes = jp.fast_init_params(jax.random.PRNGKey(0), image_size=image_size)
+    params = {k: randomize(jax.tree.map(np.asarray, dict(v)), i)
+              for i, (k, v) in enumerate(sorted(shapes.items()))}
+    jp.params = jax.tree.map(jnp.asarray, params)
+    tp = TPipeline(port_cfg(jc), device="cpu")
+    tp.load_jax_params(params)
+    return jp, tp
+
+
+def sample_both(jp, tp, steps: int, inputs: dict, video: bool = False, **scfg_kw):
+    """The JAX sampler (`ddim_sample`, or `ddim_sample_video` with
+    `video=True`) and the port's on the same numpy inputs {x_T, ctx, uctx,
+    ref, hint} and SampleConfig fields. The video sampler's per-step window
+    offsets are JAX's, replayed from the key it receives. Returns (port
+    latents, JAX latents)."""
+    from magicdance_tpu.ops import schedules as js
+    from magicdance_tpu.sampling.ddim import ddim_sample as j_ddim
+    from magicdance_tpu.sampling.overlap import ddim_sample_video as j_video
+    from magicdance_tpu_torch.ops import schedules as ts
+    from magicdance_tpu_torch.sampling.ddim import ddim_sample
+    from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
+
+    rng = jax.random.PRNGKey(6)
+    j_args = [jnp.asarray(inputs[k]) if inputs.get(k) is not None else None
+              for k in ("x_T", "ctx", "uctx")]
+    t_args = [to_t(inputs[k]) if inputs.get(k) is not None else None
+              for k in ("x_T", "ctx", "uctx")]
+    j_kw = dict(reference_latent=jnp.asarray(inputs["ref"]), pose_hint=jnp.asarray(inputs["hint"]))
+    t_kw = dict(reference_latent=to_t(inputs["ref"]), pose_hint=to_t(inputs["hint"]))
+    scfg_j, scfg_t = jcfg.SampleConfig(steps=steps, **scfg_kw), tcfg.SampleConfig(steps=steps, **scfg_kw)
+    j_fn, t_fn = (j_video, ddim_sample_video) if video else (j_ddim, ddim_sample)
+    want = j_fn(jp.model, jp.params["model"], jp.sched, js.make_ddim_schedule(jp.sched, steps),
+                scfg_j, rng, *j_args, **j_kw)
+    if video:
+        offsets = []
+        for _ in range(steps):
+            rng, rng_off, _, _ = jax.random.split(rng, 4)
+            offsets.append(int(jax.random.randint(rng_off, (), 0, inputs["x_T"].shape[0])))
+        t_kw["window_offsets"] = offsets
+    got = t_fn(tp.model, tp.sched, ts.make_ddim_schedule(tp.sched, steps), scfg_t, *t_args,
+               **t_kw)
+    return got, np.asarray(want)
 
 
 def randomize(tree, seed: int):
@@ -95,6 +157,22 @@ def randomize(tree, seed: int):
         return out
 
     return walk(tree)
+
+
+def shaped_random(init, seed: int) -> dict:
+    """Every leaf of the variables `init()` would return, drawn with numpy
+    (`randomize`) on the shapes of `jax.eval_shape(init)`: no Flax init runs
+    (an eager init executes the whole forward op by op)."""
+    shapes = jax.eval_shape(init)
+    return randomize(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), dict(shapes)), seed)
+
+
+def jit_apply(module, **static):
+    """`module.apply` compiled once (jax.jit) with keyword arguments such as
+    `method=`, `dtype=`, `num_frames=` bound; call it with the params and the
+    array arguments. One compile replaces the op-by-op dispatch (and its
+    thousands of tiny compiles) of an eager apply."""
+    return jax.jit(functools.partial(module.apply, **static))
 
 
 def np_rand(shape, seed: int, lo: float = None, hi: float = None) -> np.ndarray:
@@ -220,9 +298,16 @@ class JaxReference:
         self.state = self.trainer.create_state(mp, vp, cp)
         self.value_and_grad = (loss_from.value_and_grad if loss_from is not None else
                                jax.jit(jax.value_and_grad(self.trainer._loss, has_aux=True)))
-        flat, self.unravel = ravel_pytree(self.state.train_params)
+        flat, unravel = ravel_pytree(self.state.train_params)
         self.opt_state = self.trainer.tx.init(flat)
         self.update = jax.jit(self._update)
+        # one compile each instead of an eager op per leaf (hundreds of
+        # shapes, each compiled on its own)
+        self.ravel = jax.jit(lambda tree: ravel_pytree(tree)[0])
+        self.unravel = jax.jit(unravel)
+        rate = jc.optim.ema_rate
+        self.ema_update = jax.jit(lambda e, q: jax.tree.map(
+            lambda a, b: a * rate + b * (1.0 - rate), e, q))
 
     def _update(self, g, opt_state, p):
         updates, opt_state = self.trainer.tx.update(g, opt_state, p)
@@ -234,13 +319,12 @@ class JaxReference:
 
     def step(self, batch, rng):
         (loss, _), grads = self.loss_and_grads(batch, rng)
-        p, self.opt_state = self.update(ravel_pytree(grads)[0], self.opt_state,
-                                        ravel_pytree(self.state.train_params)[0])
+        p, self.opt_state = self.update(self.ravel(grads), self.opt_state,
+                                        self.ravel(self.state.train_params))
         new_train = self.unravel(p)
         ema = self.state.ema_params
         if ema is not None:
-            rate = self.cfg.optim.ema_rate
-            ema = jax.tree.map(lambda e, q: e * rate + q * (1.0 - rate), ema, new_train)
+            ema = self.ema_update(ema, new_train)
         self.state = self.state.replace(step=self.state.step + 1, train_params=new_train,
                                         ema_params=ema)
         return float(loss)
