@@ -9,14 +9,20 @@ Phases, in order; every check raises, so any failure exits non-zero:
      configurations are the same; the pipeline also runs its fp32 work
      (VAE, CLIP) in full fp32 by itself.
   2. build the CUDA kernels from ops/kernels/csrc (one nvcc per source, all
-     at once) and print the build time and the ptxas resource report.
+     at once) and print the build time and the ptxas resource report, with
+     the registers and spill bytes of each tensor-core instantiation (kernel
+     A's bf16 body and K9, `md::tc`).
   3. hold each kernel against its plain PyTorch version at every shape the
-     main path gives it (bf16: max-abs <= min(5e-2, 0.1 x the RMS of the
+     main path gives it (kernel A runs its tensor-core body in bf16 and its
+     CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the RMS of the
      plain output), since these outputs are far below O(1); fp32: max-abs
      <= 2e-4), plus a
      BSNH-strided, a ragged and a separate-bank-batch case; time kernel,
      plain version, the library call (F.scaled_dot_product_attention, a
-     yardstick only) and the bound max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s).
+     yardstick only) and the bound max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s);
+     kernel, plain and library times are device time, the timed calls
+     queued behind a sleep kernel so that the host's launch rate does not
+     enter them (`utils.timing.device_time_ms`).
   4. small-input reference: a narrow model at 128x128 (S = 256 at the
      first level, so the kernels run) sampled on the card (fp32, kernels)
      and on the CPU (plain path) from the same weights and x_T must agree.
@@ -97,8 +103,18 @@ Phases, in order; every check raises, so any failure exits non-zero:
   17. the temporal model at full width, 2 requests x 16 frames at 512x512,
      one window, DDIM-50, under the `turbo` stack, held to its launch plan,
      beside phase 12's exact video requests.
-  18. the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
-     gated mode and K8, launches by path), the card line, the result line.
+  18. the head-packing probe and kernel K9: K9 against its plain version at
+     the probe's shape (BG 64, S 4096, G 3, D 40, block-diagonal K/V from
+     random heads) and a small ragged shape (random K/V), bf16 and fp32,
+     timed against its bound, the plain version and the library call (SDPA
+     on the unpacked per-head tensors); kernel A against its plain version
+     on the same unpacked tensors (BSNH 32, 4096, 6, 40, bf16 and fp32),
+     the shape P3 gives it; then the probe itself
+     (`magicdance_tpu_torch.scripts.bench_head_packing`, P1-P4) as the
+     slice's path, with the counts at 0 before it: P3 runs K9 and kernel A
+     at (32, 4096, 6, 40) BSNH and their outputs must agree.
+  Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
+  gated mode, K8 and K9, launches by path), the card line, the result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -110,7 +126,6 @@ import argparse
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -125,6 +140,9 @@ FP32_TOL = 2e-4
 GRAD_BF16_TOL = 1e-1  # magicdance_tpu/ops/kernel_gate.py:52 (gradients)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# exponentials per second: 16 MUFU ex2 results per SM per clock, 132 SMs at
+# the 1980 MHz boost clock; the floor of attention at D = 40
+PEAK_EXP = 132 * 16 * 1.98e9
 
 KERNELS = {
     "self_attention": dict(
@@ -164,6 +182,10 @@ KERNELS = {
         source="magicdance_tpu_torch/ops/kernels/csrc/groupnorm_silu.cu",
         replaces="magicdance_tpu/ops/pallas/groupnorm.py:31 (_gn_silu_kernel)",
         modes=("groupnorm_silu",)),
+    "packed_attention": dict(
+        source="magicdance_tpu_torch/ops/kernels/csrc/packed_attention.cu",
+        replaces="scripts/bench_head_packing.py:97 (_packed_kernel)",
+        modes=("packed_attention",)),
 }
 TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
                "attention_dq_two_source", "attention_dkv")
@@ -173,13 +195,6 @@ TWO_SOURCE_PER_STEP = 15
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cpu_model() -> str:
@@ -224,6 +239,31 @@ def attention_bound_ms(b, sq, h, d, kv, itemsize=2) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
+def exp_bound_ms(b, sq, h, kv) -> float:
+    """Least time of the exponentials alone: one per logit, b x h x sq x
+    the keys of every source, over PEAK_EXP."""
+    return b * h * sq * sum(sk for _, sk in kv) / PEAK_EXP * 1e3
+
+
+def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
+    """(kernel<KD, NO[, MR, BN]>, registers, spill bytes) of each
+    tensor-core entry function in a ptxas -v report."""
+    out = []
+    for chunk in log_text.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        m = re.match(r"_ZN2md2tc\d+(\w+?_tc)I((?:Li\d+E)+)(?:Lb([01])E)?E", name)
+        if not m:
+            continue
+        args = re.findall(r"Li(\d+)E", m.group(2))
+        which = {"0": " (kernel A)", "1": " (K9)"}.get(m.group(3), "")
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill", chunk))
+        params = ", ".join(f"{k}={v}" for k, v in zip(("KD", "NO", "MR", "BN"), args))
+        out.append((f"{m.group(1)}<{params}>{which}", int(regs.group(1)) if regs else -1,
+                    spill))
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -249,6 +289,7 @@ def check_kernels(frames: int, heads: int = 8):
     import torch.nn.functional as F
 
     from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.utils.timing import device_time_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -295,22 +336,24 @@ def check_kernels(frames: int, heads: int = 8):
             check(name, got, want, tol, label)
             if dtype != torch.bfloat16:
                 continue
-            ms = cuda_time_ms(lambda: kern(*args))
-            plain_ms = cuda_time_ms(lambda: plain(*args), min_total_s=0.1, max_iters=5)
+            ms = device_time_ms(lambda: kern(*args))
+            plain_ms = device_time_ms(lambda: plain(*args), min_total_s=0.1, max_iters=5)
             qh = q.transpose(1, 2)
             if name == "self_attention":
                 kh, vh = k.transpose(1, 2), v.transpose(1, 2)
             else:
                 kh = torch.cat([k, kb.expand(b, -1, -1, -1)], dim=1).transpose(1, 2)
                 vh = torch.cat([v, vb.expand(b, -1, -1, -1)], dim=1).transpose(1, 2)
-            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
             bound, bound_by = attention_bound_ms(b, s, heads, d, kv)
+            exp_ms = exp_bound_ms(b, s, heads, kv)
             rows.append(dict(kernel=name, B=b, S=s, D=d, H=heads, bank_batch=bb,
                              launches_per_step=per_step, kernel_ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                             bound_by=bound_by))
+                             bound_by=bound_by, exp_bound_ms=exp_ms))
             log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+                f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                f"exp_bound_ms={exp_ms:.4f}")
             del q, k, v, args
             torch.cuda.empty_cache()
 
@@ -330,16 +373,17 @@ def check_kernels(frames: int, heads: int = 8):
         check("self_attention", K.self_attention(q, k, v),
               K.self_attention_ref(q, k, v), tol, f"{tag} BSNH-strided B=2 S=1024 D=80")
         if dtype == torch.bfloat16:  # flash.py::_attn_kernel's layout, off the main path
-            ms = cuda_time_ms(lambda: K.self_attention(q, k, v))
-            plain_ms = cuda_time_ms(lambda: K.self_attention_ref(q, k, v),
-                                    min_total_s=0.1, max_iters=5)
+            ms = device_time_ms(lambda: K.self_attention(q, k, v))
+            plain_ms = device_time_ms(lambda: K.self_attention_ref(q, k, v),
+                                      min_total_s=0.1, max_iters=5)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
             bound, bound_by = attention_bound_ms(2, 1024, heads, 80, [(2, 1024)])
             rows.append(dict(kernel="self_attention", B=2, S=1024, D=80, H=heads,
                              bank_batch=None, layout="BSNH-strided", launches_per_step=0,
                              kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound, bound_by=bound_by))
+                             bound_ms=bound, bound_by=bound_by,
+                             exp_bound_ms=exp_bound_ms(2, 1024, heads, [(2, 1024)])))
             log(f"      BSNH-strided: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
         q, k, v = (rnd(3, 300, 4, 48, dtype=dtype) for _ in range(3))
@@ -878,6 +922,7 @@ def check_training_kernels(plan, batch: int = 2, heads: int = 8):
     import torch.nn.functional as F
 
     from magicdance_tpu_torch.ops.kernels import flash_vjp as V
+    from magicdance_tpu_torch.utils.timing import device_time_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
@@ -936,10 +981,10 @@ def check_training_kernels(plan, batch: int = 2, heads: int = 8):
         lib_out = F.scaled_dot_product_attention(qs, ks, vs)
         g = dout.transpose(1, 2)
         lib = {
-            "lse": cuda_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
-            "dq": cuda_time_ms(lambda: torch.autograd.grad(lib_out, [qs], g, retain_graph=True)),
-            "dkv": cuda_time_ms(lambda: torch.autograd.grad(lib_out, [ks, vs], g,
-                                                            retain_graph=True)),
+            "lse": device_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+            "dq": device_time_ms(lambda: torch.autograd.grad(lib_out, [qs], g, retain_graph=True)),
+            "dkv": device_time_ms(lambda: torch.autograd.grad(lib_out, [ks, vs], g,
+                                                              retain_graph=True)),
         }
         src_kv = (kb, vb) if two else (k, v)
         cases = {
@@ -952,8 +997,8 @@ def check_training_kernels(plan, batch: int = 2, heads: int = 8):
                     [(src_kv[0].shape[0], src_kv[0].shape[1])], "attention_dkv"),
         }
         for kind, (kern, plain, kv_, mode) in cases.items():
-            ms = cuda_time_ms(kern)
-            plain_ms = cuda_time_ms(plain, min_total_s=0.1, max_iters=5)
+            ms = device_time_ms(kern)
+            plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
             bound, bound_by = training_bound_ms(kind, b, sq, h, d, kv_)
             # dK/dV of a bank source at bank batch B has the self source's
             # shapes: the plan's dK/dV launches at (S, D) go to the self row
@@ -961,7 +1006,8 @@ def check_training_kernels(plan, batch: int = 2, heads: int = 8):
             rows.append(dict(mode=mode, kind=kind, B=b, S=sq, D=d, H=h,
                              bank_batch=kb.shape[0] if two else None,
                              launches_per_step=per_step, kernel_ms=ms, plain_ms=plain_ms,
-                             library_ms=lib[kind], bound_ms=bound, bound_by=bound_by))
+                             library_ms=lib[kind], bound_ms=bound, bound_by=bound_by,
+                             exp_bound_ms=exp_bound_ms(b, sq, h, kv_)))
             log(f"      {mode:25s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib[kind]:.4f} bound_ms={bound:.4f} ({bound_by}) "
                 f"x{per_step}/step")
@@ -1286,6 +1332,7 @@ def check_grouped_kernels():
     import torch.nn.functional as F
 
     from magicdance_tpu_torch.ops.kernels import grouped as G
+    from magicdance_tpu_torch.utils.timing import device_time_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(777)
@@ -1332,16 +1379,16 @@ def check_grouped_kernels():
         lib_out = F.scaled_dot_product_attention(qs, ks, vs)
         gs = g.view(n, s, h, d).transpose(1, 2)
         times = {
-            "fwd": (cuda_time_ms(lambda: G.grouped_attention(q, k, v, None, h)),
-                    cuda_time_ms(lambda: G.grouped_attention_ref(q, k, v, None, h),
-                                 min_total_s=0.1, max_iters=5),
-                    cuda_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+            "fwd": (device_time_ms(lambda: G.grouped_attention(q, k, v, None, h)),
+                    device_time_ms(lambda: G.grouped_attention_ref(q, k, v, None, h),
+                                   min_total_s=0.1, max_iters=5),
+                    device_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
                     per_step, "grouped"),
-            "bwd": (cuda_time_ms(lambda: G.grouped_attention_bwd(q, k, v, g, None, h)),
-                    cuda_time_ms(lambda: G.grouped_attention_bwd_ref(q, k, v, g, None, h),
-                                 min_total_s=0.1, max_iters=5),
-                    cuda_time_ms(lambda: torch.autograd.grad(lib_out, [qs, ks, vs], gs,
-                                                             retain_graph=True)),
+            "bwd": (device_time_ms(lambda: G.grouped_attention_bwd(q, k, v, g, None, h)),
+                    device_time_ms(lambda: G.grouped_attention_bwd_ref(q, k, v, g, None, h),
+                                   min_total_s=0.1, max_iters=5),
+                    device_time_ms(lambda: torch.autograd.grad(lib_out, [qs, ks, vs], gs,
+                                                               retain_graph=True)),
                     per_train, "grouped_bwd"),
         }
         for kind, (ms, plain_ms, lib_ms, launches, mode) in times.items():
@@ -1632,6 +1679,7 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
     import torch.nn.functional as F
 
     from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.utils.timing import device_time_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4242)
@@ -1656,9 +1704,9 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
                   K.two_source_attention_ref(*args, bank_mask=mask), tol, label)
             if dtype != torch.bfloat16 or 0.5 in gates:
                 continue
-            ms = cuda_time_ms(lambda: K.two_source_attention(*args, bank_mask=mask))
-            plain_ms = cuda_time_ms(lambda: K.two_source_attention_ref(*args, bank_mask=mask),
-                                    min_total_s=0.1, max_iters=5)
+            ms = device_time_ms(lambda: K.two_source_attention(*args, bank_mask=mask))
+            plain_ms = device_time_ms(lambda: K.two_source_attention_ref(*args, bank_mask=mask),
+                                      min_total_s=0.1, max_iters=5)
             qh = q.transpose(1, 2)
             kh = torch.cat([k, kb.expand(b, -1, -1, -1)], 1).transpose(1, 2)
             vh = torch.cat([v, vb.expand(b, -1, -1, -1)], 1).transpose(1, 2)
@@ -1666,8 +1714,8 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
             # hidden from the gate-0 rows by a boolean mask
             allowed = torch.ones(b, 1, 1, 2 * s, dtype=torch.bool, device=dev)
             allowed[mask == 0, :, :, s:] = False
-            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                                         attn_mask=allowed))
+            lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                           attn_mask=allowed))
             bound, by = gated_bound_ms(b, s, heads, d, s, s, gates)
             rows.append(dict(kernel="two_source_attention_gated", B=b, S=s, D=d, H=heads,
                              gates=list(gates), launches_per_step=fused_plan.get((s, d), 0),
@@ -1703,10 +1751,10 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
                      lambda: K.two_source_attention_ref(q, k, v, kb, vb),
                      [(frames, sk), (1, sk)], torch.cat([k, kb.expand(frames, -1, -1, -1)], 1),
                      torch.cat([v, vb.expand(frames, -1, -1, -1)], 1))):
-                ms = cuda_time_ms(kern)
-                plain_ms = cuda_time_ms(plain, min_total_s=0.1, max_iters=5)
+                ms = device_time_ms(kern)
+                plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
                 kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
-                lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+                lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
                 bound, by = attention_bound_ms(frames, 4096, heads, 40, kv)
                 rows.append(dict(kernel=name, B=frames, S=4096, S_k=sk, D=40, H=heads,
                                  pooled=p, launches_per_step=0, kernel_ms=ms, plain_ms=plain_ms,
@@ -1764,6 +1812,7 @@ def check_groupnorm_kernel(sites, per_step: dict):
     import torch.nn.functional as F
 
     from magicdance_tpu_torch.ops.kernels import groupnorm as GN
+    from magicdance_tpu_torch.utils.timing import device_time_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(99)
@@ -1781,10 +1830,10 @@ def check_groupnorm_kernel(sites, per_step: dict):
             side = int(round(hw ** 0.5))
             xn = x.view(b, side, side, c).permute(0, 3, 1, 2)  # NCHW, channels_last
             wb, bb = w.to(dtype), bias.to(dtype)
-            ms = cuda_time_ms(lambda: GN.groupnorm_silu(x, w, bias, groups, eps))
-            plain_ms = cuda_time_ms(lambda: GN.groupnorm_silu_ref(x, w, bias, groups, eps),
-                                    min_total_s=0.1, max_iters=10)
-            lib_ms = cuda_time_ms(lambda: F.silu(F.group_norm(xn, groups, wb, bb, eps)))
+            ms = device_time_ms(lambda: GN.groupnorm_silu(x, w, bias, groups, eps))
+            plain_ms = device_time_ms(lambda: GN.groupnorm_silu_ref(x, w, bias, groups, eps),
+                                      min_total_s=0.1, max_iters=10)
+            lib_ms = device_time_ms(lambda: F.silu(F.group_norm(xn, groups, wb, bb, eps)))
             n = b * hw * c
             t_mem = 2 * n * x.element_size() / PEAK_BYTES * 1e3
             t_ops = 10.0 * n / PEAK_BF16_FLOPS * 1e3
@@ -1936,6 +1985,110 @@ def serve_requests(pipe, scfg, requests: int, frames: int, plan: dict, label: st
                 launches_per_request=plan, launches={m: n * requests for m, n in plan.items()})
 
 
+# --------------------------------------------------------------------------
+# phase 18: the head-packing probe and kernel K9
+# --------------------------------------------------------------------------
+
+
+def packed_bound_ms(bg, sq, s, g, gd, itemsize=2) -> tuple[float, str]:
+    """Least time of one K9 launch: QK^T and PV over the whole G*D width
+    (the zeros of block-diagonal K/V included: the function contracts
+    them), 4 x Sq x G*S x G*D operations per BG row over the bf16 peak, vs
+    qp, kbd and vbd read once and o written once over the memory rate."""
+    flops = 4.0 * bg * sq * g * s * gd
+    nbytes = itemsize * bg * gd * (2 * sq + 2 * g * s)
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def check_packed_kernel():
+    """Phase 18a: K9 against its plain version at the probe's shape (K/V
+    packed block-diagonally from random heads, as the probe packs them) and
+    at a small ragged shape (random kbd/vbd, S = 300, Sq = 200), bf16 and
+    fp32; kernel A against its plain version on the same unpacked q, k, v
+    (BSNH, the shape P3 gives it); the probe's shape timed in bf16 against its bound, the plain
+    version and the library call (SDPA on the unpacked per-head tensors,
+    which computes the same result for block-diagonal K/V; a yardstick
+    only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.ops.kernels import packed as P
+    from magicdance_tpu_torch.scripts.bench_head_packing import P3_SHAPE
+    from magicdance_tpu_torch.utils.timing import device_time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    errs, checked, rows = {}, {}, []
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    b, h, s, d, g = (P3_SHAPE[key] for key in ("B", "H", "S", "D", "G"))
+    bg, gd = b * h // g, g * d
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+        q, k, v = (rnd(b, s, h, d, dtype=dtype) for _ in range(3))
+        qp, kbd, vbd = P.pack_heads(q, g), P.blockdiag(k, g), P.blockdiag(v, g)
+        label = f"{str(dtype)[6:]} BG={bg} S={s} G={g} D={d} block-diagonal"
+        check(errs, checked, "packed_attention", P.packed_attention(qp, kbd, vbd, g),
+              P.packed_attention_ref(qp, kbd, vbd, g), tol, label)
+        if dtype == torch.bfloat16:
+            ms = device_time_ms(lambda: P.packed_attention(qp, kbd, vbd, g))
+            plain_ms = device_time_ms(lambda: P.packed_attention_ref(qp, kbd, vbd, g),
+                                      min_total_s=0.1, max_iters=3)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            bound, bound_by = packed_bound_ms(bg, s, s, g, gd)
+            rows.append(dict(kernel="packed_attention", BG=bg, Sq=s, S=s, G=g, D=d,
+                             launches_per_step=1, kernel_ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                             exp_bound_ms=exp_bound_ms(bg, s, g, [(bg, s)])))
+            log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                f"bound_ms={bound:.4f} ({bound_by}) exp_bound_ms={rows[-1]['exp_bound_ms']:.4f}")
+        # P3's other side: kernel A per head on the same q, k, v (the plain
+        # version over 8 batch rows at a time, to bound its fp32 logits)
+        want = torch.cat([K.self_attention_ref(q[i:i + 8], k[i:i + 8], v[i:i + 8])
+                          for i in range(0, b, 8)])
+        check(errs, checked, "self_attention", K.self_attention(q, k, v), want, tol,
+              f"{str(dtype)[6:]} BSNH B={b} S={s} H={h} D={d} (P3's per-head side)")
+        del q, k, v, qp, kbd, vbd, want
+        torch.cuda.empty_cache()
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+        qp = rnd(3, 200, gd, dtype=dtype)
+        kbd, vbd = (rnd(3, g * 300, gd, dtype=dtype) for _ in range(2))
+        check(errs, checked, "packed_attention", P.packed_attention(qp, kbd, vbd, g),
+              P.packed_attention_ref(qp, kbd, vbd, g), tol,
+              f"{str(dtype)[6:]} ragged BG=3 Sq=200 S=300 G={g} D={d} random K/V")
+    return rows, errs, checked
+
+
+def head_packing_probe():
+    """Phase 18b: the probe as a user runs it (P1-P4), with every launch
+    count at 0 just before it; P3's two outputs must agree within the bf16
+    gate. Returns (numbers, launches)."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.scripts import bench_head_packing as probe
+
+    K.reset_launches()
+    result = probe.run_all(torch.device("cuda"), lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    p3 = result["P3"]
+    tol = min(BF16_TOL, BF16_REL_TOL * p3["rms"])
+    if not p3["max_abs_err"] <= tol:
+        raise AssertionError(f"P3: K9 and kernel A differ by {p3['max_abs_err']:.3e} > "
+                             f"{tol:.3e}")
+    for mode in ("packed_attention", "self_attention"):
+        if launches[mode] < 1:
+            raise AssertionError(f"the probe launched no {mode} kernel: {launches}")
+    log(f"  launches in the probe's run: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return result, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
@@ -1952,6 +2105,7 @@ def main(argv=None) -> int:
     try:
         from magicdance_tpu_torch.config import SampleConfig
         from magicdance_tpu_torch.ops.kernels import build
+        from magicdance_tpu_torch.utils.timing import card_line
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script: {e}",
               file=sys.stderr)
@@ -1984,6 +2138,8 @@ def main(argv=None) -> int:
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", text))
         log(f"  {name}: {len(regs)} instantiations, registers per thread "
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
+        for inst, nreg, spill in tc_instantiations(text):
+            log(f"    {inst}: {nreg} registers, {spill} spill bytes")
 
     log("== phase 3: kernels vs plain versions")
     rows, errs, ratios, checked = check_kernels(frames)
@@ -2089,6 +2245,12 @@ def main(argv=None) -> int:
     del vpipe
     torch.cuda.empty_cache()
 
+    log("== phase 18: kernel K9 (head-packed attention) vs plain versions, then the "
+        "head-packing probe (P1-P4)")
+    packed_rows, packed_errs, packed_checked = check_packed_kernel()
+    probe, probe_launches = head_packing_probe()
+    torch.cuda.empty_cache()
+
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
 
@@ -2104,7 +2266,8 @@ def main(argv=None) -> int:
              "video training (stage 3, 3 steps)": stage3["launches"],
              **{f"image serving, {label} (2 requests x {r['steps']} DDIM steps)": r["launches"]
                 for label, r in served.items()},
-             "video serving, turbo (2 requests x 50 DDIM steps)": video_turbo["launches"]}
+             "video serving, turbo (2 requests x 50 DDIM steps)": video_turbo["launches"],
+             "head-packing probe (P1-P4)": probe_launches}
     kernels = []
     for name, meta in KERNELS.items():
         by_path = {p: sum(launches.get(m, 0) for m in meta["modes"])
@@ -2125,6 +2288,18 @@ def main(argv=None) -> int:
                     + " (sum over its launches)",
                 check=f"{n_checked} comparisons within tolerance"))
             continue
+        if name == "packed_attention":
+            kernels.append(dict(
+                name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=packed_errs[name], ms=per_step(packed_rows, "kernel_ms"),
+                plain_ms=per_step(packed_rows, "plain_ms"),
+                bound_ms=per_step(packed_rows, "bound_ms"), bound_by=bound_by(packed_rows),
+                library_ms=per_step(packed_rows, "library_ms"),
+                per="one launch at the probe's shape (BG 64, S 4096, G 3, D 40, bf16)",
+                check=f"{packed_checked[name]} comparisons within tolerance",
+                probe_P3=probe["P3"]))
+            continue
         if name.startswith("grouped"):
             main_rows = [r for r in grouped_rows if r["mode"] in meta["modes"]]
             serving, training = (main_rows, []) if name == "grouped_attention" else ([], main_rows)
@@ -2133,9 +2308,10 @@ def main(argv=None) -> int:
             serving = [r for r in rows if r["kernel"] == name]
             training = [r for r in train_rows if r["mode"] in meta["modes"]]
             main_rows = serving if serving else training
-            err = max(errs.get(name, 0.0), train_errs[name], fused_errs.get(name, 0.0))
+            err = max(errs.get(name, 0.0), train_errs[name], fused_errs.get(name, 0.0),
+                      packed_errs.get(name, 0.0))
             n_checked = (checked.get(name, 0) + train_checked[name]
-                         + fused_checked.get(name, 0))
+                         + fused_checked.get(name, 0) + packed_checked.get(name, 0))
         entry = dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
@@ -2149,6 +2325,8 @@ def main(argv=None) -> int:
             check=f"{n_checked} comparisons within tolerance")
         if name in ratios:
             entry["max_err_over_rms"] = ratios[name]
+        if all("exp_bound_ms" in r for r in main_rows):
+            entry["exp_bound_ms"] = per_step(main_rows, "exp_bound_ms")
         if serving and training:
             entry["training_step"] = dict(
                 ms=per_step(training, "kernel_ms"), plain_ms=per_step(training, "plain_ms"),
@@ -2165,6 +2343,7 @@ def main(argv=None) -> int:
                            small_stage3=small_stage3, video=video, stage3=stage3,
                            fused_and_pooled_shapes=fused_rows, groupnorm_shapes=gn_rows,
                            small_turbo=small_turbo, served=served, video_turbo=video_turbo,
+                           packed_shapes=packed_rows, head_packing_probe=probe,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

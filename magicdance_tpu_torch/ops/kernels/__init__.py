@@ -8,7 +8,9 @@ D (`flash_vjp.attention_dkv`) the backward. Kernel B with a `bank_mask` is
 the gated forward of fused classifier-free guidance. Kernel G
 (`grouped_attention`, `grouped.grouped_attention_bwd`) replaces the Pallas
 grouped (temporal) attention kernel and its backward on the video path, and
-K8 (`groupnorm.groupnorm_silu`) the fused GroupNorm+SiLU. Sources are under
+K8 (`groupnorm.groupnorm_silu`) the fused GroupNorm+SiLU. K9
+(`packed.packed_attention`) is the head-packed attention of the
+head-packing probe. Sources are under
 `csrc/`; `build` compiles them with nvcc at first use.
 """
 
@@ -23,4 +25,8 @@ from magicdance_tpu_torch.ops.kernels.attention import (  # noqa: F401
 from magicdance_tpu_torch.ops.kernels.grouped import (  # noqa: F401
     grouped_attention,
     grouped_attention_ref,
+)
+from magicdance_tpu_torch.ops.kernels.packed import (  # noqa: F401
+    packed_attention,
+    packed_attention_ref,
 )

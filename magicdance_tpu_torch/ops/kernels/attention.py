@@ -36,8 +36,9 @@ from magicdance_tpu_torch.ops.kernels import build
 # one counter per kernel mode: A and B plain (serving) and with the LSE
 # output (training forward), C with one or two sources, D, the grouped
 # (temporal) kernel's forward and backward (`ops.kernels.grouped`), B gated
-# by a bank mask (fused CFG) and the fused GroupNorm+SiLU
-# (`ops.kernels.groupnorm`)
+# by a bank mask (fused CFG), the fused GroupNorm+SiLU
+# (`ops.kernels.groupnorm`) and the head-packed attention of the head-packing
+# probe (`ops.kernels.packed`)
 LAUNCHES = {
     "self_attention": 0,
     "two_source_attention": 0,
@@ -50,6 +51,7 @@ LAUNCHES = {
     "grouped_bwd": 0,
     "two_source_attention_gated": 0,
     "groupnorm_silu": 0,
+    "packed_attention": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

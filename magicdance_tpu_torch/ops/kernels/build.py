@@ -22,7 +22,8 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 SOURCES = ("self_attention", "two_source_attention", "attention_dq", "attention_dkv",
-           "grouped_attention", "grouped_attention_bwd", "groupnorm_silu")
+           "grouped_attention", "grouped_attention_bwd", "groupnorm_silu",
+           "packed_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -124,6 +125,9 @@ _SIGNATURES = {
     # dtype, x, gamma, beta, y, strides, B, HW, C, G, eps, stream
     "groupnorm_silu": ("md_groupnorm_silu",
                        [_I, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _F, _VP]),
+    # dtype, q, k, v, o, strides, BG, GD, Sq, S, G, scale, stream
+    "packed_attention": ("md_packed_attention",
+                         [_I, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _I, _F, _VP]),
 }
 
 

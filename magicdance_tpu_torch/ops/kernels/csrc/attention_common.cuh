@@ -42,9 +42,9 @@
 // the online max/denominator, and each thread accumulates a 4 x (16*DJ) slab
 // of the output in registers. Logits, softmax and accumulation are fp32 for
 // bf16 and fp32 inputs alike; the output is written in the input type. The
-// products run on the CUDA cores, not the tensor cores: this is the
-// correct-first version, and mma/wgmma with TMA-fed tiles is the later work
-// that moves it toward the operation bound.
+// products run on the CUDA cores, not the tensor cores. This body serves
+// kernel B (both types) and fp32 kernel A; bf16 kernel A runs the
+// tensor-core tile routine of attention_mma.cuh.
 
 #pragma once
 

@@ -1,1 +1,1 @@
-"""Utilities: metric logging and image grids."""
+"""Utilities: metric logging, image grids and device timing."""

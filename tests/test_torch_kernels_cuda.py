@@ -1,7 +1,9 @@
 """CUDA kernels A (self_attention) and B (two_source_attention), with and
 without their LSE output and B in its gated (bank_mask) mode, the backward
-kernels C (attention_dq) and D (attention_dkv), the grouped kernel G and the
-fused GroupNorm+SiLU (K8) against their plain PyTorch versions, on the card.
+kernels C (attention_dq) and D (attention_dkv), the grouped kernel G, the
+fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
+plain PyTorch versions, on the card. Kernel A runs its tensor-core body in
+bf16 and its CUDA-core body in fp32.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -419,3 +421,86 @@ def test_fused_groupnorm_dispatch(cuda, monkeypatch):
     assert K.LAUNCHES["groupnorm_silu"] == 1
     with torch.no_grad(), pytest.raises(ValueError):  # NCHW-contiguous: not rows of channels
         gn(x.detach().contiguous())
+
+
+# --------------------------------------------------------------------------
+# kernel A's tensor-core body (bf16) in every mode; kernel K9 (head-packed)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [40, 80, 160])
+@pytest.mark.parametrize("sq,sk", [(300, 200), (130, 390)])
+def test_self_attention_ragged_lengths(cuda, dtype, d, sq, sk):
+    """Sq and Sk not multiples of the 64-row tiles, Sk below and above Sq."""
+    q = _rand(cuda, 2, sq, 4, d, dtype=dtype, seed=100)
+    k, v = (_rand(cuda, 2, sk, 4, d, dtype=dtype, seed=101 + i) for i in range(2))
+    _close(K.self_attention(q, k, v), K.self_attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_self_attention_lse_pooled_bsnh(cuda, dtype, d):
+    """Pooled keys (Sk = Sq / 4) through BSNH views of (B, H, S, D) tensors,
+    with the LSE output: out as the other tests, LSE within 2e-4."""
+    q = _rand(cuda, 2, 8, 1000, d, dtype=dtype, seed=110).transpose(1, 2)
+    k, v = (_rand(cuda, 2, 8, 250, d, dtype=dtype, seed=111 + i).transpose(1, 2)
+            for i in range(2))
+    got, want = V.self_attention_lse(q, k, v), V.self_attention_lse_ref(q, k, v)
+    _close(got[0], want[0], dtype)
+    assert got[1].dtype == torch.float32 and got[1].shape == (2, 8, 1000)
+    _close(got[1], want[1], torch.float32)
+
+
+def _packed_inputs(dev, bg, sq, s, g, d, dtype, blockdiag_heads, seed):
+    from magicdance_tpu_torch.ops.kernels import packed as P
+
+    if blockdiag_heads:  # the probe's layout: bg = B * H / G heads packed
+        b = bg
+        q = _rand(dev, b, sq, g, d, dtype=dtype, seed=seed)
+        k, v = (_rand(dev, b, s, g, d, dtype=dtype, seed=seed + 1 + i) for i in range(2))
+        return P.pack_heads(q, g), P.blockdiag(k, g), P.blockdiag(v, g)
+    qp = _rand(dev, bg, sq, g * d, dtype=dtype, seed=seed)
+    kbd, vbd = (_rand(dev, bg, g * s, g * d, dtype=dtype, seed=seed + 1 + i) for i in range(2))
+    return qp, kbd, vbd
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bg,sq,s,g,d,blockdiag_heads", [
+    (4, 1024, 1024, 3, 40, True),    # the probe's G and D, block-diagonal K/V
+    (3, 200, 300, 3, 40, False),     # ragged S and Sq != S, random K/V
+    (2, 130, 70, 2, 32, False),      # another packed width (64)
+])
+def test_packed_attention_matches_plain(cuda, dtype, bg, sq, s, g, d, blockdiag_heads):
+    from magicdance_tpu_torch.ops.kernels import packed as P
+
+    qp, kbd, vbd = _packed_inputs(cuda, bg, sq, s, g, d, dtype, blockdiag_heads, seed=120)
+    K.reset_launches()
+    got = P.packed_attention(qp, kbd, vbd, g)
+    assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES}, "packed_attention": 1}
+    assert got.shape == qp.shape and got.dtype == dtype
+    _close(got, P.packed_attention_ref(qp, kbd, vbd, g), dtype)
+
+
+def test_packed_attention_is_per_head_attention(cuda):
+    """On block-diagonal K/V, K9 unpacked equals kernel A per head."""
+    from magicdance_tpu_torch.ops.kernels import packed as P
+
+    q, k, v = (_rand(cuda, 2, 512, 6, 40, dtype=torch.bfloat16, seed=130 + i)
+               for i in range(3))
+    got = P.unpack_heads(P.packed_attention(P.pack_heads(q, 3), P.blockdiag(k, 3),
+                                            P.blockdiag(v, 3), 3), 2, 3)
+    _close(got, K.self_attention(q, k, v), torch.bfloat16)
+
+
+def test_packed_attention_rejects_bad_operands(cuda):
+    from magicdance_tpu_torch.ops.kernels import packed as P
+
+    qp, kbd, vbd = _packed_inputs(cuda, 2, 64, 64, 3, 40, torch.bfloat16, False, seed=140)
+    with pytest.raises(ValueError):  # key rows not G segments
+        P.packed_attention(qp, kbd[:, :100], vbd[:, :100], 3)
+    with pytest.raises(ValueError):  # mixed dtypes
+        P.packed_attention(qp, kbd.float(), vbd, 3)
+    with pytest.raises(ValueError):  # a row stride that breaks 16-byte loads
+        wide = _rand(cuda, 2, 64, 124, dtype=torch.bfloat16, seed=143)
+        P.packed_attention(wide[:, :, :120], kbd, vbd, 3)
