@@ -10,14 +10,17 @@ Phases, in order; every check raises, so any failure exits non-zero:
      (VAE, CLIP) in full fp32 by itself.
   2. build the CUDA kernels from ops/kernels/csrc (one nvcc per source, all
      at once) and print the build time and the ptxas resource report, with
-     the registers and spill bytes of each tensor-core instantiation (kernel
-     A's bf16 body and K9, `md::tc`).
+     the registers and spill bytes of each tensor-core instantiation (the
+     bf16 bodies of kernels A, B, B gated and K9: `md::tc::attention_tc`)
+     and the CUDA-core instantiations by type (none in bf16 for A and B).
   3. hold each kernel against its plain PyTorch version at every shape the
-     main path gives it (kernel A runs its tensor-core body in bf16 and its
-     CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the RMS of the
-     plain output), since these outputs are far below O(1); fp32: max-abs
-     <= 2e-4), plus a
-     BSNH-strided, a ragged and a separate-bank-batch case; time kernel,
+     main path gives it (kernels A and B run their tensor-core body in bf16
+     and their CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the
+     RMS of the plain output), since these outputs are far below O(1); fp32:
+     max-abs <= 2e-4), plus a
+     BSNH-strided, a ragged and a separate-bank-batch case, and kernel B at
+     the video path's bank reads (16 frames, bank batch 1, bf16; the plain
+     version run two frames at a time); time kernel,
      plain version, the library call (F.scaled_dot_product_attention, a
      yardstick only) and the bound max(FLOPs / 989 TFLOP/s, bytes / 3.35 TB/s);
      kernel, plain and library times are device time, the timed calls
@@ -114,7 +117,8 @@ Phases, in order; every check raises, so any failure exits non-zero:
      slice's path, with the counts at 0 before it: P3 runs K9 and kernel A
      at (32, 4096, 6, 40) BSNH and their outputs must agree.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
-  gated mode, K8 and K9, launches by path), the card line, the result line.
+  gated mode, K8 and K9, launches by path; kernel B's entry also sums its
+  16-frame rows per video DDIM step), the card line, the result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -245,23 +249,35 @@ def exp_bound_ms(b, sq, h, kv) -> float:
     return b * h * sq * sum(sk for _, sk in kv) / PEAK_EXP * 1e3
 
 
+TC_MODES = {"0": " (kernel A)", "1": " (kernel B)", "2": " (kernel B gated)", "3": " (K9)"}
+
+
 def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
-    """(kernel<KD, NO[, MR, BN]>, registers, spill bytes) of each
-    tensor-core entry function in a ptxas -v report."""
+    """(kernel<KD, NO, MR, BN> (its kernel), registers, spill bytes) of each
+    tensor-core entry function in a ptxas -v report; the fifth template
+    argument of attention_tc is its mode (md::tc::Mode)."""
     out = []
     for chunk in log_text.split("Compiling entry function '")[1:]:
         name = chunk.split("'", 1)[0]
-        m = re.match(r"_ZN2md2tc\d+(\w+?_tc)I((?:Li\d+E)+)(?:Lb([01])E)?E", name)
+        m = re.match(r"_ZN2md2tc\d+(\w+?_tc)I((?:Li\d+E)+)E", name)
         if not m:
             continue
         args = re.findall(r"Li(\d+)E", m.group(2))
-        which = {"0": " (kernel A)", "1": " (K9)"}.get(m.group(3), "")
+        which = TC_MODES.get(args[4], "") if len(args) == 5 else ""
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill", chunk))
         params = ", ".join(f"{k}={v}" for k, v in zip(("KD", "NO", "MR", "BN"), args))
         out.append((f"{m.group(1)}<{params}>{which}", int(regs.group(1)) if regs else -1,
                     spill))
     return out
+
+
+def cuda_core_instantiations(log_text: str) -> dict[str, int]:
+    """Instantiations of the CUDA-core attention body (md::attention_fwd)
+    in a ptxas -v report, by element type."""
+    types = re.findall(r"Compiling entry function '_ZN2md13attention_fwdI(f|13__nv_bfloat16)",
+                       log_text)
+    return {"fp32": types.count("f"), "bf16": types.count("13__nv_bfloat16")}
 
 
 # --------------------------------------------------------------------------
@@ -364,6 +380,42 @@ def check_kernels(frames: int, heads: int = 8):
             check("two_source_attention", K.two_source_attention(q, k, v, kb, vb),
                   K.two_source_attention_ref(q, k, v, kb, vb), tol,
                   f"{str(dtype)[6:]} B={frames} S={s} D={d} bank_batch={frames}")
+
+    # the video serving path's bank reads: 16 frames and a batch-1 bank, 5
+    # launches per video DDIM step at each site. The plain version runs two
+    # frames at a time: one call at 16 x 4096 would hold tens of GiB of
+    # logits, and under a batch-1 bank the frames are independent.
+    vframes, chunk = 16, 2
+    for s, d in ((4096, 40), (1024, 80), (256, 160)):
+        q, k, v = (rnd(vframes, s, heads, d, dtype=torch.bfloat16) for _ in range(3))
+        kb, vb = (rnd(1, s, heads, d, dtype=torch.bfloat16) for _ in range(2))
+        args = (q, k, v, kb, vb)
+
+        def plain_by_frames():
+            return torch.cat([K.two_source_attention_ref(q[i:i + chunk], k[i:i + chunk],
+                                                         v[i:i + chunk], kb, vb)
+                              for i in range(0, vframes, chunk)])
+
+        check("two_source_attention", K.two_source_attention(*args), plain_by_frames(),
+              BF16_TOL, f"bfloat16 video B={vframes} S={s} D={d} bank_batch=1")
+        ms = device_time_ms(lambda: K.two_source_attention(*args))
+        plain_ms = device_time_ms(plain_by_frames, min_total_s=0.1, max_iters=3)
+        qh = q.transpose(1, 2)
+        kh = torch.cat([k, kb.expand(vframes, -1, -1, -1)], dim=1).transpose(1, 2)
+        vh = torch.cat([v, vb.expand(vframes, -1, -1, -1)], dim=1).transpose(1, 2)
+        lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+        kv = [(vframes, s), (1, s)]
+        bound, bound_by = attention_bound_ms(vframes, s, heads, d, kv)
+        exp_ms = exp_bound_ms(vframes, s, heads, kv)
+        rows.append(dict(kernel="two_source_attention", path="video serving", B=vframes, S=s,
+                         D=d, H=heads, bank_batch=1, launches_per_step=5, kernel_ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                         bound_by=bound_by, exp_bound_ms=exp_ms))
+        log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (by {chunk} frames) "
+            f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
+            f"exp_bound_ms={exp_ms:.4f} x5/video step")
+        del q, k, v, kb, vb, args, kh, vh
+        torch.cuda.empty_cache()
 
     # layouts and edges the main path does not show: a BSNH view of a
     # (B, H, S, D) tensor, a ragged length, a per-frame bank of another length
@@ -1717,12 +1769,16 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
             lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                                            attn_mask=allowed))
             bound, by = gated_bound_ms(b, s, heads, d, s, s, gates)
+            # exponentials: every row's self logits, the bank's only where the gate is open
+            exp_ms = (exp_bound_ms(b, s, heads, [(b, s)])
+                      + exp_bound_ms(sum(1 for g in gates if g != 0), s, heads, [(1, s)]))
             rows.append(dict(kernel="two_source_attention_gated", B=b, S=s, D=d, H=heads,
                              gates=list(gates), launches_per_step=fused_plan.get((s, d), 0),
                              kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound, bound_by=by))
+                             bound_ms=bound, bound_by=by, exp_bound_ms=exp_ms))
             log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bound:.4f} ({by}) x{fused_plan.get((s, d), 0)}/step")
+                f"bound_ms={bound:.4f} ({by}) exp_bound_ms={exp_ms:.4f} "
+                f"x{fused_plan.get((s, d), 0)}/step")
             del q, k, v, kb, vb, args, kh, vh
             torch.cuda.empty_cache()
 
@@ -1756,11 +1812,14 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
                 kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
                 lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
                 bound, by = attention_bound_ms(frames, 4096, heads, 40, kv)
+                exp_ms = exp_bound_ms(frames, 4096, heads, kv)
                 rows.append(dict(kernel=name, B=frames, S=4096, S_k=sk, D=40, H=heads,
                                  pooled=p, launches_per_step=0, kernel_ms=ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms, bound_ms=bound, bound_by=by))
+                                 library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                                 exp_bound_ms=exp_ms))
                 log(f"      {name} pooled {p}x{p}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by})")
+                    f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by}) "
+                    f"exp_bound_ms={exp_ms:.4f}")
             del q, k, v, kb, vb
             torch.cuda.empty_cache()
     return rows, errs, checked
@@ -2140,6 +2199,14 @@ def main(argv=None) -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
         for inst, nreg, spill in tc_instantiations(text):
             log(f"    {inst}: {nreg} registers, {spill} spill bytes")
+        core = cuda_core_instantiations(text)
+        if sum(core.values()):
+            log(f"    CUDA-core body (attention_fwd): {core['fp32']} fp32, {core['bf16']} bf16 "
+                "instantiations")
+        # bf16 kernels A and B run only on the tensor cores
+        if name in ("self_attention", "two_source_attention") and core["bf16"]:
+            raise AssertionError(f"{name}: {core['bf16']} bf16 instantiations of the "
+                                 "CUDA-core body")
 
     log("== phase 3: kernels vs plain versions")
     rows, errs, ratios, checked = check_kernels(frames)
@@ -2303,9 +2370,11 @@ def main(argv=None) -> int:
         if name.startswith("grouped"):
             main_rows = [r for r in grouped_rows if r["mode"] in meta["modes"]]
             serving, training = (main_rows, []) if name == "grouped_attention" else ([], main_rows)
+            video_rows = []
             err, n_checked = grouped_errs[name], grouped_checked[name]
         else:
-            serving = [r for r in rows if r["kernel"] == name]
+            serving = [r for r in rows if r["kernel"] == name and "path" not in r]
+            video_rows = [r for r in rows if r["kernel"] == name and "path" in r]
             training = [r for r in train_rows if r["mode"] in meta["modes"]]
             main_rows = serving if serving else training
             err = max(errs.get(name, 0.0), train_errs[name], fused_errs.get(name, 0.0),
@@ -2327,6 +2396,14 @@ def main(argv=None) -> int:
             entry["max_err_over_rms"] = ratios[name]
         if all("exp_bound_ms" in r for r in main_rows):
             entry["exp_bound_ms"] = per_step(main_rows, "exp_bound_ms")
+        if video_rows:
+            entry["video_step"] = dict(
+                ms=per_step(video_rows, "kernel_ms"), plain_ms=per_step(video_rows, "plain_ms"),
+                bound_ms=per_step(video_rows, "bound_ms"),
+                exp_bound_ms=per_step(video_rows, "exp_bound_ms"),
+                library_ms=per_step(video_rows, "library_ms"), bound_by=bound_by(video_rows),
+                per="one DDIM step of the video serving path (16 frames), the bank reads' "
+                    "launches")
         if serving and training:
             entry["training_step"] = dict(
                 ms=per_step(training, "kernel_ms"), plain_ms=per_step(training, "plain_ms"),

@@ -1,8 +1,8 @@
-// Shared body of the port's two attention kernels (self_attention.cu and
-// two_source_attention.cu): a flash-style forward pass with an online
-// (FA2-style) softmax over K/V tiles staged in shared memory; also the tile
-// loader and helpers that the backward kernels (attention_dq.cu,
-// attention_dkv.cu) use.
+// CUDA-core body of the port's two attention kernels (self_attention.cu and
+// two_source_attention.cu) in fp32: a flash-style forward pass with an online
+// (FA2-style) softmax over K/V tiles staged in shared memory; also the
+// launch parameters of every attention kernel, and the tile loader and
+// helpers that the backward kernels (attention_dq.cu, attention_dkv.cu) use.
 //
 // Forward with log-sum-exp (training). Given an `lse` pointer, the same pass
 // also writes each query row's m + log(l) in fp32 to lse[(b * H + h) * Sq +
@@ -25,6 +25,13 @@
 //                               max and one running denominator per row. A
 //                               batch-1 bank is read through batch stride 0.
 //
+// Which body runs where. This CUDA-core body serves fp32 kernels A and B;
+// the backward kernels C and D use its tile loader and helpers. bf16 A and
+// B (every mode: two sources, the LSE, gated) run the tensor-core kernel
+// attention_tc of attention_mma.cuh, which takes the Params and Source
+// below; fp32 stays here because on the tensor cores it would be TF32, and
+// the fp32 paths are the card-vs-CPU checks.
+//
 // What bounds it on an H100. At the main path's shapes (S = 4096/1024/256,
 // D = 40/80/160) attention does 4*S*S*D operations per (batch, head) on
 // 4*S*D elements of input and output, i.e. roughly S/2 operations per byte
@@ -34,17 +41,15 @@
 // K+V of one head at the S = 4096 bank read is ~1.3 MB, so this kernel
 // streams 64-key tiles and keeps the softmax statistics online.
 //
-// What the design does about it (first, simple version). One block of 256
-// threads owns one (batch, head, 64-query tile). Q, the K tile and the V tile
-// are converted to fp32 in shared memory (rows padded to an odd stride so the
-// column reads of K hit 32 different banks); each thread computes a 4x4
-// block of the 64x64 logits tile with fp32 FMAs, four threads per row keep
-// the online max/denominator, and each thread accumulates a 4 x (16*DJ) slab
-// of the output in registers. Logits, softmax and accumulation are fp32 for
-// bf16 and fp32 inputs alike; the output is written in the input type. The
-// products run on the CUDA cores, not the tensor cores. This body serves
-// kernel B (both types) and fp32 kernel A; bf16 kernel A runs the
-// tensor-core tile routine of attention_mma.cuh.
+// What the design does about it (the first, simple version, kept for fp32).
+// One block of 256 threads owns one (batch, head, 64-query tile). Q, the K
+// tile and the V tile are converted to fp32 in shared memory (rows padded to
+// an odd stride so the column reads of K hit 32 different banks); each
+// thread computes a 4x4 block of the 64x64 logits tile with fp32 FMAs, four
+// threads per row keep the online max/denominator, and each thread
+// accumulates a 4 x (16*DJ) slab of the output in registers. Logits,
+// softmax and accumulation are fp32. The products run on the CUDA cores,
+// not the tensor cores.
 
 #pragma once
 
@@ -344,18 +349,6 @@ cudaError_t dispatch_dj(int D, F& f) {
 }
 
 inline bool head_dim_ok(int D) { return D >= 8 && D <= 256 && D % 8 == 0; }
-
-// dtype: 0 = float32, 1 = bfloat16.
-template <int NSRC>
-cudaError_t launch_typed(int dtype, const Params& p, int B, cudaStream_t stream) {
-  if (p.D < 8 || p.D > 256 || p.D % 8 != 0 || p.Sq < 1 || B < 1 || p.H < 1)
-    return cudaErrorInvalidValue;
-  for (int s = 0; s < NSRC; ++s)
-    if (p.src[s].len < 1) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_d<float, NSRC>(p, B, stream);
-  if (dtype == 1) return launch_d<__nv_bfloat16, NSRC>(p, B, stream);
-  return cudaErrorInvalidValue;
-}
 
 }  // namespace md
 

@@ -1,8 +1,9 @@
 // Tensor-core tile routine and kernel (attention_tc, at the end) of the
-// bf16 attention kernels: kernel A's bf16 body (self_attention.cu) and
-// kernel K9, head-packed attention (packed_attention.cu), which is kernel A
-// over G key segments. fp32 A and kernel B stay on the CUDA-core body of
-// attention_common.cuh.
+// bf16 attention kernels: kernel A's bf16 body (self_attention.cu), kernel
+// B's bf16 body in all its modes (two_source_attention.cu: two sources,
+// with the LSE output, gated) and kernel K9, head-packed attention
+// (packed_attention.cu), which is kernel A over G key segments. fp32 A and
+// B stay on the CUDA-core body of attention_common.cuh, fp32 K9 on its own.
 //
 // One block of 4 warps owns 64 * MR query rows; each warp owns MR row
 // tiles of 16 (MR = 2 lets two row tiles share every K and V fragment read
@@ -211,11 +212,14 @@ __device__ __forceinline__ void qk_tile(float (&s)[MR][BN / 8][4], uint32_t q_ad
 // past `nk` are masked; the row max and the rescale factor are shared by
 // the quad, the sums stay per lane until the end. Writes P = exp2(s * c - m)
 // as bf16 pairs laid out as the A fragments of the PV product (k-step kk
-// holds key n-tiles 2kk and 2kk + 1), so the fp32 logits die here.
-template <int NO, int BN>
+// holds key n-tiles 2kk and 2kk + 1), so the fp32 logits die here. GATE:
+// P is multiplied by `gate` after the exp, before it enters the row sum and
+// is rounded to bf16; the max stays over the unscaled logits.
+template <int NO, int BN, bool GATE>
 __device__ __forceinline__ void softmax_rows(float (&s)[BN / 8][4], uint32_t (&pa)[BN / 16][4],
                                              float (&m)[2], float (&l)[2],
-                                             float (&acc)[NO][4], float scale_log2, int nk) {
+                                             float (&acc)[NO][4], float scale_log2, int nk,
+                                             float gate) {
   if (nk < BN) {
     const int c0 = 2 * (threadIdx.x & 3);
 #pragma unroll
@@ -246,6 +250,7 @@ __device__ __forceinline__ void softmax_rows(float (&s)[BN / 8][4], uint32_t (&p
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
       s[j][e] = ex2(fmaf(s[j][e], scale_log2, -m[i]));  // masked: exp2(-inf) = 0
+      if (GATE) s[j][e] *= gate;
       l[i] += s[j][e];
     }
     pa[j >> 1][2 * (j & 1)] = pack_bf16x2(s[j][0], s[j][1]);
@@ -260,13 +265,14 @@ __device__ __forceinline__ void softmax_rows(float (&s)[BN / 8][4], uint32_t (&p
   }
 }
 
-template <int NO, int MR, int BN>
+template <int NO, int MR, int BN, bool GATE>
 __device__ __forceinline__ void softmax_tile(float (&s)[MR][BN / 8][4],
                                              uint32_t (&pa)[MR][BN / 16][4],
-                                             RowState<NO, MR>& st, float scale_log2, int nk) {
+                                             RowState<NO, MR>& st, float scale_log2, int nk,
+                                             float gate) {
 #pragma unroll
   for (int r = 0; r < MR; ++r)
-    softmax_rows<NO, BN>(s[r], pa[r], st.m[r], st.l[r], st.acc[r], scale_log2, nk);
+    softmax_rows<NO, BN, GATE>(s[r], pa[r], st.m[r], st.l[r], st.acc[r], scale_log2, nk, gate);
 }
 
 // acc += P V: P (16 x BN per row tile, bf16 -- the Pallas kernels cast P
@@ -357,17 +363,29 @@ inline size_t smem_bytes_tc() {
   return sizeof(bf16) * (size_t)Tile<KD>::LDS * (64 * MR + 4 * BN);
 }
 
-// The kernel of bf16 kernel A (PACKED = false) and of K9 (PACKED = true).
+// What attention_tc computes, by its MODE:
+//   SELF        kernel A: softmax(q k^T * scale) v over the keys of src[0];
+//   TWO_SOURCE  kernel B: one joint softmax over the keys of src[0] (self)
+//               and then of src[1] (the bank), one running (m, l, acc);
+//   GATED       kernel B gated: as TWO_SOURCE, with the bank's probabilities
+//               of batch row b multiplied by p.gate[b] after the exp, inside
+//               the joint max and denominator; a row gated by exactly 0 walks
+//               the self tiles only, and no copy of a bank tile is issued;
+//   PACKED      K9: the keys of src[0] are nseg segments of src[0].len rows,
+//               one after another, each with a softmax of its own.
+enum Mode : int { SELF = 0, TWO_SOURCE = 1, GATED = 2, PACKED = 3 };
+
 // One block: 64 * MR query rows of one (batch, head); 4 warps of MR row
-// tiles of 16; keys in tiles of BN through a two-stage ring. The keys of
-// src[0] are `nseg` segments of src[0].len rows, one after another, each
-// with a softmax of its own; a key tile never straddles a segment (each
-// segment's tiles start at its first key, its ragged edge is masked).
-// Kernel A has one segment and writes acc / l, and the LSE when asked; K9
-// adds each segment's acc / l into an fp32 output accumulator at the
-// segment's end.
-template <int KD, int NO, int MR, int BN, bool PACKED>
+// tiles of 16; keys in tiles of BN through a two-stage ring. A key tile never
+// straddles a source or a segment: each starts at its first key and masks its
+// ragged edge, and the prefetch of tile t + 1 reads its own source's
+// pointers and strides. A, B write acc / l, and the LSE when asked (B's over
+// both sources); K9 adds each segment's acc / l into an fp32 output
+// accumulator at the segment's end.
+template <int KD, int NO, int MR, int BN, int MODE>
 __global__ void __launch_bounds__(NT) attention_tc(const Params p, const int nseg) {
+  constexpr bool TWO = MODE == TWO_SOURCE || MODE == GATED;
+  constexpr bool PACK = MODE == PACKED;
   constexpr int LDS = Tile<KD>::LDS;
   constexpr int KV = BN * LDS;  // elements of one K or V stage
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -381,22 +399,35 @@ __global__ void __launch_bounds__(NT) attention_tc(const Params p, const int nse
   const long long b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const Source src = p.src[0];
+  const Source s0 = p.src[0];
+  const Source s1 = p.src[TWO ? 1 : 0];
   const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh +
                    (long long)q0 * p.q_ss;
-  const bf16* kb = static_cast<const bf16*>(src.k) + b * src.k_sb + h * src.k_sh;
-  const bf16* vb = static_cast<const bf16*>(src.v) + b * src.v_sb + h * src.v_sh;
-  // tile t covers keys [g * len + j * BN, ...) of segment g = t / tps, j = t % tps
-  const int tps = (src.len + BN - 1) / BN;
-  const int ntiles = (PACKED ? nseg : 1) * tps;
-  auto seg = [&](int t) { return PACKED ? t / tps : 0; };
-  auto tile_in_seg = [&](int t) { return PACKED ? t % tps : t; };
-  auto valid_keys = [&](int t) { return min(BN, src.len - tile_in_seg(t) * BN); };
+  const bf16* kb0 = static_cast<const bf16*>(s0.k) + b * s0.k_sb + h * s0.k_sh;
+  const bf16* vb0 = static_cast<const bf16*>(s0.v) + b * s0.v_sb + h * s0.v_sh;
+  const bf16* kb1 = static_cast<const bf16*>(s1.k) + b * s1.k_sb + h * s1.k_sh;
+  const bf16* vb1 = static_cast<const bf16*>(s1.v) + b * s1.v_sb + h * s1.v_sh;
+  const float gate = MODE == GATED ? p.gate[b] : 1.f;
+  // tiles per segment of src[0]; B's bank tiles follow the self tiles
+  const int tps = (s0.len + BN - 1) / BN;
+  const int bank_tiles = TWO && gate != 0.f ? (s1.len + BN - 1) / BN : 0;
+  const int ntiles = (PACK ? nseg : 1) * tps + bank_tiles;
+  auto in_bank = [&](int t) { return TWO && t >= tps; };
+  auto tile_in_seg = [&](int t) { return PACK ? t % tps : (in_bank(t) ? t - tps : t); };
+  auto valid_keys = [&](int t) {
+    return min(BN, (in_bank(t) ? s1.len : s0.len) - tile_in_seg(t) * BN);
+  };
   auto load_kv = [&](int t) {
-    const long long k0 = (long long)seg(t) * src.len + tile_in_seg(t) * BN;
+    const bool bank = in_bank(t);
+    const long long k0 = (PACK ? (long long)(t / tps) * s0.len : 0LL) +
+                         (long long)tile_in_seg(t) * BN;
+    const long long k_ss = bank ? s1.k_ss : s0.k_ss;
+    const long long v_ss = bank ? s1.v_ss : s0.v_ss;
     const int stage = t & 1;
-    load_tile_async<LDS, BN>(Ks + stage * KV, kb + k0 * src.k_ss, src.k_ss, valid_keys(t), D);
-    load_tile_async<LDS, BN>(Vs + stage * KV, vb + k0 * src.v_ss, src.v_ss, valid_keys(t), D);
+    load_tile_async<LDS, BN>(Ks + stage * KV, (bank ? kb1 : kb0) + k0 * k_ss, k_ss,
+                             valid_keys(t), D);
+    load_tile_async<LDS, BN>(Vs + stage * KV, (bank ? vb1 : vb0) + k0 * v_ss, v_ss,
+                             valid_keys(t), D);
   };
 
   zero_pad_columns<KD>(Qs, 64 * MR + 4 * BN, D);  // Q, K, V rows are contiguous
@@ -409,7 +440,7 @@ __global__ void __launch_bounds__(NT) attention_tc(const Params p, const int nse
   const float scale_log2 = p.scale * LOG2E;
   RowState<NO, MR> st;
   st.reset();
-  float out[PACKED ? MR : 1][PACKED ? NO : 1][4] = {};  // K9's sum over segments
+  float out[PACK ? MR : 1][PACK ? NO : 1][4] = {};  // K9's sum over segments
 
   for (int t = 0; t < ntiles; ++t) {
     cp_async_wait<0>();  // tile t (and Q) have landed
@@ -420,9 +451,10 @@ __global__ void __launch_bounds__(NT) attention_tc(const Params p, const int nse
     float s[MR][BN / 8][4];
     uint32_t pa[MR][BN / 16][4];
     qk_tile<KD, MR, BN>(s, q_addr, smem_u32(Ks + stage * KV) + la.k);
-    softmax_tile<NO, MR, BN>(s, pa, st, scale_log2, valid_keys(t));
+    softmax_tile<NO, MR, BN, MODE == GATED>(s, pa, st, scale_log2, valid_keys(t),
+                                            in_bank(t) ? gate : 1.f);
     pv_tile<KD, NO, MR, BN>(st, pa, smem_u32(Vs + stage * KV) + la.v);
-    if constexpr (PACKED) {
+    if constexpr (PACK) {
       if (tile_in_seg(t) == tps - 1) {  // the segment ends: add its normalised output
 #pragma unroll
         for (int r = 0; r < MR; ++r) {
@@ -442,7 +474,7 @@ __global__ void __launch_bounds__(NT) attention_tc(const Params p, const int nse
 #pragma unroll
   for (int r = 0; r < MR; ++r) {
     const int row0 = (warp * MR + r) * 16 + (lane >> 2);
-    if constexpr (PACKED) {
+    if constexpr (PACK) {
       const float one[2] = {1.f, 1.f};
       store_rows<NO>(ob, p.o_ss, row0, p.Sq - q0, D, out[r], one);
     } else {
@@ -462,17 +494,37 @@ __global__ void __launch_bounds__(NT) attention_tc(const Params p, const int nse
 }
 
 // Launch attention_tc over B x p.H x the query row blocks.
-template <int KD, int NO, int MR, int BN, bool PACKED>
+template <int KD, int NO, int MR, int BN, int MODE>
 cudaError_t launch_tc(const Params& p, int nseg, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes_tc<KD, MR, BN>();
-  cudaError_t err = cudaFuncSetAttribute(attention_tc<KD, NO, MR, BN, PACKED>,
+  cudaError_t err = cudaFuncSetAttribute(attention_tc<KD, NO, MR, BN, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + block_rows<MR>() - 1) / block_rows<MR>(), p.H, B);
-  attention_tc<KD, NO, MR, BN, PACKED><<<grid, NT, smem, stream>>>(p, nseg);
+  attention_tc<KD, NO, MR, BN, MODE><<<grid, NT, smem, stream>>>(p, nseg);
   return cudaGetLastError();
 }
+
+// Kernels A and B (MODE SELF, TWO_SOURCE or GATED) through dispatch_no.
+// Two row tiles per warp at D <= 48, and for B up to D = 80; wider heads
+// keep one (two sets of their accumulators would not fit the registers). At
+// D = 80 two row tiles take 255 registers: B, with twice A's keys per
+// block, runs 1.1-1.5x faster so; A spills and its batch-1 launch (64
+// blocks on 132 SMs) runs slower (PERF.md). D > 160: 64-key tiles, so that
+// two stages of K and V fit in shared memory.
+template <int MODE>
+struct AttentionLaunch {
+  const Params& p;
+  int B;
+  cudaStream_t stream;
+  template <int KD, int NO>
+  cudaError_t run() {
+    constexpr int MR = NO <= (MODE == SELF ? 6 : 10) ? 2 : 1;
+    constexpr int BN = KD <= 10 ? 128 : 64;
+    return launch_tc<KD, NO, MR, BN, MODE>(p, 1, B, stream);
+  }
+};
 
 }  // namespace tc
 }  // namespace md

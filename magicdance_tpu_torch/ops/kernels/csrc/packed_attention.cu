@@ -48,7 +48,7 @@ struct PackedLaunch {
   cudaStream_t stream;
   template <int KD, int NO>
   cudaError_t run() {
-    return launch_tc<KD, NO, 1, 64, true>(p, G, BG, stream);
+    return launch_tc<KD, NO, 1, 64, PACKED>(p, G, BG, stream);
   }
 };
 

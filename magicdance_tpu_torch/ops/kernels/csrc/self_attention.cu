@@ -35,27 +35,6 @@
 
 #include "attention_mma.cuh"
 
-namespace md {
-namespace tc {
-
-struct SelfLaunch {
-  const Params& p;
-  int B;
-  cudaStream_t stream;
-  template <int KD, int NO>
-  cudaError_t run() {
-    // D <= 48: two row tiles per warp; wider heads keep one (two sets of
-    // their accumulators would not fit the registers). D > 160: 64-key
-    // tiles, so that two stages of K and V fit in shared memory.
-    constexpr int MR = NO <= 6 ? 2 : 1;
-    constexpr int BN = KD <= 10 ? 128 : 64;
-    return launch_tc<KD, NO, MR, BN, false>(p, 1, B, stream);
-  }
-};
-
-}  // namespace tc
-}  // namespace md
-
 extern "C" int md_self_attention(int dtype, const void* q, const void* k,
                                  const void* v, void* o, float* lse,
                                  const long long* strides, int B, int H, int D,
@@ -79,7 +58,7 @@ extern "C" int md_self_attention(int dtype, const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    md::tc::SelfLaunch f{p, B, st};
+    md::tc::AttentionLaunch<md::tc::SELF> f{p, B, st};
     return static_cast<int>(md::tc::dispatch_no(D, f));
   }
   if (dtype == 0) return static_cast<int>(md::launch_d<float, 1>(p, B, st));

@@ -2,8 +2,8 @@
 without their LSE output and B in its gated (bank_mask) mode, the backward
 kernels C (attention_dq) and D (attention_dkv), the grouped kernel G, the
 fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
-plain PyTorch versions, on the card. Kernel A runs its tensor-core body in
-bf16 and its CUDA-core body in fp32.
+plain PyTorch versions, on the card. Kernels A and B run their tensor-core
+body in bf16 and their CUDA-core body in fp32.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -84,15 +84,27 @@ def test_self_attention_bsnh_strided(cuda, dtype):
     _close(K.self_attention(q, k, v), K.self_attention_ref(q, k, v), dtype)
 
 
+def _rand_bshd(dev, b, s, h, d, dtype, seed, bsnh):
+    """A (B, S, H, D) operand; with `bsnh` a transposed view of a (B, H, S,
+    D) tensor, the layout of flash.py::_attn2_kernel_nomask."""
+    if bsnh:
+        return _rand(dev, b, h, s, d, dtype=dtype, seed=seed).transpose(1, 2)
+    return _rand(dev, b, s, h, d, dtype=dtype, seed=seed)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,sb,bb,d", [
-    (2, 4096, 4096, 1, 40), (2, 1024, 1024, 1, 80), (2, 256, 256, 1, 160),
-    (2, 1024, 1024, 2, 80), (3, 300, 200, 3, 48), (1, 256, 512, 1, 64),
+@pytest.mark.parametrize("b,s,sb,bb,d,bsnh", [
+    (2, 4096, 4096, 1, 40, False), (2, 1024, 1024, 1, 80, False),
+    (2, 256, 256, 1, 160, False), (2, 1024, 1024, 2, 80, False),
+    (3, 300, 200, 3, 48, False), (1, 256, 512, 1, 64, False),
+    (2, 256, 256, 1, 256, False),    # widest D: 64-key tiles, H = 2
+    (2, 4096, 4096, 1, 40, True),    # BSNH-strided operands and bank
+    (16, 1024, 1024, 1, 80, False),  # the video batch: 16 frames, one reference
 ])
-def test_two_source_matches_plain(cuda, dtype, b, s, sb, bb, d):
+def test_two_source_matches_plain(cuda, dtype, b, s, sb, bb, d, bsnh):
     h = 8 if d <= 160 else 2
-    q, k, v = (_rand(cuda, b, s, h, d, dtype=dtype, seed=i) for i in range(3))
-    kb, vb = (_rand(cuda, bb, sb, h, d, dtype=dtype, seed=10 + i) for i in range(2))
+    q, k, v = (_rand_bshd(cuda, b, s, h, d, dtype, i, bsnh) for i in range(3))
+    kb, vb = (_rand_bshd(cuda, bb, sb, h, d, dtype, 10 + i, bsnh) for i in range(2))
     _close(K.two_source_attention(q, k, v, kb, vb),
            K.two_source_attention_ref(q, k, v, kb, vb), dtype)
 
@@ -147,15 +159,18 @@ SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160),  # training site
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,d", SHAPES)
+@pytest.mark.parametrize("b,s,h,d,bsnh", [(*shape, False) for shape in SHAPES] + [
+    (2, 1024, 8, 80, True),    # BSNH-strided operands and bank
+    (16, 1024, 8, 80, False),  # a 16-frame clip (stage 3)
+])
 @pytest.mark.parametrize("bank", [None, 1, "B"])
-def test_forward_lse_matches_plain(cuda, dtype, b, s, h, d, bank):
-    q, k, v = (_rand(cuda, b, s, h, d, dtype=dtype, seed=i) for i in range(3))
+def test_forward_lse_matches_plain(cuda, dtype, b, s, h, d, bsnh, bank):
+    q, k, v = (_rand_bshd(cuda, b, s, h, d, dtype, i, bsnh) for i in range(3))
     if bank is None:
         got, want = V.self_attention_lse(q, k, v), V.self_attention_lse_ref(q, k, v)
     else:
         bb = b if bank == "B" else 1
-        kb, vb = (_rand(cuda, bb, s, h, d, dtype=dtype, seed=5 + i) for i in range(2))
+        kb, vb = (_rand_bshd(cuda, bb, s, h, d, dtype, 5 + i, bsnh) for i in range(2))
         got = V.two_source_attention_lse(q, k, v, kb, vb)
         want = V.two_source_attention_lse_ref(q, k, v, kb, vb)
     _close(got[0], want[0], dtype)
@@ -313,16 +328,17 @@ def test_grouped_dispatch_and_autograd(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,sk,d,gates", [
-    (4, 4096, 4096, 40, (1, 1, 0, 0)), (4, 1024, 1024, 80, (1, 1, 0, 0)),
-    (4, 256, 256, 160, (1, 1, 0, 0)), (2, 1024, 1024, 80, (0.5, 0)),
-    (4, 4096, 1024, 40, (1, 0.25, 0, 1)),  # pooled self keys (S_k = S / 4)
-    (3, 300, 200, 48, (0, 1, 0.5)),        # ragged tiles
+@pytest.mark.parametrize("b,s,sk,d,gates,bb", [
+    (4, 4096, 4096, 40, (1, 1, 0, 0), 1), (4, 1024, 1024, 80, (1, 1, 0, 0), 1),
+    (4, 256, 256, 160, (1, 1, 0, 0), 1), (2, 1024, 1024, 80, (0.5, 0), 1),
+    (4, 4096, 1024, 40, (1, 0.25, 0, 1), 1),  # pooled self keys (S_k = S / 4)
+    (3, 300, 200, 48, (0, 1, 0.5), 1),        # ragged tiles
+    (4, 256, 256, 160, (0.5, 1, 0, 0.25), 4),  # fractional gates, a bank per row
 ])
-def test_gated_two_source_matches_plain(cuda, dtype, b, s, sk, d, gates):
+def test_gated_two_source_matches_plain(cuda, dtype, b, s, sk, d, gates, bb):
     q = _rand(cuda, b, s, 8, d, dtype=dtype, seed=50)
     k, v = (_rand(cuda, b, sk, 8, d, dtype=dtype, seed=51 + i) for i in range(2))
-    kb, vb = (_rand(cuda, 1, s, 8, d, dtype=dtype, seed=53 + i) for i in range(2))
+    kb, vb = (_rand(cuda, bb, s, 8, d, dtype=dtype, seed=53 + i) for i in range(2))
     mask = torch.tensor(gates, dtype=torch.float32, device=cuda)
     K.reset_launches()
     got = K.two_source_attention(q, k, v, kb, vb, bank_mask=mask)
@@ -335,8 +351,9 @@ def test_gated_two_source_matches_plain(cuda, dtype, b, s, sk, d, gates):
             _close(got[row:row + 1], K.self_attention_ref(q[row:row + 1], k[row:row + 1],
                                                           v[row:row + 1]), dtype)
         elif g == 1:
+            rb = slice(0, 1) if bb == 1 else slice(row, row + 1)
             _close(got[row:row + 1], K.two_source_attention_ref(
-                q[row:row + 1], k[row:row + 1], v[row:row + 1], kb, vb), dtype)
+                q[row:row + 1], k[row:row + 1], v[row:row + 1], kb[rb], vb[rb]), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
