@@ -11,8 +11,9 @@ Phases, in order; every check raises, so any failure exits non-zero:
   2. build the CUDA kernels from ops/kernels/csrc (one nvcc per source, all
      at once) and print the build time and the ptxas resource report, with
      the registers and spill bytes of each tensor-core instantiation (the
-     bf16 bodies of kernels A, B, B gated and K9: `md::tc::attention_tc`)
-     and the CUDA-core instantiations by type (none in bf16 for A and B).
+     bf16 bodies of kernels A, B, B gated and K9: `md::tc::attention_tc`;
+     of C: `attention_dq_tc`; of D: `attention_dkv_tc`) and the CUDA-core
+     instantiations by type (none in bf16 for A, B, C and D).
   3. hold each kernel against its plain PyTorch version at every shape the
      main path gives it (kernels A and B run their tensor-core body in bf16
      and their CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the
@@ -41,7 +42,10 @@ Phases, in order; every check raises, so any failure exits non-zero:
      shape of the full-width stage-2 training step at B = 2, 512x512: the
      forward with LSE (kernels A/B) and kernels C (dQ) and D (dK/dV), for
      self-attention and bank reads with bank batch 2, in bf16 and fp32, plus
-     a batch-1 bank (frame-summed dK/dV), a ragged and a BSNH-strided case.
+     a batch-1 bank (frame-summed dK/dV), a ragged and a BSNH-strided case;
+     then C (two sources, a batch-1 bank) and D (self source) at every
+     (16, S, 8, D) of the stage-3 step (4 / 5 / 5 launches per step at S =
+     4096 / 1024 / 256), bf16, the plain versions run two frames at a time.
      Gates: o and LSE as phase 3; gradients fp32 <= 2e-4 x max(1, max
      |plain|), bf16 <= min(1e-1, 0.1 x the RMS of the plain gradient).
      Times kernel, plain version, library call (the backward of
@@ -118,7 +122,8 @@ Phases, in order; every check raises, so any failure exits non-zero:
      at (32, 4096, 6, 40) BSNH and their outputs must agree.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
   gated mode, K8 and K9, launches by path; kernel B's entry also sums its
-  16-frame rows per video DDIM step), the card line, the result line.
+  16-frame rows per video DDIM step, C's and D's their stage-3 rows per
+  stage-3 step), the card line, the result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -254,8 +259,10 @@ TC_MODES = {"0": " (kernel A)", "1": " (kernel B)", "2": " (kernel B gated)", "3
 
 def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
     """(kernel<KD, NO, MR, BN> (its kernel), registers, spill bytes) of each
-    tensor-core entry function in a ptxas -v report; the fifth template
-    argument of attention_tc is its mode (md::tc::Mode)."""
+    tensor-core entry function in a ptxas -v report: attention_tc, whose
+    fifth template argument is its mode (md::tc::Mode), attention_dq_tc
+    (kernel C; the fifth is its number of sources) and attention_dkv_tc
+    (kernel D)."""
     out = []
     for chunk in log_text.split("Compiling entry function '")[1:]:
         name = chunk.split("'", 1)[0]
@@ -263,7 +270,9 @@ def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
         if not m:
             continue
         args = re.findall(r"Li(\d+)E", m.group(2))
-        which = TC_MODES.get(args[4], "") if len(args) == 5 else ""
+        which = {"attention_tc": TC_MODES.get(args[4], "") if len(args) == 5 else "",
+                 "attention_dq_tc": f" (kernel C, {args[-1]} source(s))",
+                 "attention_dkv_tc": " (kernel D)"}.get(m.group(1), "")
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill", chunk))
         params = ", ".join(f"{k}={v}" for k, v in zip(("KD", "NO", "MR", "BN"), args))
@@ -272,10 +281,15 @@ def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
     return out
 
 
-def cuda_core_instantiations(log_text: str) -> dict[str, int]:
-    """Instantiations of the CUDA-core attention body (md::attention_fwd)
-    in a ptxas -v report, by element type."""
-    types = re.findall(r"Compiling entry function '_ZN2md13attention_fwdI(f|13__nv_bfloat16)",
+# the CUDA-core bodies of kernels A/B (attention_fwd), C and D, by library
+CUDA_CORE_BODIES = {"self_attention": "attention_fwd", "two_source_attention": "attention_fwd",
+                    "attention_dq": "attention_dq", "attention_dkv": "attention_dkv"}
+
+
+def cuda_core_instantiations(log_text: str, body: str) -> dict[str, int]:
+    """Instantiations of one CUDA-core body (md::<body>) in a ptxas -v
+    report, by element type."""
+    types = re.findall(rf"Compiling entry function '_ZN2md{len(body)}{body}I(f|13__nv_bfloat16)",
                        log_text)
     return {"fp32": types.count("f"), "bf16": types.count("13__nv_bfloat16")}
 
@@ -949,27 +963,43 @@ def stage3_launch_plan(cfg, image: int, clips: int) -> dict:
     for _, s, d in unet_sites(cn, latent, decoder=False):
         c[_self_mode(s, d, n)] += 1
     fwd = 2 if m.unet.remat else 1
-    grad = False
     for kind, s, x in unet_sites(m.unet, latent):
         if kind == "motion":
             k = _motion_launches(m.unet, s, x, clips, frames)
             c["grouped"] += fwd * k
             c["grouped_bwd"] += k
-            grad = True
-        elif _kernel_site(s, 2 * s, x) and grad:
-            c["two_source_attention_lse"] += fwd
-            c["attention_dq_two_source"] += 1
-            c["attention_dkv"] += 1
         elif _kernel_site(s, 2 * s, x):
             c["two_source_attention"] += 1
+    grad = len(stage3_grad_sites(m, latent))
+    c["two_source_attention"] -= grad
+    c["two_source_attention_lse"] += fwd * grad
+    c["attention_dq_two_source"] += grad
+    c["attention_dkv"] += grad
     return {k: v for k, v in c.items() if k and v}
 
 
-def check_training_kernels(plan, batch: int = 2, heads: int = 8):
+def stage3_grad_sites(model_cfg, latent: int) -> list:
+    """(S, D) of each main-UNet bank read of a stage-3 step that needs a
+    gradient: every kernel site after the first motion module, whose input
+    depends on a trainable parameter. Each runs B with the LSE, C with two
+    sources (a batch-1 bank) and D on the self source."""
+    from magicdance_tpu_torch.ops.attention import _kernel_site
+
+    out, grad = [], False
+    for kind, s, x in unet_sites(model_cfg.unet, latent):
+        grad = grad or kind == "motion"
+        if kind == "spatial" and grad and _kernel_site(s, 2 * s, x):
+            out.append((s, x))
+    return out
+
+
+def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames: int = 16):
     """Phase 7: the LSE forward and kernels C/D against their plain versions
     at every (S, D) of the training plan, self-attention and bank reads with
     bank batch `batch`, bf16 (timed) and fp32; plus a batch-1 bank, a ragged
-    and a BSNH-strided case."""
+    and a BSNH-strided case; then C (two sources, a batch-1 bank) and D (the
+    self source) at every (S, D) of the stage-3 step, `stage3` {(S, D):
+    launches per step}, on `frames` frames in bf16 (timed)."""
     import torch
     import torch.nn.functional as F
 
@@ -1090,6 +1120,67 @@ def check_training_kernels(plan, batch: int = 2, heads: int = 8):
                          for _ in range(4))
         run_case(q, k, v, dout, None, None, f"{tag} BSNH-strided B=2 S=1024 D=80", False)
         del q, k, v, dout, kb, vb
+        torch.cuda.empty_cache()
+
+    # stage 3: a 16-frame clip reads one reference's bank. The plain versions
+    # run two frames at a time (phase 3's video rows): dQ and the self
+    # source's dK/dV of a frame depend on that frame (and the bank) alone.
+    chunk = 2
+    for (s, d), per_step in sorted(stage3.items(), reverse=True):
+        q, k, v, dout = (rnd(frames, s, heads, d, dtype=torch.bfloat16) for _ in range(4))
+        kb, vb = (rnd(1, s, heads, d, dtype=torch.bfloat16) for _ in range(2))
+
+        def by_frames(fn, *ts):
+            outs = [fn(*(t[i:i + chunk] for t in ts)) for i in range(0, frames, chunk)]
+            return (tuple(torch.cat(o) for o in zip(*outs)) if isinstance(outs[0], tuple)
+                    else torch.cat(outs))
+
+        _, lse = V.two_source_attention_lse(q, k, v, kb, vb)
+        out, lse_ref = by_frames(lambda q_, k_, v_: V.two_source_attention_lse_ref(
+            q_, k_, v_, kb, vb), q, k, v)
+        label = f"bfloat16 stage 3 B={frames} S={s} D={d} bank_batch=1"
+        check("two_source_attention", lse, lse_ref, f"{label} lse", grad=False)
+        delta = V.attention_delta(dout, out)
+        del out, lse_ref
+
+        def dq_kern():
+            return V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb)
+
+        def dq_plain():
+            return by_frames(lambda q_, k_, v_, do_, l_, d_: V.attention_dq_ref(
+                q_, k_, v_, do_, l_, d_, None, kb, vb), q, k, v, dout, lse, delta)
+
+        def dkv_kern():
+            return V.attention_dkv(k, v, q, dout, lse, delta)
+
+        def dkv_plain():
+            return by_frames(V.attention_dkv_ref, k, v, q, dout, lse, delta)
+
+        check("attention_dq", dq_kern(), dq_plain(), f"{label} dQ", grad=True)
+        for g_, w_, nm in zip(dkv_kern(), dkv_plain(), ("dK", "dV")):
+            check("attention_dkv", g_, w_, f"{label} {nm} (self source)", grad=True)
+        kh = torch.cat([k, kb.expand(frames, -1, -1, -1)], 1)
+        vh = torch.cat([v, vb.expand(frames, -1, -1, -1)], 1)
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kh, vh))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs)
+        g = dout.transpose(1, 2)
+        for kind, mode, kern, plain, kv in (
+                ("dq", "attention_dq_two_source", dq_kern, dq_plain, [(frames, s), (1, s)]),
+                ("dkv", "attention_dkv", dkv_kern, dkv_plain, [(frames, s)])):
+            ms = device_time_ms(kern)
+            plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=3)
+            lib = device_time_ms(lambda: torch.autograd.grad(
+                lib_out, [qs] if kind == "dq" else [ks, vs], g, retain_graph=True))
+            bound, bound_by = training_bound_ms(kind, frames, s, heads, d, kv)
+            rows.append(dict(mode=mode, kind=kind, path="stage 3", B=frames, S=s, D=d, H=heads,
+                             bank_batch=1 if kind == "dq" else None,
+                             launches_per_step=per_step, kernel_ms=ms, plain_ms=plain_ms,
+                             library_ms=lib, bound_ms=bound, bound_by=bound_by,
+                             exp_bound_ms=exp_bound_ms(frames, s, heads, kv)))
+            log(f"      {mode:25s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (by {chunk} "
+                f"frames) library_ms={lib:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                f"x{per_step}/stage-3 step")
+        del q, k, v, dout, kb, vb, lse, delta, kh, vh, qs, ks, vs, lib_out, g
         torch.cuda.empty_cache()
     return rows, errs, checked
 
@@ -2199,14 +2290,17 @@ def main(argv=None) -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
         for inst, nreg, spill in tc_instantiations(text):
             log(f"    {inst}: {nreg} registers, {spill} spill bytes")
-        core = cuda_core_instantiations(text)
-        if sum(core.values()):
-            log(f"    CUDA-core body (attention_fwd): {core['fp32']} fp32, {core['bf16']} bf16 "
-                "instantiations")
-        # bf16 kernels A and B run only on the tensor cores
-        if name in ("self_attention", "two_source_attention") and core["bf16"]:
+        body = CUDA_CORE_BODIES.get(name)
+        if body is None:
+            continue
+        core = cuda_core_instantiations(text, body)
+        log(f"    CUDA-core body ({body}): {core['fp32']} fp32, {core['bf16']} bf16 "
+            "instantiations")
+        # bf16 kernels A, B, C and D run only on the tensor cores
+        if core["bf16"] or not tc_instantiations(text):
             raise AssertionError(f"{name}: {core['bf16']} bf16 instantiations of the "
-                                 "CUDA-core body")
+                                 f"CUDA-core body, {len(tc_instantiations(text))} "
+                                 "tensor-core instantiations")
 
     log("== phase 3: kernels vs plain versions")
     rows, errs, ratios, checked = check_kernels(frames)
@@ -2223,12 +2317,18 @@ def main(argv=None) -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    from magicdance_tpu_torch.config import stage2_pose_control
+    from collections import Counter
+
+    from magicdance_tpu_torch.config import stage2_pose_control, stage3_motion
 
     train_cfg = stage2_pose_control()
     plan, _, _ = training_launch_plan(train_cfg.model, train_cfg.image_size // 8)
-    log("== phase 7: training kernels vs plain versions (full-width stage-2 shapes, B = 2)")
-    train_rows, train_errs, train_checked = check_training_kernels(plan, batch=frames)
+    s3_cfg = stage3_motion()
+    s3_sites = Counter(stage3_grad_sites(s3_cfg.model, s3_cfg.image_size // 8))
+    log("== phase 7: training kernels vs plain versions (full-width stage-2 shapes, B = 2; "
+        "C and D at the stage-3 shapes, 16 frames)")
+    train_rows, train_errs, train_checked = check_training_kernels(
+        plan, s3_sites, batch=frames, frames=s3_cfg.video_frames)
 
     log("== phase 8: small-input training reference")
     small_train = small_training_check()
@@ -2370,12 +2470,13 @@ def main(argv=None) -> int:
         if name.startswith("grouped"):
             main_rows = [r for r in grouped_rows if r["mode"] in meta["modes"]]
             serving, training = (main_rows, []) if name == "grouped_attention" else ([], main_rows)
-            video_rows = []
+            video_rows = stage3_rows = []
             err, n_checked = grouped_errs[name], grouped_checked[name]
         else:
             serving = [r for r in rows if r["kernel"] == name and "path" not in r]
             video_rows = [r for r in rows if r["kernel"] == name and "path" in r]
-            training = [r for r in train_rows if r["mode"] in meta["modes"]]
+            training = [r for r in train_rows if r["mode"] in meta["modes"] and "path" not in r]
+            stage3_rows = [r for r in train_rows if r["mode"] in meta["modes"] and "path" in r]
             main_rows = serving if serving else training
             err = max(errs.get(name, 0.0), train_errs[name], fused_errs.get(name, 0.0),
                       packed_errs.get(name, 0.0))
@@ -2404,6 +2505,14 @@ def main(argv=None) -> int:
                 library_ms=per_step(video_rows, "library_ms"), bound_by=bound_by(video_rows),
                 per="one DDIM step of the video serving path (16 frames), the bank reads' "
                     "launches")
+        if stage3_rows:
+            entry["stage3_step"] = dict(
+                ms=per_step(stage3_rows, "kernel_ms"), plain_ms=per_step(stage3_rows, "plain_ms"),
+                bound_ms=per_step(stage3_rows, "bound_ms"),
+                exp_bound_ms=per_step(stage3_rows, "exp_bound_ms"),
+                library_ms=per_step(stage3_rows, "library_ms"), bound_by=bound_by(stage3_rows),
+                per="one stage-3 training step (a 16-frame clip, a batch-1 bank; sum over its "
+                    "launches)")
         if serving and training:
             entry["training_step"] = dict(
                 ms=per_step(training, "kernel_ms"), plain_ms=per_step(training, "plain_ms"),

@@ -15,11 +15,18 @@
 // no atomics, a deterministic order, and none of the B-fold intermediate that
 // JAX materializes and reduces (_core2_bwd, flash_vjp.py:457-461).
 //
+// Two bodies. bf16 runs on the tensor cores: attention_dkv_tc of
+// attention_bwd_mma.cuh (K and V held in shared memory, Q/dO/lse/delta
+// tiles streamed through a cp.async ring, four mma.sync products per query
+// tile, P^T and dS^T packed to bf16 in registers). fp32 runs the CUDA-core
+// body below, whose products are exact fp32; it is compiled for fp32 only,
+// so no bf16 call can reach it.
+//
 // What bounds it on an H100: 8 * Sq * Skv * D operations per (batch, head)
 // (four products: k q^T, v dO^T, P^T dO, dS^T q) against ~6 * S * D input and
 // output elements -- bound by operations at S >= 256.
 //
-// Design (the simple, correct first version). One block of 256 threads owns
+// The CUDA-core body (fp32). One block of 256 threads owns
 // one (key batch, head, 64-key tile): its K and V stay in shared memory
 // (fp32), and dK and dV accumulate in fp32 registers (a 4 x (16 * DJ) slab
 // each per thread). The block streams the queries in 32-row tiles of Q and
@@ -27,7 +34,7 @@
 // of k q^T and v dO^T with fp32 FMAs, the block stages P^T and dS^T in
 // shared memory, and every thread adds its slab of P^T dO and dS^T q. At
 // D = 256 the tiles take 214 KB of the 227 KB a block may use (141 KB at
-// D = 160). Products run on the CUDA cores; tensor cores are later work.
+// D = 160).
 //
 // Plain C interface, loaded with ctypes. Strides are in elements:
 // strides[0..17] = k, v, q, dout, dk, dv, each (batch, row, head). lse and
@@ -35,32 +42,12 @@
 // the k/v batch strides are ignored and dk/dv hold the sum over the Bq query
 // batches). Returns cudaGetLastError() of the launch.
 
-#include "attention_common.cuh"
+#include "attention_bwd_mma.cuh"
 
 namespace md {
 
 constexpr int DKV_BK = 64;  // keys per block
 constexpr int DKV_BQ = 32;  // queries per streamed tile
-
-struct DkvParams {
-  const void* k;
-  const void* v;
-  const void* q;
-  const void* dout;
-  void* dk;
-  void* dv;
-  const float* lse;
-  const float* delta;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long q_sb, q_ss, q_sh;
-  long long do_sb, do_ss, do_sh;
-  long long dk_sb, dk_ss, dk_sh;
-  long long dv_sb, dv_ss, dv_sh;
-  int H, D, Sq, Sk, Bq;
-  int shared_bank;
-  float scale;
-};
 
 inline size_t dkv_smem_bytes(int D) {
   const int ld = D + 1;
@@ -263,8 +250,8 @@ extern "C" int md_attention_dkv(int dtype, const void* k, const void* v,
     return static_cast<int>(md::dispatch_dj(D, f));
   }
   if (dtype == 1) {
-    md::DkvLaunch<__nv_bfloat16> f{p, Bk, st};
-    return static_cast<int>(md::dispatch_dj(D, f));
+    md::tc::DkvTcLaunch f{p, Bk, st};
+    return static_cast<int>(md::tc::dispatch_no(D, f));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,47 +12,39 @@
 // in VMEM; this kernel reads the forward's per-row log-sum-exp and the
 // caller's delta instead, so it can stream K/V in tiles.
 //
+// Two bodies. bf16 runs on the tensor cores: attention_dq_tc of
+// attention_bwd_mma.cuh (FA2's dQ layout, three mma.sync products per key
+// tile, dS packed to bf16 in registers; that header says how and why C and
+// D stay two kernels). fp32 runs the CUDA-core body below, whose products
+// are exact fp32 (the card-vs-CPU checks and the fp32 paths need them); it
+// is compiled for fp32 only, so no bf16 call can reach it.
+//
 // What bounds it on an H100: 6 * Sq * Skv * D operations per (batch, head,
 // source) (three products: q k^T, dO v^T, dS k) against ~4 * S * D input and
 // output elements, i.e. far more operations than bytes at S >= 256 -- bound by
 // operations.
 //
-// Design (the simple, correct first version). One block of 256 threads owns
+// The CUDA-core body (fp32). One block of 256 threads owns
 // one (batch, head, 64-query tile): Q and dO of the tile, its LSE and delta
 // stay in shared memory (fp32) for the whole pass. The block streams the self
 // source's K/V in 32-key tiles, then the bank's (a batch-1 bank is read with
 // batch stride 0). Per tile each thread computes a 4 x 2 patch of the logits
-// and of dP with fp32 FMAs, forms dS (rounded to the input type, as the JAX
-// kernel casts dS before the dS k product), and accumulates a 4 x (16 * DJ)
+// and of dP with fp32 FMAs, forms dS, and accumulates a 4 x (16 * DJ)
 // slab of dQ in fp32 registers. 32-key tiles keep Q, dO, K, V and dS under
 // the 227 KB of shared memory a block has up to D = 256 (206 KB there; 133 KB
-// at D = 160). Products run on the CUDA cores; tensor cores are later work.
+// at D = 160).
 //
 // Plain C interface, loaded with ctypes. Strides are in elements:
 // strides[0..20] = q, k_self, v_self, k_bank, v_bank, dout, dq, each
 // (batch, row, head). lse and delta: contiguous (B, H, Sq) fp32. nsrc = 1
 // ignores the bank arguments. Returns cudaGetLastError() of the launch.
 
-#include "attention_common.cuh"
+#include "attention_bwd_mma.cuh"
 
 namespace md {
 
 constexpr int DQ_BQ = 64;  // query rows per block
 constexpr int DQ_BK = 32;  // keys per streamed tile
-
-struct DqParams {
-  const void* q;
-  const void* dout;
-  void* dq;
-  const float* lse;
-  const float* delta;
-  long long q_sb, q_ss, q_sh;
-  long long do_sb, do_ss, do_sh;
-  long long dq_sb, dq_ss, dq_sh;
-  Source src[2];
-  int H, D, Sq;
-  float scale;
-};
 
 inline size_t dq_smem_bytes(int D) {
   const int ld = D + 1;
@@ -249,6 +241,11 @@ extern "C" int md_attention_dq(int dtype, int nsrc, const void* q,
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(md::dq_launch<float>(nsrc, p, B, st));
-  if (dtype == 1) return static_cast<int>(md::dq_launch<__nv_bfloat16>(nsrc, p, B, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nsrc == 1) {
+    md::tc::DqTcLaunch<1> f{p, B, st};
+    return static_cast<int>(md::tc::dispatch_no(D, f));
+  }
+  md::tc::DqTcLaunch<2> f{p, B, st};
+  return static_cast<int>(md::tc::dispatch_no(D, f));
 }

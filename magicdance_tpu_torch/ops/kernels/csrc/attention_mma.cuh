@@ -4,6 +4,8 @@
 // with the LSE output, gated) and kernel K9, head-packed attention
 // (packed_attention.cu), which is kernel A over G key segments. fp32 A and
 // B stay on the CUDA-core body of attention_common.cuh, fp32 K9 on its own.
+// The bf16 backward kernels C and D (attention_bwd_mma.cuh) are built from
+// the same tile routines (qk_tile, pv_tile, the loaders and the dispatch).
 //
 // One block of 4 warps owns 64 * MR query rows; each warp owns MR row
 // tiles of 16 (MR = 2 lets two row tiles share every K and V fragment read
@@ -277,9 +279,11 @@ __device__ __forceinline__ void softmax_tile(float (&s)[MR][BN / 8][4],
 
 // acc += P V: P (16 x BN per row tile, bf16 -- the Pallas kernels cast P
 // before the PV product too) from softmax_tile; V the tile in shared memory,
-// each fragment shared by the MR row tiles.
+// each fragment shared by the MR row tiles. The backward kernels
+// (attention_bwd_mma.cuh) use it for every product whose B operand is a
+// tile read as [BN rows][D columns]: dS K, P^T dO and dS^T Q.
 template <int KD, int NO, int MR, int BN>
-__device__ __forceinline__ void pv_tile(RowState<NO, MR>& st,
+__device__ __forceinline__ void pv_tile(float (&acc)[MR][NO][4],
                                         const uint32_t (&pa)[MR][BN / 16][4],
                                         uint32_t v_addr) {
   constexpr int LDS = Tile<KD>::LDS;
@@ -292,15 +296,15 @@ __device__ __forceinline__ void pv_tile(RowState<NO, MR>& st,
       ldsm_x4_t(b, row + p * 32);
 #pragma unroll
       for (int r = 0; r < MR; ++r) {
-        mma16816(st.acc[r][2 * p], pa[r][kk], b[0], b[1]);
-        mma16816(st.acc[r][2 * p + 1], pa[r][kk], b[2], b[3]);
+        mma16816(acc[r][2 * p], pa[r][kk], b[0], b[1]);
+        mma16816(acc[r][2 * p + 1], pa[r][kk], b[2], b[3]);
       }
     }
     if (NO & 1) {
       uint32_t b[2];
       ldsm_x2_t(b, row + (NO / 2) * 32);
 #pragma unroll
-      for (int r = 0; r < MR; ++r) mma16816(st.acc[r][NO - 1], pa[r][kk], b[0], b[1]);
+      for (int r = 0; r < MR; ++r) mma16816(acc[r][NO - 1], pa[r][kk], b[0], b[1]);
     }
   }
 }
@@ -453,7 +457,7 @@ __global__ void __launch_bounds__(NT) attention_tc(const Params p, const int nse
     qk_tile<KD, MR, BN>(s, q_addr, smem_u32(Ks + stage * KV) + la.k);
     softmax_tile<NO, MR, BN, MODE == GATED>(s, pa, st, scale_log2, valid_keys(t),
                                             in_bank(t) ? gate : 1.f);
-    pv_tile<KD, NO, MR, BN>(st, pa, smem_u32(Vs + stage * KV) + la.v);
+    pv_tile<KD, NO, MR, BN>(st.acc, pa, smem_u32(Vs + stage * KV) + la.v);
     if constexpr (PACK) {
       if (tile_in_seg(t) == tps - 1) {  // the segment ends: add its normalised output
 #pragma unroll

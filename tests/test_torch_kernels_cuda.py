@@ -2,8 +2,8 @@
 without their LSE output and B in its gated (bank_mask) mode, the backward
 kernels C (attention_dq) and D (attention_dkv), the grouped kernel G, the
 fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
-plain PyTorch versions, on the card. Kernels A and B run their tensor-core
-body in bf16 and their CUDA-core body in fp32.
+plain PyTorch versions, on the card. Kernels A, B, C and D run their
+tensor-core body in bf16 and their CUDA-core body in fp32.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -135,6 +135,14 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):  # bank batch neither 1 nor B
         big = _rand(cuda, 3, 256, 2, 40, dtype=torch.bfloat16, seed=1)
         K.two_source_attention(big[:2], big[:2], big[:2], big, big)
+    rows = torch.zeros(1, 2, 256, device=cuda)
+    q36 = q[..., :36]
+    with pytest.raises(ValueError):  # C and D: head dim not a multiple of 8
+        V.attention_dq(q36, q36, q36, q36, rows, rows)
+    with pytest.raises(ValueError):
+        V.attention_dkv(q36, q36, q36, q36, rows, rows)
+    with pytest.raises(ValueError):  # LSE rows of the wrong shape
+        V.attention_dq(q, q, q, q, rows[:, :1], rows)
 
 
 # --------------------------------------------------------------------------
@@ -178,11 +186,21 @@ def test_forward_lse_matches_plain(cuda, dtype, b, s, h, d, bsnh, bank):
     _close(got[1], want[1], torch.float32)
 
 
+# (b, s, h, d, bank, sb): bank None (self-attention), 1 (one reference read
+# by every frame) or "B" (a bank per frame), of length sb (None: s)
+BWD_CASES = [(*shape, bank, None) for shape in SHAPES for bank in (None, 1, "B")] + [
+    (16, 1024, 8, 80, 1, None),  # a 16-frame clip, one reference: bank dK/dV summed over 16
+    (16, 256, 8, 160, 1, None),  # the same at the D = 160 site
+    (3, 300, 4, 48, 1, 200),     # a bank shorter than the self keys; ragged tiles
+    (3, 300, 4, 48, "B", 200),
+    (2, 512, 2, 256, 1, None),   # widest D with a shared bank
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,d", SHAPES)
-@pytest.mark.parametrize("bank", [None, 1, "B"])
-def test_dq_and_dkv_match_plain(cuda, dtype, b, s, h, d, bank):
-    spec = None if bank is None else (b if bank == "B" else 1, s)
+@pytest.mark.parametrize("b,s,h,d,bank,sb", BWD_CASES)
+def test_dq_and_dkv_match_plain(cuda, dtype, b, s, h, d, bank, sb):
+    spec = None if bank is None else (b if bank == "B" else 1, sb or s)
     q, k, v, dout, kb, vb, lse, delta = _bwd_inputs(cuda, b, s, h, d, dtype, spec)
     _grad_close(V.attention_dq(q, k, v, dout, lse, delta, k_bank=kb, v_bank=vb),
                 V.attention_dq_ref(q, k, v, dout, lse, delta, k_bank=kb, v_bank=vb),
