@@ -12,8 +12,10 @@ Phases, in order; every check raises, so any failure exits non-zero:
      at once) and print the build time and the ptxas resource report, with
      the registers and spill bytes of each tensor-core instantiation (the
      bf16 bodies of kernels A, B, B gated and K9: `md::tc::attention_tc`;
-     of C: `attention_dq_tc`; of D: `attention_dkv_tc`) and the CUDA-core
-     instantiations by type (none in bf16 for A, B, C and D).
+     of C: `attention_dq_tc`; of D: `attention_dkv_tc`; of G's forward:
+     `grouped_tc`), of K8's two kernels (`md::gn::gn_stats`, `gn_apply`)
+     and the CUDA-core instantiations by type (none in bf16 for A, B, C, D
+     and G's forward).
   3. hold each kernel against its plain PyTorch version at every shape the
      main path gives it (kernels A and B run their tensor-core body in bf16
      and their CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the
@@ -70,7 +72,9 @@ Phases, in order; every check raises, so any failure exits non-zero:
      16-frame window at 512x512 ((h*w, 16, C) for C = 320, 640, 1280, 1280;
      bf16, timed against its bound and F.scaled_dot_product_attention on
      (h*w, H, 16, D) as the yardstick), one shape in fp32, one frame per clip
-     (S = 1) and a two-window batch; gates as phases 3 and 7.
+     (S = 1) and a two-window batch; gates as phases 3 and 7. The bf16
+     forward runs on the tensor cores (`grouped_tc`), the fp32 forward and
+     the backward on the CUDA cores.
   11. small-input video references on a narrow temporal model at 128x128:
      overlap sampling of F = 10 frames in windows of 4, stride 3, 3 steps of
      CFG 7, on the card (kernels A, B, G) and the CPU (plain versions) with
@@ -92,11 +96,14 @@ Phases, in order; every check raises, so any failure exits non-zero:
      (256, 160), a batch-1 bank, cond gates 1 and uncond gates 0, and one
      case with gates of 0.5), kernels A and B at the pooled self-key lengths
      of the turbo stacks (S_k = 1024 and 256 at S = 4096), and K8 (fused
-     GroupNorm+SiLU) at every (B, HW >= 256, C) where the appearance UNet,
-     the ControlNet and the main UNet call it, read from the model by
-     forward hooks; bf16 timed against the bound, the plain version and the
-     library call (SDPA over the concatenated keys with a boolean mask
-     hiding the bank from gate-0 rows; F.group_norm then F.silu).
+     GroupNorm+SiLU: a statistics kernel over row chunks in clusters of 8,
+     then the apply kernel) at every (B, HW >= 256, C) where the appearance
+     UNet, the ControlNet and the main UNet call it, read from the model by
+     forward hooks, and at the 16-frame video request's first level (16,
+     4096, 320); each K8 case runs twice and must give the same bits; bf16
+     timed against the bound, the plain version and the library call (SDPA
+     over the concatenated keys with a boolean mask hiding the bank from
+     gate-0 rows; F.group_norm then F.silu).
   15. narrow models at 128x128, card vs CPU in fp32, each held to its launch
      plan: a fused-CFG sample, bench.py's `turbo` and `turbo_max` stacks, the
      `turbo` stack through the overlap sampler (temporal model), and an exact
@@ -121,9 +128,10 @@ Phases, in order; every check raises, so any failure exits non-zero:
      slice's path, with the counts at 0 before it: P3 runs K9 and kernel A
      at (32, 4096, 6, 40) BSNH and their outputs must agree.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
-  gated mode, K8 and K9, launches by path; kernel B's entry also sums its
-  16-frame rows per video DDIM step, C's and D's their stage-3 rows per
-  stage-3 step), the card line, the result line.
+  gated mode, K8 and K9, launches by path, and each kernel's `body`: the
+  device functions that run it in bf16 and fp32; kernel B's entry also sums
+  its 16-frame rows per video DDIM step, C's and D's their stage-3 rows per
+  stage-3 step, K8's holds its video site), the card line, the result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -159,41 +167,58 @@ KERNELS = {
         replaces="magicdance_tpu/ops/pallas/flash.py:286 (_attn_kernel_fused); "
                  "magicdance_tpu/ops/pallas/flash.py:76 (_attn_kernel); "
                  "magicdance_tpu/ops/pallas/flash_vjp.py:71 (_fwd_lse_kernel)",
+        body="bf16: md::tc::attention_tc (tensor cores, mma.sync); fp32: md::attention_fwd (CUDA "
+             "cores)",
         modes=("self_attention", "self_attention_lse")),
     "two_source_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/two_source_attention.cu",
         replaces="magicdance_tpu/ops/pallas/flash.py:308 (_attn2_kernel_fused); "
                  "magicdance_tpu/ops/pallas/flash.py:97 (_attn2_kernel_nomask); "
                  "magicdance_tpu/ops/pallas/flash_vjp.py:89 (_fwd2_lse_kernel)",
+        body="bf16: md::tc::attention_tc (tensor cores, mma.sync); fp32: md::attention_fwd (CUDA "
+             "cores)",
         modes=("two_source_attention", "two_source_attention_lse")),
     "attention_dq": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/attention_dq.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:129 (_dq_kernel); "
                  "magicdance_tpu/ops/pallas/flash_vjp.py:153 (_dq2_kernel)",
+        body="bf16: md::tc::attention_dq_tc (tensor cores, mma.sync); fp32: md::attention_dq (CUDA "
+             "cores)",
         modes=("attention_dq", "attention_dq_two_source")),
     "attention_dkv": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/attention_dkv.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:202 (_dkv_kernel)",
+        body="bf16: md::tc::attention_dkv_tc (tensor cores, mma.sync); fp32: md::attention_dkv "
+             "(CUDA cores)",
         modes=("attention_dkv",)),
     "grouped_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/grouped_attention.cu",
         replaces="magicdance_tpu/ops/pallas/flash.py:366 (_grouped_attn_kernel)",
+        body="bf16: md::tc::grouped_tc (tensor cores, mma.sync, several (sequence, head) pairs a "
+             "block); fp32: md::grouped::grouped_fwd (CUDA cores)",
         modes=("grouped",)),
     "grouped_attention_bwd": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/grouped_attention_bwd.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:230 (_grouped_bwd_kernel)",
+        body="md::grouped::grouped_bwd (CUDA cores, both types)",
         modes=("grouped_bwd",)),
     "two_source_attention_gated": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/two_source_attention.cu",
         replaces="magicdance_tpu/ops/pallas/flash.py:135 (_attn2_kernel)",
+        body="bf16: md::tc::attention_tc GATED (tensor cores, mma.sync); fp32: md::attention_fwd "
+             "(CUDA cores)",
         modes=("two_source_attention_gated",)),
     "groupnorm_silu": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/groupnorm_silu.cu",
         replaces="magicdance_tpu/ops/pallas/groupnorm.py:31 (_gn_silu_kernel)",
+        body="md::gn::gn_stats (row chunks in clusters of 8, distributed shared memory) then "
+             "md::gn::gn_apply (programmatic dependent launch), 16-byte pieces, both types",
         modes=("groupnorm_silu",)),
     "packed_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/packed_attention.cu",
         replaces="scripts/bench_head_packing.py:97 (_packed_kernel)",
+        body="bf16: md::tc::attention_tc PACKED (tensor cores, mma.sync); fp32: its own CUDA-core "
+             "body",
         modes=("packed_attention",)),
 }
 TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
@@ -257,39 +282,61 @@ def exp_bound_ms(b, sq, h, kv) -> float:
 TC_MODES = {"0": " (kernel A)", "1": " (kernel B)", "2": " (kernel B gated)", "3": " (K9)"}
 
 
-def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
-    """(kernel<KD, NO, MR, BN> (its kernel), registers, spill bytes) of each
-    tensor-core entry function in a ptxas -v report: attention_tc, whose
-    fifth template argument is its mode (md::tc::Mode), attention_dq_tc
-    (kernel C; the fifth is its number of sources) and attention_dkv_tc
-    (kernel D)."""
-    out = []
+def _entry_chunks(log_text: str):
+    """(mangled name, registers, spill bytes) of each entry function in a
+    ptxas -v report."""
     for chunk in log_text.split("Compiling entry function '")[1:]:
-        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        yield (chunk.split("'", 1)[0], int(regs.group(1)) if regs else -1,
+               sum(int(w) for w in re.findall(r"(\d+) bytes spill", chunk)))
+
+
+def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
+    """(kernel<template arguments> (its kernel), registers, spill bytes) of
+    each tensor-core entry function in a ptxas -v report: attention_tc<KD,
+    NO, MR, BN, mode> (mode: md::tc::Mode), attention_dq_tc (kernel C; the
+    fifth argument is its number of sources), attention_dkv_tc (kernel D)
+    and grouped_tc<KD, NO, BN> (kernel G's bf16 forward)."""
+    out = []
+    for name, regs, spill in _entry_chunks(log_text):
         m = re.match(r"_ZN2md2tc\d+(\w+?_tc)I((?:Li\d+E)+)E", name)
         if not m:
             continue
         args = re.findall(r"Li(\d+)E", m.group(2))
         which = {"attention_tc": TC_MODES.get(args[4], "") if len(args) == 5 else "",
                  "attention_dq_tc": f" (kernel C, {args[-1]} source(s))",
-                 "attention_dkv_tc": " (kernel D)"}.get(m.group(1), "")
-        regs = re.search(r"Used (\d+) registers", chunk)
-        spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill", chunk))
-        params = ", ".join(f"{k}={v}" for k, v in zip(("KD", "NO", "MR", "BN"), args))
-        out.append((f"{m.group(1)}<{params}>{which}", int(regs.group(1)) if regs else -1,
-                    spill))
+                 "attention_dkv_tc": " (kernel D)",
+                 "grouped_tc": " (kernel G forward)"}.get(m.group(1), "")
+        names = ("KD", "NO", "BN") if m.group(1) == "grouped_tc" else ("KD", "NO", "MR", "BN")
+        params = ", ".join(f"{k}={v}" for k, v in zip(names, args))
+        out.append((f"{m.group(1)}<{params}>{which}", regs, spill))
     return out
 
 
-# the CUDA-core bodies of kernels A/B (attention_fwd), C and D, by library
+def gn_instantiations(log_text: str) -> list[tuple[str, int, int]]:
+    """(gn_stats or gn_apply<type, VEC>, registers, spill bytes) of K8's
+    entry functions (md::gn) in a ptxas -v report."""
+    out = []
+    for name, regs, spill in _entry_chunks(log_text):
+        m = re.match(r"_ZN2md2gn\d+(gn_\w+?)I(f|13__nv_bfloat16)Li(\d+)E", name)
+        if m:
+            dtype = "fp32" if m.group(2) == "f" else "bf16"
+            out.append((f"{m.group(1)}<{dtype}, VEC={m.group(3)}> (K8)", regs, spill))
+    return out
+
+
+# the CUDA-core bodies of kernels A/B (attention_fwd), C, D and G's forward
+# (grouped::grouped_fwd), by library
 CUDA_CORE_BODIES = {"self_attention": "attention_fwd", "two_source_attention": "attention_fwd",
-                    "attention_dq": "attention_dq", "attention_dkv": "attention_dkv"}
+                    "attention_dq": "attention_dq", "attention_dkv": "attention_dkv",
+                    "grouped_attention": "grouped::grouped_fwd"}
 
 
 def cuda_core_instantiations(log_text: str, body: str) -> dict[str, int]:
-    """Instantiations of one CUDA-core body (md::<body>) in a ptxas -v
-    report, by element type."""
-    types = re.findall(rf"Compiling entry function '_ZN2md{len(body)}{body}I(f|13__nv_bfloat16)",
+    """Instantiations of one CUDA-core body (md::<body>, `::` for a nested
+    namespace) in a ptxas -v report, by element type."""
+    mangled = "".join(f"{len(part)}{part}" for part in body.split("::"))
+    types = re.findall(rf"Compiling entry function '_ZN2md{mangled}I(f|13__nv_bfloat16)",
                        log_text)
     return {"fp32": types.count("f"), "bf16": types.count("13__nv_bfloat16")}
 
@@ -1952,12 +1999,20 @@ def groupnorm_sites(pipe, frames: int) -> list:
     return sorted(seen.items(), key=lambda kv: (-kv[0][1], kv[0][2], kv[0][0]))
 
 
+# the first level of the 16-frame video request under MAGICDANCE_FUSED_GN=1:
+# K8's largest input (B, HW, C, groups, eps), timed beside the image sites
+GN_VIDEO_SITE = (16, 4096, 320, 32, 1e-5)
+
+
 def check_groupnorm_kernel(sites, per_step: dict):
     """Phase 14b: K8 against its plain version at every GN+SiLU site of the
-    model (bf16, timed, and fp32). Bound: one read and one write of x over
-    the memory rate vs ~10 operations per element. Library: F.group_norm
-    then F.silu (two calls; no single PyTorch call computes it).
-    `per_step`: {(B, HW, C): launches per DDIM step under MAGICDANCE_FUSED_GN=1}."""
+    model and at GN_VIDEO_SITE (bf16, timed, and fp32), each run twice on
+    the same input and required to give the same bits (no atomics, no
+    order that depends on scheduling). Bound: one read and one write of x
+    over the memory rate vs ~10 operations per element. Library:
+    F.group_norm then F.silu (two calls; no single PyTorch call computes
+    it). `per_step`: {(B, HW, C): launches per DDIM step under
+    MAGICDANCE_FUSED_GN=1}; the video site's rows carry 0 and path "video"."""
     import torch
     import torch.nn.functional as F
 
@@ -1967,14 +2022,20 @@ def check_groupnorm_kernel(sites, per_step: dict):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(99)
     errs, checked, rows = {}, {}, []
-    for (b, hw, c, groups, eps), n_calls in sites:
+    for (b, hw, c, groups, eps), n_calls in list(sites) + [(GN_VIDEO_SITE, 0)]:
         w = torch.randn(c, generator=gen, device=dev) * 0.2 + 1
         bias = torch.randn(c, generator=gen, device=dev) * 0.2
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
             x = torch.randn(b, hw, c, generator=gen, device=dev).to(dtype)
             label = f"{str(dtype)[6:]} B={b} HW={hw} C={c} groups={groups} eps={eps:g}"
-            check(errs, checked, "groupnorm_silu", GN.groupnorm_silu(x, w, bias, groups, eps),
+            got = GN.groupnorm_silu(x, w, bias, groups, eps)
+            check(errs, checked, "groupnorm_silu", got,
                   GN.groupnorm_silu_ref(x, w, bias, groups, eps), tol, label)
+            again = GN.groupnorm_silu(x, w, bias, groups, eps)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"groupnorm_silu {label}: two runs on the same input "
+                                     f"differ (max {(got.float() - again.float()).abs().max()})")
             if dtype != torch.bfloat16:
                 continue
             side = int(round(hw ** 0.5))
@@ -1988,10 +2049,11 @@ def check_groupnorm_kernel(sites, per_step: dict):
             t_mem = 2 * n * x.element_size() / PEAK_BYTES * 1e3
             t_ops = 10.0 * n / PEAK_BF16_FLOPS * 1e3
             bound, by = (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
-            launches = per_step.get((b, hw, c), 0)
+            launches = per_step.get((b, hw, c), 0) if n_calls else 0
             rows.append(dict(kernel="groupnorm_silu", B=b, HW=hw, C=c, groups=groups, eps=eps,
                              sites_per_pass=n_calls, launches_per_step=launches, kernel_ms=ms,
-                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by))
+                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                             **({} if n_calls else {"path": "video"})))
             log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
                 f"bound_ms={bound:.4f} ({by}) x{launches}/step")
     return rows, errs, checked
@@ -2244,6 +2306,7 @@ def main(argv=None) -> int:
     ap.add_argument("--report", default=None,
                     help="also write every measurement as JSON to this path")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2288,7 +2351,7 @@ def main(argv=None) -> int:
         spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill", text))
         log(f"  {name}: {len(regs)} instantiations, registers per thread "
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
-        for inst, nreg, spill in tc_instantiations(text):
+        for inst, nreg, spill in tc_instantiations(text) + gn_instantiations(text):
             log(f"    {inst}: {nreg} registers, {spill} spill bytes")
         body = CUDA_CORE_BODIES.get(name)
         if body is None:
@@ -2296,7 +2359,7 @@ def main(argv=None) -> int:
         core = cuda_core_instantiations(text, body)
         log(f"    CUDA-core body ({body}): {core['fp32']} fp32, {core['bf16']} bf16 "
             "instantiations")
-        # bf16 kernels A, B, C and D run only on the tensor cores
+        # bf16 kernels A, B, C, D and G's forward run only on the tensor cores
         if core["bf16"] or not tc_instantiations(text):
             raise AssertionError(f"{name}: {core['bf16']} bf16 instantiations of the "
                                  f"CUDA-core body, {len(tc_instantiations(text))} "
@@ -2446,6 +2509,7 @@ def main(argv=None) -> int:
             n_checked = (fused_checked if name.startswith("two") else gn_checked)[name]
             kernels.append(dict(
                 name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+                body=meta["body"],
                 launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
                 ms=per_step(main_rows, "kernel_ms"), plain_ms=per_step(main_rows, "plain_ms"),
                 bound_ms=per_step(main_rows, "bound_ms"), bound_by=bound_by(main_rows),
@@ -2454,11 +2518,18 @@ def main(argv=None) -> int:
                     + ("fused_cfg=True" if name.startswith("two") else "MAGICDANCE_FUSED_GN=1")
                     + " (sum over its launches)",
                 check=f"{n_checked} comparisons within tolerance"))
+            video_gn = [r for r in main_rows if r.get("path") == "video"]
+            if video_gn:
+                r = video_gn[0]
+                kernels[-1]["video_site"] = dict(
+                    shape=[r["B"], r["HW"], r["C"]], ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                    library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    per="one launch at the 16-frame video request's first level")
             continue
         if name == "packed_attention":
             kernels.append(dict(
                 name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-                launches=sum(by_path.values()), launches_by_path=by_path,
+                body=meta["body"], launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=packed_errs[name], ms=per_step(packed_rows, "kernel_ms"),
                 plain_ms=per_step(packed_rows, "plain_ms"),
                 bound_ms=per_step(packed_rows, "bound_ms"), bound_by=bound_by(packed_rows),
@@ -2484,6 +2555,7 @@ def main(argv=None) -> int:
                          + fused_checked.get(name, 0) + packed_checked.get(name, 0))
         entry = dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            body=meta["body"],
             launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
             ms=per_step(main_rows, "kernel_ms"), plain_ms=per_step(main_rows, "plain_ms"),
             bound_ms=per_step(main_rows, "bound_ms"), bound_by=bound_by(main_rows),
@@ -2531,6 +2603,7 @@ def main(argv=None) -> int:
                            small_turbo=small_turbo, served=served, video_turbo=video_turbo,
                            packed_shapes=packed_rows, head_packing_probe=probe,
                            kernels=kernels), f, indent=1)
+    log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ channel stride (the port's channels_last UNet activations seen as rows of
 channels), with fp32 statistics and an fp32 affine, and returns a new
 contiguous (B, HW, C) tensor in x's dtype. It replaces
 `magicdance_tpu/ops/pallas/groupnorm.py::_gn_silu_kernel`; source
-`csrc/groupnorm_silu.cu`. Forward-only, as in JAX: `models.layers.GroupNorm32`
-dispatches to it only where no gradient is asked for.
+`csrc/groupnorm_silu.cu` (two launches per call: per-chunk statistics, then
+the normalise-and-apply pass, through a small fp32 workspace). Forward-only,
+as in JAX: `models.layers.GroupNorm32` dispatches to it only where no
+gradient is asked for.
 
 The wrapper rule of the other kernels: a CPU tensor takes the plain version;
 a CUDA tensor launches the kernel or raises. Each launch adds one to
@@ -21,6 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from magicdance_tpu_torch.ops.kernels.attention import _DTYPE_CODE, _check_no_grad, launch
+
+# clusters of chunks per batch row the kernel's statistics pass writes at
+# most (csrc/groupnorm_silu.cu: MAX_CLUSTERS)
+GN_MAX_CLUSTERS = 32
 
 
 def groupnorm_silu_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -62,7 +68,9 @@ def groupnorm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = torch.empty((b, hw, c), dtype=x.dtype, device=x.device)
     w = weight.detach().to(torch.float32).contiguous()
     bb = bias.detach().to(torch.float32).contiguous()
-    launch("groupnorm_silu", "groupnorm_silu", x, [], [x, w, bb, y],
+    # the statistics pass's (mean, M2) per (batch row, cluster of chunks, group)
+    ws = torch.empty(b * GN_MAX_CLUSTERS * groups * 2, dtype=torch.float32, device=x.device)
+    launch("groupnorm_silu", "groupnorm_silu", x, [], [x, w, bb, y, ws],
            [x.stride(0), x.stride(1), y.stride(0), y.stride(1)],
            [b, hw, c, groups], eps)
     return y

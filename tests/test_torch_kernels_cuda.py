@@ -2,8 +2,10 @@
 without their LSE output and B in its gated (bank_mask) mode, the backward
 kernels C (attention_dq) and D (attention_dkv), the grouped kernel G, the
 fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
-plain PyTorch versions, on the card. Kernels A, B, C and D run their
-tensor-core body in bf16 and their CUDA-core body in fp32.
+plain PyTorch versions, on the card. Kernels A, B, C, D and G's forward run
+their tensor-core body in bf16 and their CUDA-core body in fp32; K8 runs
+the same two kernels (statistics, then apply) in both types, and is held to
+give the same bits on every run.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -296,6 +298,7 @@ GROUPED_SHAPES = [
     (4096, 16, 8, 40), (1024, 16, 8, 80), (256, 16, 8, 160), (64, 16, 8, 160),  # motion
     (8192, 1, 8, 40),                                  # one frame per clip
     (128, 4, 2, 16), (8, 16, 2, 256), (4, 32, 4, 64), (2, 64, 2, 256),  # other S and D
+    (2048, 8, 8, 40), (8192, 2, 8, 40),  # S < 16: sequences packed into 16-row tiles
 ]
 
 
@@ -308,6 +311,27 @@ def test_grouped_forward_and_backward_match_plain(cuda, dtype, n, s, h, d):
     K.reset_launches()
     _close(G.grouped_attention(q, k, v, None, h), G.grouped_attention_ref(q, k, v, None, h),
            dtype)
+    got = G.grouped_attention_bwd(q, k, v, g, None, h)
+    want = G.grouped_attention_bwd_ref(q, k, v, g, None, h)
+    for a, b in zip(got, want):
+        _grad_close(a, b, dtype)
+    assert K.LAUNCHES["grouped"] == K.LAUNCHES["grouped_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,s,h,d", [(1024, 16, 8, 40), (512, 4, 8, 80)])
+def test_grouped_strided_views_of_one_projection(cuda, dtype, n, s, h, d):
+    """q, k and v as views of one fused (N*S, 3*H*D) projection: row stride
+    3*H*D, and k and v start H*D and 2*H*D elements in."""
+    from magicdance_tpu_torch.ops.kernels import grouped as G
+
+    qkv = _rand(cuda, n, s, 3 * h * d, dtype=dtype, seed=35)
+    q, k, v = qkv.split(h * d, dim=-1)
+    assert q.stride(1) == 3 * h * d and not q.is_contiguous()
+    K.reset_launches()
+    _close(G.grouped_attention(q, k, v, None, h), G.grouped_attention_ref(q, k, v, None, h),
+           dtype)
+    g = _rand(cuda, n, s, h * d, dtype=dtype, seed=36)
     got = G.grouped_attention_bwd(q, k, v, g, None, h)
     want = G.grouped_attention_bwd_ref(q, k, v, g, None, h)
     for a, b in zip(got, want):
@@ -412,25 +436,60 @@ def test_gated_bank_read_dispatch(cuda):
 
 
 # every (HW, C) where the SD1.5 UNets and the ControlNet call GN+SiLU at
-# 512x512 with HW >= 256, plus a gcd group count and a ragged group
-GN_SHAPES = [(4096, 320), (4096, 640), (4096, 960), (1024, 320), (1024, 640),
-             (1024, 960), (1024, 1280), (1024, 1920), (256, 640), (256, 1280),
-             (256, 1920), (256, 2560), (300, 48), (256, 80)]
+# 512x512 with HW >= 256 (B = 2), plus a gcd group count and a ragged group;
+# the 16-frame video sites (B = 16); row counts no chunk size divides; and
+# channels that are not whole 16-byte pieces (one channel per load)
+GN_SHAPES = [(2, hw, c) for hw, c in (
+    (4096, 320), (4096, 640), (4096, 960), (1024, 320), (1024, 640), (1024, 960),
+    (1024, 1280), (1024, 1920), (256, 640), (256, 1280), (256, 1920), (256, 2560),
+    (300, 48), (256, 80))] + [
+    (16, 4096, 320), (16, 1024, 640),
+    (2, 997, 320), (1, 4099, 960), (3, 251, 2560),
+    (2, 300, 36)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hw,c", GN_SHAPES)
-def test_groupnorm_silu_matches_plain(cuda, dtype, hw, c):
+@pytest.mark.parametrize("b,hw,c", GN_SHAPES)
+def test_groupnorm_silu_matches_plain(cuda, dtype, b, hw, c):
     from magicdance_tpu_torch.ops.kernels import groupnorm as GN
 
-    groups = 32 if c % 32 == 0 else __import__("math").gcd(c, 32)
-    x = (_rand(cuda, 2, hw, c, dtype=torch.float32, seed=80) * 3 + 1).to(dtype)
+    groups = __import__("math").gcd(c, 32)
+    x = (_rand(cuda, b, hw, c, dtype=torch.float32, seed=80) * 3 + 1).to(dtype)
     w = _rand(cuda, c, dtype=torch.float32, seed=81) * 0.2 + 1
-    b = _rand(cuda, c, dtype=torch.float32, seed=82) * 0.2
+    bias = _rand(cuda, c, dtype=torch.float32, seed=82) * 0.2
     K.reset_launches()
-    _close(GN.groupnorm_silu(x, w, b, groups, 1e-5), GN.groupnorm_silu_ref(x, w, b, groups, 1e-5),
-           dtype)
+    _close(GN.groupnorm_silu(x, w, bias, groups, 1e-5),
+           GN.groupnorm_silu_ref(x, w, bias, groups, 1e-5), dtype)
     assert K.LAUNCHES["groupnorm_silu"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_groupnorm_silu_unaligned_view(cuda, dtype):
+    """A view that starts one channel into a wider row: no 16-byte pieces."""
+    from magicdance_tpu_torch.ops.kernels import groupnorm as GN
+
+    wide = _rand(cuda, 2, 1024, 328, dtype=torch.float32, seed=86).to(dtype)
+    x = wide[:, :, 1:321]
+    w = _rand(cuda, 320, dtype=torch.float32, seed=87) * 0.2 + 1
+    bias = _rand(cuda, 320, dtype=torch.float32, seed=88) * 0.2
+    _close(GN.groupnorm_silu(x, w, bias, 32, 1e-5), GN.groupnorm_silu_ref(x, w, bias, 32, 1e-5),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hw,c", [(2, 4096, 320), (16, 4096, 320), (2, 256, 1280)])
+def test_groupnorm_silu_is_deterministic(cuda, dtype, b, hw, c):
+    """No atomics, no order that depends on scheduling: two runs on the same
+    input give the same bits."""
+    from magicdance_tpu_torch.ops.kernels import groupnorm as GN
+
+    x = (_rand(cuda, b, hw, c, dtype=torch.float32, seed=89) * 3 + 1).to(dtype)
+    w = _rand(cuda, c, dtype=torch.float32, seed=90) * 0.2 + 1
+    bias = _rand(cuda, c, dtype=torch.float32, seed=91) * 0.2
+    first = GN.groupnorm_silu(x, w, bias, 32, 1e-5)
+    second = GN.groupnorm_silu(x, w, bias, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fused_groupnorm_dispatch(cuda, monkeypatch):
