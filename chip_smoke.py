@@ -13,9 +13,11 @@ Phases, in order; every check raises, so any failure exits non-zero:
      the registers and spill bytes of each tensor-core instantiation (the
      bf16 bodies of kernels A, B, B gated and K9: `md::tc::attention_tc`;
      of C: `attention_dq_tc`; of D: `attention_dkv_tc`; of G's forward:
-     `grouped_tc`), of K8's two kernels (`md::gn::gn_stats`, `gn_apply`)
-     and the CUDA-core instantiations by type (none in bf16 for A, B, C, D
-     and G's forward).
+     `grouped_tc`; of G's backward: `grouped_bwd_tc`), of K8's two kernels
+     (`md::gn::gn_stats`, `gn_apply`) and the CUDA-core instantiations by
+     type (none in bf16 for A, B, C, D and G, forward and backward); G's
+     backward must not spill at the full-width motion widths (D = 40, 80,
+     160 at BN = 16).
   3. hold each kernel against its plain PyTorch version at every shape the
      main path gives it (kernels A and B run their tensor-core body in bf16
      and their CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the
@@ -72,9 +74,10 @@ Phases, in order; every check raises, so any failure exits non-zero:
      16-frame window at 512x512 ((h*w, 16, C) for C = 320, 640, 1280, 1280;
      bf16, timed against its bound and F.scaled_dot_product_attention on
      (h*w, H, 16, D) as the yardstick), one shape in fp32, one frame per clip
-     (S = 1) and a two-window batch; gates as phases 3 and 7. The bf16
-     forward runs on the tensor cores (`grouped_tc`), the fp32 forward and
-     the backward on the CUDA cores.
+     (S = 1) and a two-window batch; gates as phases 3 and 7; the bf16
+     backward runs twice at the first motion shape and must give the same
+     bits. In bf16 the forward and the backward run on the tensor cores
+     (`grouped_tc`, `grouped_bwd_tc`), in fp32 on the CUDA cores.
   11. small-input video references on a narrow temporal model at 128x128:
      overlap sampling of F = 10 frames in windows of 4, stride 3, 3 steps of
      CFG 7, on the card (kernels A, B, G) and the CPU (plain versions) with
@@ -200,7 +203,9 @@ KERNELS = {
     "grouped_attention_bwd": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/grouped_attention_bwd.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:230 (_grouped_bwd_kernel)",
-        body="md::grouped::grouped_bwd (CUDA cores, both types)",
+        body="bf16: md::tc::grouped_bwd_tc (tensor cores, mma.sync, several (sequence, head) "
+             "pairs a block, a row pass then a key pass); fp32: md::grouped::grouped_bwd (CUDA "
+             "cores)",
         modes=("grouped_bwd",)),
     "two_source_attention_gated": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/two_source_attention.cu",
@@ -296,7 +301,8 @@ def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
     each tensor-core entry function in a ptxas -v report: attention_tc<KD,
     NO, MR, BN, mode> (mode: md::tc::Mode), attention_dq_tc (kernel C; the
     fifth argument is its number of sources), attention_dkv_tc (kernel D)
-    and grouped_tc<KD, NO, BN> (kernel G's bf16 forward)."""
+    and grouped_tc / grouped_bwd_tc<KD, NO, BN> (kernel G's bf16 forward
+    and backward)."""
     out = []
     for name, regs, spill in _entry_chunks(log_text):
         m = re.match(r"_ZN2md2tc\d+(\w+?_tc)I((?:Li\d+E)+)E", name)
@@ -306,8 +312,10 @@ def tc_instantiations(log_text: str) -> list[tuple[str, int, int]]:
         which = {"attention_tc": TC_MODES.get(args[4], "") if len(args) == 5 else "",
                  "attention_dq_tc": f" (kernel C, {args[-1]} source(s))",
                  "attention_dkv_tc": " (kernel D)",
-                 "grouped_tc": " (kernel G forward)"}.get(m.group(1), "")
-        names = ("KD", "NO", "BN") if m.group(1) == "grouped_tc" else ("KD", "NO", "MR", "BN")
+                 "grouped_tc": " (kernel G forward)",
+                 "grouped_bwd_tc": " (kernel G backward)"}.get(m.group(1), "")
+        names = (("KD", "NO", "BN") if m.group(1).startswith("grouped")
+                 else ("KD", "NO", "MR", "BN"))
         params = ", ".join(f"{k}={v}" for k, v in zip(names, args))
         out.append((f"{m.group(1)}<{params}>{which}", regs, spill))
     return out
@@ -325,11 +333,16 @@ def gn_instantiations(log_text: str) -> list[tuple[str, int, int]]:
     return out
 
 
-# the CUDA-core bodies of kernels A/B (attention_fwd), C, D and G's forward
-# (grouped::grouped_fwd), by library
+# the CUDA-core bodies of kernels A/B (attention_fwd), C, D and G
+# (grouped::grouped_fwd, grouped::grouped_bwd), by library
 CUDA_CORE_BODIES = {"self_attention": "attention_fwd", "two_source_attention": "attention_fwd",
                     "attention_dq": "attention_dq", "attention_dkv": "attention_dkv",
-                    "grouped_attention": "grouped::grouped_fwd"}
+                    "grouped_attention": "grouped::grouped_fwd",
+                    "grouped_attention_bwd": "grouped::grouped_bwd"}
+# G's backward at the full-width motion widths (D = 40, 80, 160; BN = 16):
+# ptxas must report no spills there
+G_BWD_FULL_WIDTH = ("grouped_bwd_tc<KD=3, NO=5, BN=16>", "grouped_bwd_tc<KD=5, NO=10, BN=16>",
+                    "grouped_bwd_tc<KD=10, NO=20, BN=16>")
 
 
 def cuda_core_instantiations(log_text: str, body: str) -> dict[str, int]:
@@ -1562,6 +1575,12 @@ def check_grouped_kernels():
         want = G.grouped_attention_bwd_ref(q, k, v, g, None, h)
         for a, b, nm in zip(got, want, ("dq", "dk", "dv")):
             check("grouped_attention_bwd", a, b, f"{label} {nm}", grad=True)
+        if (n, s, h, d, dtype) == (n0, s0, h0, d0, torch.bfloat16) and timed:
+            again = G.grouped_attention_bwd(q, k, v, g, None, h)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"grouped_attention_bwd {label}: two runs differ")
+            log(f"  ok  grouped_attention_bwd  {label}: two runs, the same bits")
         if not timed:
             continue
         qs, ks, vs = (t.view(n, s, h, d).transpose(1, 2).detach().requires_grad_()
@@ -1731,34 +1750,27 @@ def video_main_path(requests: int, frames: int, steps: int):
                       launches=launches, plan_per_step=plan)
 
 
-def full_width_stage3(steps: int = 3):
-    """Phase 13: the stage-3 trainer at full SD1.5 width: one clip of 16
-    frames at 512x512 per step, remat on, bf16 denoiser, frozen weights in
-    bf16, only the 20 motion modules train."""
+def stage3_trainer():
+    """The stage-3 trainer of phase 13 and its batch maker: the
+    `stage3_motion()` preset (one clip of 16 frames at 512x512, remat on),
+    weights from seed 0, batches drawn from a generator seeded 2. Returns
+    (cfg, trainer, make_batch). A one-off timing of the step's pieces calls
+    it with `training_breakdown`, so the set-up exists once."""
     import dataclasses
 
     import torch
 
     from magicdance_tpu_torch import config as C
     from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids
-    from magicdance_tpu_torch.ops import kernels as K
     from magicdance_tpu_torch.train.trainer import Trainer
 
     cfg = C.stage3_motion()
     cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, warmup_steps=1))
-    frames, clips = cfg.video_frames, cfg.batch_size_per_device
-    plan = stage3_launch_plan(cfg, cfg.image_size, clips)
-    t0 = time.perf_counter()
     tr = Trainer(cfg, device="cuda")
     tr.init_random(seed=0)
-    torch.cuda.synchronize()
-    n_train = sum(p.numel() for p in tr.train_params.values())
-    n_all = sum(p.numel() for m in (tr.model, tr.vae, tr.clip) for p in m.parameters())
-    log(f"  stage-3 trainer built, {n_all / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B "
-        f"trainable motion-module parameters, fp32; frozen in {cfg.optim.frozen_dtype}), "
-        f"{time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    n = clips * frames
+    clips = cfg.batch_size_per_device
+    n = clips * cfg.video_frames
     ids = torch.from_numpy(empty_prompt_ids(n, cfg.model.clip.max_length)).cuda()
 
     def make_batch():
@@ -1766,6 +1778,29 @@ def full_width_stage3(steps: int = 3):
                 "reference": torch.rand(clips, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
                 "pose": torch.rand(n, 512, 512, 3, generator=gen, device="cuda"),
                 "input_ids": ids}
+
+    return cfg, tr, make_batch
+
+
+def full_width_stage3(steps: int = 3):
+    """Phase 13: the stage-3 trainer at full SD1.5 width: one clip of 16
+    frames at 512x512 per step, remat on, bf16 denoiser, frozen weights in
+    bf16, only the 20 motion modules train."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    cfg, tr, make_batch = stage3_trainer()
+    frames, clips = cfg.video_frames, cfg.batch_size_per_device
+    n = clips * frames
+    plan = stage3_launch_plan(cfg, cfg.image_size, clips)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in tr.train_params.values())
+    n_all = sum(p.numel() for m in (tr.model, tr.vae, tr.clip) for p in m.parameters())
+    log(f"  stage-3 trainer built, {n_all / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B "
+        f"trainable motion-module parameters, fp32; frozen in {cfg.optim.frozen_dtype}), "
+        f"{time.perf_counter() - t0:.1f} s")
 
     batches = [make_batch() for _ in range(steps + 1)]
     frozen = {k: p.detach().clone() for m in (tr.model, tr.vae, tr.clip)
@@ -2359,11 +2394,16 @@ def main(argv=None) -> int:
         core = cuda_core_instantiations(text, body)
         log(f"    CUDA-core body ({body}): {core['fp32']} fp32, {core['bf16']} bf16 "
             "instantiations")
-        # bf16 kernels A, B, C, D and G's forward run only on the tensor cores
+        # bf16 kernels A, B, C, D and G run only on the tensor cores
         if core["bf16"] or not tc_instantiations(text):
             raise AssertionError(f"{name}: {core['bf16']} bf16 instantiations of the "
                                  f"CUDA-core body, {len(tc_instantiations(text))} "
                                  "tensor-core instantiations")
+        if name == "grouped_attention_bwd":
+            spilled = {inst.rsplit(" (", 1)[0]: spill for inst, _, spill in tc_instantiations(text)}
+            bad = {k: spilled.get(k) for k in G_BWD_FULL_WIDTH if spilled.get(k) != 0}
+            if bad:
+                raise AssertionError(f"{name}: spill bytes at the full-width widths {bad}")
 
     log("== phase 3: kernels vs plain versions")
     rows, errs, ratios, checked = check_kernels(frames)

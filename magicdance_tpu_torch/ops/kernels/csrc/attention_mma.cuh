@@ -128,13 +128,14 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
   }
 }
 
-// Zero columns [D, DP) of `rows` consecutive shared rows.
+// Zero columns [D, DP) of `rows` consecutive shared rows, so that the padded
+// products add zeros. Any block size: the grouped kernels run 2 or 4 warps.
 template <int KD>
 __device__ __forceinline__ void zero_pad_columns(bf16* tiles, int rows, int D) {
   using T = Tile<KD>;
   const int w = (T::DP - D) >> 3;
   if (w <= 0) return;
-  for (int idx = threadIdx.x; idx < rows * w; idx += NT) {
+  for (int idx = threadIdx.x; idx < rows * w; idx += blockDim.x) {
     const int r = idx / w;
     const int c = D + ((idx - r * w) << 3);
     *reinterpret_cast<uint4*>(tiles + r * T::LDS + c) = make_uint4(0u, 0u, 0u, 0u);

@@ -48,8 +48,7 @@
 // elements. Returns cudaGetLastError() of the launch (0 on success), or
 // cudaErrorInvalidValue for a shape the bodies do not take.
 
-#include "attention_mma.cuh"
-#include "grouped_common.cuh"
+#include "grouped_tc.cuh"
 
 namespace md {
 namespace grouped {
@@ -125,11 +124,7 @@ inline cudaError_t launch_fwd_f32(const FwdParams& p, long long pairs, cudaStrea
 
 namespace tc {
 
-constexpr int MAX_ROWS = 64;  // query rows of a block: 16 per warp, at most 4 warps
-
-// The bf16 forward's launch geometry. A key unit is numbered u = x * H + h:
-// x is the sequence (S >= 16) or the packed 16-row tile (S < 16), whose
-// flat rows x * BN + rho (rho < BN) are row (flat % S) of sequence flat / S.
+// The bf16 forward's launch geometry (grouped_tc.cuh: key units, rows).
 struct GroupedTcParams {
   grouped::Operand q, k, v, o;
   long long units;  // key units: ceil(N * S / BN) * H
@@ -137,62 +132,6 @@ struct GroupedTcParams {
   int H, D, lg_s;   // S = 1 << lg_s
   float scale;
 };
-
-// Element offsets of the block's rows in q, k, v and o, -1 past the data:
-// smem row s belongs to key unit s / BN of the block, at row s % BN of that
-// unit. One thread per row works them out once, so the copies below do no
-// division.
-template <int BN>
-__device__ __forceinline__ void row_offsets(long long (*off)[MAX_ROWS],
-                                            const GroupedTcParams& p, long long unit0,
-                                            int rows) {
-  for (int s = threadIdx.x; s < rows; s += blockDim.x) {
-    const long long u = unit0 + s / BN;
-    const long long x = u / p.H;
-    const long long flat = x * BN + s % BN;
-    const bool ok = u < p.units && flat < p.rows;
-    const long long h = u - x * p.H;
-    const long long n = flat >> p.lg_s;
-    const long long i = flat - (n << p.lg_s);
-    auto at = [&](const grouped::Operand& t) {
-      return ok ? n * t.sn + i * t.si + h * t.sh : -1LL;
-    };
-    off[0][s] = at(p.q);
-    off[1][s] = at(p.k);
-    off[2][s] = at(p.v);
-    off[3][s] = at(p.o);
-  }
-}
-
-// Visit the block's 16-byte pieces of one operand in the order that keeps a
-// warp on contiguous memory: consecutive threads take consecutive pieces of
-// a row, then the same row of the next key unit (the next head: contiguous
-// in a packed projection). f(smem row, column) for each.
-template <int BN, typename F>
-__device__ __forceinline__ void for_pieces(int D, int units_here, F f) {
-  const int chunks = D >> 3;
-  const int per_row = units_here * chunks;
-  for (int idx = threadIdx.x; idx < BN * per_row; idx += blockDim.x) {
-    const int rho = idx / per_row;
-    const int rest = idx - rho * per_row;
-    const int ku = rest / chunks;
-    f(ku * BN + rho, (rest - ku * chunks) << 3);
-  }
-}
-
-// Start the cp.async copies of one operand's rows into a shared tile of
-// stride LDS; rows past the data are zero-filled (src-size 0, read from the
-// operand's base).
-template <int LDS, int BN>
-__device__ __forceinline__ void load_units(bf16* dst, const bf16* src, const long long* off,
-                                           int D, int units_here) {
-  const uint32_t base = smem_u32(dst);
-  for_pieces<BN>(D, units_here, [&](int s, int c) {
-    const long long o = off[s];
-    cp_async16(base + (uint32_t)(s * LDS + c) * 2u, o >= 0 ? src + o + c : src,
-               o >= 0 ? 16 : 0);
-  });
-}
 
 // The bf16 body: one block of WB = blockDim.x / 32 warps, P = 16 * WB / BN
 // key units of BN keys (BN = max(16, S)), one warp per 16-row tile.
@@ -211,17 +150,9 @@ __global__ void __launch_bounds__(NT) grouped_tc(const GroupedTcParams p) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // pad columns D..16*KD of q, k and v: zero, so the padded products add 0
-  {
-    const int w = (Tile<KD>::DP - D) >> 3;
-    for (int idx = threadIdx.x; idx < 3 * rows * w; idx += blockDim.x) {
-      const int r = idx / w;
-      *reinterpret_cast<uint4*>(Qs + r * LDS + D + ((idx - r * w) << 3)) =
-          make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+  zero_pad_columns<KD>(Qs, 3 * rows, D);  // q, k, v rows are contiguous
   __shared__ long long off[4][MAX_ROWS];  // q, k, v, o
-  row_offsets<BN>(off, p, unit0, rows);
+  row_offsets<BN>(off, p, unit0, rows, p.q, p.k, p.v, p.o);
   __syncthreads();
   load_units<LDS, BN>(Qs, static_cast<const bf16*>(p.q.p), off[0], D, units_here);
   load_units<LDS, BN>(Ks, static_cast<const bf16*>(p.k.p), off[1], D, units_here);
@@ -236,17 +167,7 @@ __global__ void __launch_bounds__(NT) grouped_tc(const GroupedTcParams p) {
     float s[1][BN / 8][4];
     uint32_t pa[1][BN / 16][4];
     qk_tile<KD, 1, BN>(s, smem_u32(Qs) + la.q, smem_u32(Ks + ku * BN * LDS) + la.k);
-    if (BN == 16 && p.lg_s < 4) {
-      // packed sequences: row g (and g + 8) of the tile sees only the keys
-      // of its own sequence, the S-aligned block holding it
-      const int g = lane >> 2, c0 = 2 * (lane & 3);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (((g + 8 * (e >> 1)) >> p.lg_s) != ((8 * j + c0 + (e & 1)) >> p.lg_s))
-            s[0][j][e] = -INFINITY;
-    }
+    mask_packed<BN>(s[0], p.lg_s);  // S < 16
     RowState<NO, 1> st;
     st.reset();
     softmax_tile<NO, 1, BN, false>(s, pa, st, p.scale * LOG2E, BN, 1.f);
@@ -259,23 +180,7 @@ __global__ void __launch_bounds__(NT) grouped_tc(const GroupedTcParams p) {
   __syncthreads();
 
   // 16-byte stores of the block's output rows, in the loads' order
-  bf16* ob = static_cast<bf16*>(const_cast<void*>(p.o.p));
-  for_pieces<BN>(D, units_here, [&](int srow, int c) {
-    const long long o = off[3][srow];
-    if (o >= 0)
-      *reinterpret_cast<uint4*>(ob + o + c) = *reinterpret_cast<const uint4*>(Qs + srow * LDS + c);
-  });
-}
-
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
+  store_units<LDS, BN>(static_cast<bf16*>(const_cast<void*>(p.o.p)), Qs, off[3], D, units_here);
 }
 
 // Launch grouped_tc<KD, NO, BN> through dispatch_no. Four warps a block
@@ -287,8 +192,7 @@ struct GroupedLaunch {
   cudaStream_t stream;
   template <int KD, int NO>
   cudaError_t run() {
-    int wb = 4;
-    if (BN <= 32 && (p.units + 64 / BN - 1) / (64 / BN) < 2LL * sm_count()) wb = 2;
+    const int wb = block_warps<BN>(p.units);
     const int units_here = 16 * wb / BN;
     const long long blocks = (p.units + units_here - 1) / units_here;
     const size_t smem = sizeof(bf16) * (size_t)Tile<KD>::LDS * 3 * 16 * wb;
@@ -335,21 +239,6 @@ extern "C" int md_grouped_attention(int dtype, const void* q, const void* k,
   p.o = operand(o, strides + 9);
   p.H = H;
   p.D = D;
-  p.lg_s = __builtin_ctz(static_cast<unsigned>(S));  // S | 128: a power of two
   p.scale = scale;
-  p.rows = (long long)N * S;
-  const int bn = S < 16 ? 16 : S;
-  p.units = (p.rows + bn - 1) / bn * H;
-  cudaError_t err;
-  if (bn == 16) {
-    md::tc::GroupedLaunch<16> f{p, st};
-    err = md::tc::dispatch_no(D, f);
-  } else if (bn == 32) {
-    md::tc::GroupedLaunch<32> f{p, st};
-    err = md::tc::dispatch_no(D, f);
-  } else {
-    md::tc::GroupedLaunch<64> f{p, st};
-    err = md::tc::dispatch_no(D, f);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(md::tc::launch_units<md::tc::GroupedLaunch>(p, N, S, D, st));
 }

@@ -21,16 +21,19 @@
 // the first motion level, (4096*16, 320) bf16, is 4 x 42 MB over 3.35 TB/s,
 // ~0.05 ms.
 //
-// The CUDA-core design (first, simple version), kept for the backward and
-// the fp32 forward. One block of GT = 128 threads owns one (sequence, head)
-// pair. It stages the pair's S x D tiles in fp32 shared memory (rows padded
-// to an odd stride), computes the S x S logits with one thread per entry,
-// the row softmax with one thread per row, and the S x D outputs with one
-// thread per element. Two tiles are resident at a time, so S = 64, D = 256
-// fits in a block's shared memory (forward 148 KB, backward 165 KB).
-// Products are fp32 FMAs on the CUDA cores. The bf16 forward runs on the
-// tensor cores instead (grouped_tc in grouped_attention.cu: several pairs a
-// block, 16-byte row pieces across heads, one warp per 16-row tile).
+// The CUDA-core design (first, simple version), kept for fp32 only: the
+// fp32 forward and backward, whose products are exact fp32 (the card-vs-CPU
+// checks need them). One block of GT = 128 threads owns one (sequence,
+// head) pair. It stages the pair's S x D tiles in fp32 shared memory (rows
+// padded to an odd stride), computes the S x S logits with one thread per
+// entry, the row softmax with one thread per row, and the S x D outputs
+// with one thread per element. Two tiles are resident at a time, so S =
+// 64, D = 256 fits in a block's shared memory (forward 148 KB, backward
+// 165 KB). Products are fp32 FMAs on the CUDA cores. bf16 runs on the
+// tensor cores instead, forward and backward (grouped_tc in
+// grouped_attention.cu, grouped_bwd_tc in grouped_attention_bwd.cu, with
+// the block geometry of grouped_tc.cuh: several pairs a block, 16-byte row
+// pieces across heads, one warp per 16-row tile).
 
 #pragma once
 

@@ -9,9 +9,14 @@ exact per-sequence softmax(q k^T * scale) v over packed (B, S, H*D) inputs,
 where each of the B sequences has S <= 64 rows (S | 128, 128 | B*S) -- the
 motion module's attention over the frame axis, (b*h*w, F, C). The Pallas
 kernel's block-diagonal 128-row tiles are a TPU layout device; the kernels
-here compute each (sequence, head) pair directly (see
-csrc/grouped_common.cuh). The backward recomputes the probabilities from q
-and k: nothing but q, k and v is kept from the forward.
+here compute each (sequence, head) pair directly. In bf16 both the forward
+and the backward run on the tensor cores (`grouped_tc` in
+csrc/grouped_attention.cu, `grouped_bwd_tc` in csrc/grouped_attention_bwd.cu:
+several pairs a block, one warp per 16 rows, sequences shorter than 16
+packed into one 16-row tile under a block-diagonal mask); in fp32 they run
+the CUDA-core bodies of csrc/grouped_common.cuh. The backward recomputes the
+probabilities from q and k: nothing but q, k and v is kept from the
+forward; its bf16 body gives the same bits on every run (no atomics).
 
 The wrapper rule of `ops.kernels.attention`: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises, and each launch adds

@@ -1,16 +1,18 @@
-"""Device time of kernel K8 (fused GroupNorm+SiLU) and of kernel G's forward
-(grouped temporal attention) at every shape the full-width serving paths
-give them, in bf16.
+"""Device time of kernel K8 (fused GroupNorm+SiLU) and of kernel G (grouped
+temporal attention, forward and backward) at every shape the full-width
+serving and stage-3 training paths give them, in bf16.
 
 K8: every (B, HW, C) at which one DDIM step of the image request (two pose
 maps at 512x512, `MAGICDANCE_FUSED_GN=1`) calls it, with its launches per
 step (the appearance UNet's write pass at B = 1, the ControlNet and the main
 UNet's two passes at B = 2), and the first level of the 16-frame video
 request, (16, 4096, 320). G: every motion-module shape of a 16-frame window,
-packed (N, 16, H*D) with H = 8, 20 launches per video DDIM step each. The
-script calls only the wrappers `ops.kernels.groupnorm.groupnorm_silu` and
-`ops.kernels.grouped.grouped_attention`, whose interfaces have not changed
-since the kernels were first ported, so the same file copied into an older
+packed (N, 16, H*D) with H = 8: the forward at 20 launches per video DDIM
+step each, the backward (dq, dk, dv from q, k, v and dO) at 10 launches per
+stage-3 training step each. The script calls only the wrappers
+`ops.kernels.groupnorm.groupnorm_silu`, `ops.kernels.grouped.grouped_attention`
+and `ops.kernels.grouped.grouped_attention_bwd`, whose interfaces have not
+changed since the kernels were first ported, so the same file copied into an older
 checkout times that checkout's kernels: compare two checkouts in one run on
 one card, in turns (old, new, new, old). Correctness is `chip_smoke.py`'s
 job (phases 10 and 14); here each call is only checked to have launched its
@@ -48,12 +50,16 @@ GROUPS, EPS = 32, 1e-5
 # (N, S, H, D): G forward launches per video DDIM step (cond + uncond)
 GROUPED_SITES = {(4096, 16, 8, 40): 20, (1024, 16, 8, 80): 20, (256, 16, 8, 160): 20,
                  (64, 16, 8, 160): 20}
+# (N, S, H, D): G backward launches per stage-3 training step
+GROUPED_BWD_SITES = {(4096, 16, 8, 40): 10, (1024, 16, 8, 80): 10, (256, 16, 8, 160): 10,
+                     (64, 16, 8, 160): 10}
 
 
 def cases(dev):
     """(label, launch counter, launches per step, fn) for every K8 and G
     site: K8's image sites weighted by their launches per fused-GN DDIM
-    step, its video site by 0, G's by their launches per video DDIM step."""
+    step, its video site by 0, G's forward by its launches per video DDIM
+    step, G's backward by its launches per stage-3 training step."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape):
@@ -70,6 +76,10 @@ def cases(dev):
         q, k, v = (rnd(n, s, h * d) for _ in range(3))
         yield (f"G forward (N, S, D) = ({n}, {s}, {d})", "grouped", per_step,
                lambda q=q, k=k, v=v, h=h: G.grouped_attention(q, k, v, None, h))
+    for (n, s, h, d), per_step in GROUPED_BWD_SITES.items():
+        q, k, v, g = (rnd(n, s, h * d) for _ in range(4))
+        yield (f"G backward (N, S, D) = ({n}, {s}, {d})", "grouped_bwd", per_step,
+               lambda q=q, k=k, v=v, g=g, h=h: G.grouped_attention_bwd(q, k, v, g, None, h))
 
 
 def main(argv=None) -> int:
@@ -79,7 +89,7 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     card = card_line()
     out = []
-    totals = {"groupnorm_silu": 0.0, "grouped": 0.0}
+    totals = {"groupnorm_silu": 0.0, "grouped": 0.0, "grouped_bwd": 0.0}
     for label, counter, per_step, fn in cases(dev):
         K.reset_launches()
         fn()
@@ -93,6 +103,7 @@ def main(argv=None) -> int:
     print(f"  K8 per fused-GN image DDIM step: {totals['groupnorm_silu']:.4f} ms  ({card})",
           flush=True)
     print(f"  G forward per video DDIM step: {totals['grouped']:.4f} ms  ({card})", flush=True)
+    print(f"  G backward per stage-3 step: {totals['grouped_bwd']:.4f} ms  ({card})", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, rows=out, per_step_ms=totals), f, indent=1)

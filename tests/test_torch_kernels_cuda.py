@@ -2,10 +2,10 @@
 without their LSE output and B in its gated (bank_mask) mode, the backward
 kernels C (attention_dq) and D (attention_dkv), the grouped kernel G, the
 fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
-plain PyTorch versions, on the card. Kernels A, B, C, D and G's forward run
-their tensor-core body in bf16 and their CUDA-core body in fp32; K8 runs
-the same two kernels (statistics, then apply) in both types, and is held to
-give the same bits on every run.
+plain PyTorch versions, on the card. Kernels A, B, C, D and G (forward and
+backward) run their tensor-core body in bf16 and their CUDA-core body in
+fp32; K8 runs the same two kernels (statistics, then apply) in both types.
+K8 and G's backward are held to give the same bits on every run.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -299,6 +299,7 @@ GROUPED_SHAPES = [
     (8192, 1, 8, 40),                                  # one frame per clip
     (128, 4, 2, 16), (8, 16, 2, 256), (4, 32, 4, 64), (2, 64, 2, 256),  # other S and D
     (2048, 8, 8, 40), (8192, 2, 8, 40),  # S < 16: sequences packed into 16-row tiles
+    (256, 16, 2, 8), (128, 8, 4, 24), (64, 32, 2, 136),  # D ragged against the k16 steps
 ]
 
 
@@ -337,6 +338,45 @@ def test_grouped_strided_views_of_one_projection(cuda, dtype, n, s, h, d):
     for a, b in zip(got, want):
         _grad_close(a, b, dtype)
     assert K.LAUNCHES["grouped"] == K.LAUNCHES["grouped_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["sequence-minor", "row-sliced"])
+def test_grouped_backward_strided_dout(cuda, dtype, layout):
+    """dO as a strided view, not contiguous: the transpose of an (S, N,
+    H*D) tensor (sequence stride H*D, row stride N*H*D), or the first half
+    of the channels of an (N, S, 2*H*D) tensor (row stride 2*H*D)."""
+    from magicdance_tpu_torch.ops.kernels import grouped as G
+
+    n, s, h, d = 512, 16, 8, 40
+    q, k, v = (_rand(cuda, n, s, h * d, dtype=dtype, seed=50 + i) for i in range(3))
+    if layout == "sequence-minor":
+        g = _rand(cuda, s, n, h * d, dtype=dtype, seed=53).transpose(0, 1)
+    else:
+        g = _rand(cuda, n, s, 2 * h * d, dtype=dtype, seed=53)[..., :h * d]
+    assert not g.is_contiguous()
+    K.reset_launches()
+    got = G.grouped_attention_bwd(q, k, v, g, None, h)
+    want = G.grouped_attention_bwd_ref(q, k, v, g.contiguous(), None, h)
+    for a, b in zip(got, want):
+        _grad_close(a, b, dtype)
+    assert K.LAUNCHES["grouped_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,s,h,d", [(4096, 16, 8, 40), (2048, 8, 8, 40), (4, 32, 4, 64),
+                                     (2, 64, 2, 256)])
+def test_grouped_backward_is_deterministic(cuda, dtype, n, s, h, d):
+    """Two runs give the same bits: no atomics, a fixed order of every sum
+    (at S = 32 and 64 a key row sums the query rows of several warps)."""
+    from magicdance_tpu_torch.ops.kernels import grouped as G
+
+    q, k, v, g = (_rand(cuda, n, s, h * d, dtype=dtype, seed=60 + i) for i in range(4))
+    first = G.grouped_attention_bwd(q, k, v, g, None, h)
+    second = G.grouped_attention_bwd(q, k, v, g, None, h)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_grouped_dispatch_and_autograd(cuda):
