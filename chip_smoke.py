@@ -18,6 +18,12 @@ Phases, in order; every check raises, so any failure exits non-zero:
      type (none in bf16 for A, B, C, D and G, forward and backward); G's
      backward must not spill at the full-width motion widths (D = 40, 80,
      160 at BN = 16).
+  2b. the kernel gate (`ops/kernel_gate.py::run_gate`, before any timed
+     phase): every case of the JAX gate and the main path's shapes at H = 8
+     (D = 40, 80, 160, batch-1 banks, the gated read, G at (4096, 16, 40)),
+     forward and gradients, and K8 at (2, 4096, 320), through the port's
+     dispatch against fp32 reference math; each check's deviation, the
+     gate's wall time and its launches (every kernel must be reached).
   3. hold each kernel against its plain PyTorch version at every shape the
      main path gives it (kernels A and B run their tensor-core body in bf16
      and their CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the
@@ -130,6 +136,24 @@ Phases, in order; every check raises, so any failure exits non-zero:
      (`magicdance_tpu_torch.scripts.bench_head_packing`, P1-P4) as the
      slice's path, with the counts at 0 before it: P3 runs K9 and kernel A
      at (32, 4096, 6, 40) BSNH and their outputs must agree.
+  19. DUAL_CONTROL image serving (the pose and an image ControlNet, no
+     appearance branch): a narrow model at 128x128 sampled on the card and
+     the CPU from the same weights (fp32, held to its launch plan); then at
+     full SD1.5 width, 2 requests x F = 2 at 512x512 with image hints,
+     DDIM-50, CFG 7, exact then under the `turbo` stack (the `pose_every`
+     cache holds both ControlNets' summed residuals), every request held to
+     `request_launch_plan` (no bank, so kernel A only: two ControlNets of 6
+     sites, the cond and uncond passes of 15, per exact step).
+  20. the PLMS, DPM-Solver++ 2M and 3M (SDE, sde_eta = 1) samplers at full
+     width (APPEARANCE_POSE), one request of F = 2 at 512x512 each, 25
+     steps, CFG 7, composed as a user does (the pipeline's CLIP and VAE, the
+     sampler, the decode): finite images, two model calls and one bank write
+     per step and the exact DDIM step's launches per step; seconds per
+     request.
+  21. one exact image DDIM step profiled with `utils/profiling.trace`
+     (torch.profiler, CPU and CUDA activity): the ten device operations
+     with the most total time and their counts, the Chrome trace written to
+     chiprun_out/profile/ddim_step.json.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
   gated mode, K8 and K9, launches by path, and each kernel's `body`: the
   device functions that run it in bf16 and fp32; kernel B's entry also sums
@@ -908,6 +932,10 @@ def request_launch_plan(model_cfg, latent: int, batch: int, scfg, frames: int = 
     reused), the cond pass (full, or DeepCache-shallow on reuse steps) and
     the uncond pass (on refresh steps; full or shallow) -- or, with fused
     CFG on the image path, the ControlNet and one gated pass over 2B rows.
+    A model without the appearance branch (DUAL_CONTROL) has no write pass
+    and its cond pass reads no bank (plain self-attention); under
+    DUAL_CONTROL (an image hint given) every ControlNet pass is two, the
+    pose and the image ControlNet's.
     `video`: the overlap sampler (no fused CFG, a vanilla-SD uncond pass).
     Self keys are pooled at read/plain sites of at least self_kv_min_seq
     tokens (not in the write pass), bank entries at sites of at least
@@ -925,12 +953,17 @@ def request_launch_plan(model_cfg, latent: int, batch: int, scfg, frames: int = 
     ddim = make_ddim_schedule(sched, scfg.steps, eta=scfg.eta)
     use_cfg = scfg.cfg_scale != 1.0
     fused = use_cfg and scfg.fused_cfg and not video
-    plan = TurboPlan(scfg, sched, ddim, use_cfg, True, True,
+    has_app = model_cfg.has_appearance
+    plan = TurboPlan(scfg, sched, ddim, use_cfg, has_app, True,
                      fused_cfg=scfg.fused_cfg and not video)
     pool = scfg.self_kv_downsample
     main = model_cfg.unet
-    cn = controlnet_unet_config(model_cfg.pose_control, main.in_channels)
+    controls = [controlnet_unet_config(model_cfg.pose_control, main.in_channels)]
+    if model_cfg.has_image_control:
+        controls.append(controlnet_unet_config(model_cfg.image_control or model_cfg.pose_control,
+                                               main.in_channels))
     app = appearance_unet_config(model_cfg)
+    read = "read" if has_app else "self"
 
     def pooled(s, poolable, write=False):
         side = int(round(s ** 0.5))
@@ -967,25 +1000,29 @@ def request_launch_plan(model_cfg, latent: int, batch: int, scfg, frames: int = 
                 else:
                     c[_self_mode(s, d, b)] += 1
 
+    def run_controls(c):
+        for cn in controls:
+            run(c, cn, "self", batch, decoder=False, pool_mid=False)
+
     c = Counter()
     for i in range(ddim.num_steps):
         step = ddim.num_steps - 1 - i
-        if plan.bank_refresh[step]:
+        if has_app and plan.bank_refresh[step]:
             run(c, app, "write", 1)
         if fused:
-            run(c, cn, "self", batch, decoder=False, pool_mid=False)
-            run(c, main, "gated", 2 * batch)
+            run_controls(c)
+            run(c, main, "gated" if has_app else "self", 2 * batch)
             continue
         if not plan.pose_reuse or plan.pose_refresh[step]:
-            run(c, cn, "self", batch, decoder=False, pool_mid=False)
+            run_controls(c)
         shallow = (plan.deep_level if plan.deepcache and not plan.deep_refresh[step]
                    else None)
-        run(c, main, "read", batch, shallow)
+        run(c, main, read, batch, shallow)
         if use_cfg and plan.refresh[step]:
             if scfg.control_mode == "balance" and not video:
                 if not plan.pose_reuse:
-                    run(c, cn, "self", batch, decoder=False, pool_mid=False)
-                run(c, main, "read", batch)
+                    run_controls(c)
+                run(c, main, read, batch)
             else:
                 ushallow = (plan.deep_level if plan.uncond_deepcache
                             and not plan.udeep_refresh[step] else None)
@@ -1276,6 +1313,24 @@ def narrow_model_config():
                                          num_res_blocks=1),
                          clip=C.CLIPTextConfig(hidden_size=16, num_layers=1, num_heads=2),
                          latent_size=16, dtype="float32")
+
+
+def narrow_dual_config():
+    """The narrow image model on the DUAL_CONTROL variant (pose and image
+    ControlNets, no appearance branch) at 128x128, fp32."""
+    import dataclasses
+
+    from magicdance_tpu_torch import config as C
+
+    return dataclasses.replace(narrow_model_config(), variant=C.ModelVariant.DUAL_CONTROL)
+
+
+def dual_model_config():
+    """DUAL_CONTROL at full SD1.5 width (the image ControlNet has the pose
+    ControlNet's architecture)."""
+    from magicdance_tpu_torch import config as C
+
+    return C.ModelConfig(variant=C.ModelVariant.DUAL_CONTROL)
 
 
 def narrow_temporal_config():
@@ -2186,17 +2241,20 @@ def small_turbo_checks():
 
 
 def serve_requests(pipe, scfg, requests: int, frames: int, plan: dict, label: str,
-                   video: bool = False, fused_gn: bool = False):
+                   video: bool = False, fused_gn: bool = False, image_hints: bool = False):
     """`requests` full-width requests of `frames` pose maps at 512x512 under
-    `scfg`, each held to `plan` (launches per request); seconds per request,
-    frames/s and peak memory."""
+    `scfg` (with as many image hints for the DUAL_CONTROL variant when
+    `image_hints`), each held to `plan` (launches per request); seconds per
+    request, frames/s and peak memory."""
     import torch
 
     from magicdance_tpu_torch.ops import kernels as K
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     inputs = [(torch.rand(frames, 512, 512, 3, generator=gen, device="cuda"),
-               torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1)
+               torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
+               torch.rand(frames, 512, 512, 3, generator=gen, device="cuda") if image_hints
+               else None)
               for _ in range(requests)]
     saved = os.environ.get("MAGICDANCE_FUSED_GN")
     if fused_gn:
@@ -2204,11 +2262,12 @@ def serve_requests(pipe, scfg, requests: int, frames: int, plan: dict, label: st
     torch.cuda.reset_peak_memory_stats()
     secs, per_request = [], []
     try:
-        for pose, ref in inputs:
+        for pose, ref, img in inputs:
             K.reset_launches()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = pipe.sample_frames(pose, ref, scfg, generator=gen, video=video)
+            out = pipe.sample_frames(pose, ref, scfg, generator=gen, video=video,
+                                     image_hints=img)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
             per_request.append({m: n for m, n in K.LAUNCHES.items() if n})
@@ -2230,6 +2289,209 @@ def serve_requests(pipe, scfg, requests: int, frames: int, plan: dict, label: st
     return dict(seconds_per_request=secs, frames=frames, steps=scfg.steps,
                 frames_per_s=[frames / s for s in secs], peak_bytes=peak,
                 launches_per_request=plan, launches={m: n * requests for m, n in plan.items()})
+
+
+# --------------------------------------------------------------------------
+# phase 2b: the kernel gate
+# --------------------------------------------------------------------------
+
+
+def kernel_gate():
+    """`ops.kernel_gate.run_gate` on the card (every case printed); its wall
+    time and the launches it made (comparisons with a reference: they count
+    on no path)."""
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.ops.kernel_gate import GATE_CASES, run_gate
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    status = run_gate(device="cuda", verbose=True)
+    secs = time.perf_counter() - t0
+    launches = {m: n for m, n in K.LAUNCHES.items() if n}
+    missing = {"self_attention", "self_attention_lse", "two_source_attention",
+               "two_source_attention_lse", "two_source_attention_gated", "attention_dq",
+               "attention_dq_two_source", "attention_dkv", "grouped", "grouped_bwd",
+               "groupnorm_silu"} - set(launches)
+    if status != "ok" or missing:
+        raise AssertionError(f"kernel gate: {status}; kernels it did not reach: {missing}")
+    log(f"  kernel gate {status}: {len(GATE_CASES)} cases in {secs:.1f} s (wall, the first "
+        f"calls included); launches {launches}")
+    return dict(status=status, seconds=secs, cases=len(GATE_CASES), launches=launches)
+
+
+# --------------------------------------------------------------------------
+# phases 19-21: DUAL_CONTROL serving, the PLMS and DPM-Solver++ samplers,
+# a profile of one DDIM step
+# --------------------------------------------------------------------------
+
+
+def small_dual_check():
+    """A narrow DUAL_CONTROL model at 128x128 (pose and image hints, 4 steps
+    of CFG 7), card (kernels) vs CPU (plain versions), fp32, held to its
+    launch plan."""
+    import torch
+
+    from magicdance_tpu_torch.config import SampleConfig
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline
+
+    cfg = narrow_dual_config()
+    g = torch.Generator().manual_seed(9)
+    pose, img = torch.rand(2, 128, 128, 3, generator=g), torch.rand(2, 128, 128, 3, generator=g)
+    x_T = torch.randn(2, 16, 16, 4, generator=g)
+    scfg = SampleConfig(steps=4)
+    cpu = MagicPosePipeline(cfg, device="cpu")
+    cpu.init_params(seed=4, scale=0.1)
+    gpu = MagicPosePipeline(cfg, device="cuda")
+    for name in ("model", "vae", "clip"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    want = cpu.sample_frames(pose, None, scfg, x_T=x_T, image_hints=img)
+    K.reset_launches()
+    got = gpu.sample_frames(pose, None, scfg, x_T=x_T, image_hints=img).cpu()
+    launches = {m: n for m, n in K.LAUNCHES.items() if n}
+    plan = {m: n * scfg.steps for m, n in serving_launch_plan(cfg, 16, 2, 1).items()}
+    for m, n in _vae_launches(cfg.vae, 16, 1).items():  # the decode's mid attention
+        plan[m] = plan.get(m, 0) + n
+    if launches != plan:
+        raise AssertionError(f"narrow DUAL_CONTROL launches {launches}, plan {plan}")
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    tol = 1e-4 * max(1.0, scale)  # small_reference_check's bound
+    if not (err <= tol and torch.isfinite(got).all()):
+        raise AssertionError(f"DUAL_CONTROL card vs CPU: max abs err {err:.3e} > {tol:.3e}")
+    log(f"  ok  narrow DUAL_CONTROL 128x128 4-step CFG-7 sample, card vs CPU: "
+        f"max_abs_err={err:.3e} (tol {tol:.1e}), launches {launches} (plan)")
+    return dict(max_abs_err=err, tol=tol, launches=launches)
+
+
+SAMPLERS = ("plms", "dpmpp_2m", "dpmpp_3m_sde")
+
+
+def sampler_requests(pipe, frames: int, steps: int):
+    """One request of `frames` pose maps at 512x512 through each of the PLMS,
+    DPM-Solver++ 2M and 3M (SDE, sde_eta = 1) samplers, `steps` steps, CFG 7,
+    as a user composes them: CLIP and VAE encode from the pipeline, the
+    sampler, the pipeline's decode. Each request is held to finite
+    (F, 512, 512, 3) images, two model calls and one bank write per step,
+    and the exact DDIM step's launch plan per step; seconds per request."""
+    import torch
+
+    from magicdance_tpu_torch.config import SampleConfig
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.ops.schedules import make_ddim_schedule
+    from magicdance_tpu_torch.sampling.dpm import dpmpp_2m_sample, dpmpp_3m_sample
+    from magicdance_tpu_torch.sampling.plms import plms_sample
+
+    scfg = SampleConfig(steps=steps)
+    latent = 64
+    plan = dict(request_launch_plan(pipe.cfg, latent, frames, scfg))
+    # the VAE's mid attention (one encode, the decode's chunks of 8): a
+    # kernel site only at narrow widths (D = 512 at SD1.5 width)
+    for m, n in _vae_launches(pipe.cfg.vae, latent, 1 + -(-frames // 8)).items():
+        plan[m] = plan.get(m, 0) + n
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    calls = {"model": 0, "bank": 0}
+    hooks = [pipe.model.register_forward_hook(lambda *a: calls.__setitem__("model",
+                                                                           calls["model"] + 1)),
+             pipe.model.appearance_unet.register_forward_hook(
+                 lambda *a: calls.__setitem__("bank", calls["bank"] + 1))]
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for name in SAMPLERS:
+            pose = torch.rand(frames, 512, 512, 3, generator=gen, device="cuda")
+            ref = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+            x_T = torch.randn(1, 64, 64, 4, generator=gen,
+                              device="cuda").expand(frames, -1, -1, -1).contiguous()
+            calls.update(model=0, bank=0)
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctx, ref_lat = pipe.encode_empty(1), pipe.encode_reference(ref)
+            kw = dict(reference_latent=ref_lat, pose_hint=pose)
+            if name == "plms":
+                lat = plms_sample(pipe.model, pipe.sched, make_ddim_schedule(pipe.sched, steps),
+                                  scfg, x_T, ctx, ctx, **kw)
+            elif name == "dpmpp_2m":
+                lat = dpmpp_2m_sample(pipe.model, pipe.sched, steps, scfg, x_T, ctx, ctx, **kw)
+            else:
+                lat = dpmpp_3m_sample(pipe.model, pipe.sched, steps, scfg, x_T, ctx, ctx,
+                                      sde_eta=1.0, generator=gen, **kw)
+            img = pipe.decode_latents(lat)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {m: n for m, n in K.LAUNCHES.items() if n}
+            if tuple(img.shape) != (frames, 512, 512, 3) or not torch.isfinite(img).all():
+                raise AssertionError(f"{name}: bad output {tuple(img.shape)}, finite="
+                                     f"{bool(torch.isfinite(img).all())}")
+            if calls != {"model": 2 * steps, "bank": steps} or launches != plan:
+                raise AssertionError(f"{name}: model calls {calls}, launches {launches}; "
+                                     f"expected {2 * steps} model calls, {steps} bank writes, "
+                                     f"launches {plan}")
+            out[name] = dict(seconds_per_request=secs, frames=frames, steps=steps,
+                             frames_per_s=frames / secs, launches=launches,
+                             model_calls=dict(calls))
+            log(f"  {name}: 1 request x {frames} frames, {steps} steps, CFG {scfg.cfg_scale}: "
+                f"{secs:.3f} s per request ({frames / secs:.4f} frames/s); per step "
+                f"{calls['model'] // steps} model calls + {calls['bank'] // steps} bank write, "
+                f"launches {({m: n // steps for m, n in launches.items()})} (plan)")
+    finally:
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak memory over the three requests {peak / 2**30:.2f} GiB")
+    return dict(out, peak_bytes=peak)
+
+
+def profile_ddim_step(pipe, frames: int, out_dir: str):
+    """One exact image DDIM step (bank write, ControlNet, cond pass reading
+    the bank, uncond pass, update) at full width under
+    `utils.profiling.trace`, after one warm-up step; the Chrome trace goes to
+    `out_dir`. Returns the ten device operations with the most total time
+    (kernels and copies, from the profiler's CUDA activity) with their
+    counts, and the device time they and all operations sum to."""
+    import torch
+
+    from magicdance_tpu_torch.config import SampleConfig
+    from magicdance_tpu_torch.ops.schedules import make_ddim_schedule
+    from magicdance_tpu_torch.sampling.ddim import ddim_sample
+    from magicdance_tpu_torch.utils.profiling import annotate, device_busy_ms, top_ops, trace
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    pose = torch.rand(frames, 512, 512, 3, generator=gen, device="cuda")
+    ref = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    x_T = torch.randn(frames, 64, 64, 4, generator=gen, device="cuda")
+    ctx, ref_lat = pipe.encode_empty(1), pipe.encode_reference(ref)
+    scfg = SampleConfig(steps=1)
+    ddim = make_ddim_schedule(pipe.sched, 1)
+
+    def step():
+        return ddim_sample(pipe.model, pipe.sched, ddim, scfg, x_T, ctx, ctx,
+                           reference_latent=ref_lat, pose_hint=pose)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace(out_dir, name="ddim_step") as prof:
+        with annotate("ddim_step"):
+            step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    top = top_ops(prof, n=10)
+    every = top_ops(prof, n=10**6)
+    total = sum(r["total_ms"] for r in every)
+    busy, span = device_busy_ms(prof)
+    if not top:
+        raise AssertionError("the profiler recorded no device activity")
+    path = os.path.join(out_dir, "ddim_step.json")
+    log(f"  one DDIM step (F = {frames}) profiled: {wall:.1f} ms wall with the profiler on; "
+        f"{len(every)} device operation names, {sum(r['count'] for r in every)} launches, "
+        f"{total:.3f} ms of device time, busy {busy:.3f} of a {span:.3f} ms span (idle "
+        f"{1 - busy / span:.1%}); trace {os.path.relpath(path, ROOT)} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB)")
+    for i, r in enumerate(top, 1):
+        log(f"  {i:2d}. {r['total_ms']:8.3f} ms  x{r['count']:<4d} {r['name'][:120]}")
+    return dict(wall_ms=wall, device_total_ms=total, busy_ms=busy, span_ms=span, top=top,
+                trace=os.path.relpath(path, ROOT))
 
 
 # --------------------------------------------------------------------------
@@ -2405,6 +2667,9 @@ def main(argv=None) -> int:
             if bad:
                 raise AssertionError(f"{name}: spill bytes at the full-width widths {bad}")
 
+    log("== phase 2b: kernel gate (ops/kernel_gate.py::run_gate, production cases)")
+    gate = kernel_gate()
+
     log("== phase 3: kernels vs plain versions")
     rows, errs, ratios, checked = check_kernels(frames)
 
@@ -2521,6 +2786,36 @@ def main(argv=None) -> int:
     probe, probe_launches = head_packing_probe()
     torch.cuda.empty_cache()
 
+    log(f"== phase 19: DUAL_CONTROL image serving (pose and image ControlNets, full SD1.5 "
+        f"width, {requests} x {frames} frames at 512x512, DDIM-{steps}), exact then turbo")
+    small_dual = small_dual_check()
+    dual_cfg = dual_model_config()
+    dpipe = MagicPosePipeline(dual_cfg, device="cuda")
+    dpipe.init_params(seed=0)
+    dual = {}
+    for label, scfg in (("exact", SampleConfig(steps=steps)),
+                        ("turbo", SampleConfig(steps=steps, **TURBO))):
+        dplan = request_launch_plan(dual_cfg, 64, frames, scfg)
+        log(f"  {label}: launch plan per DDIM step "
+            f"{ {m: n / steps for m, n in dplan.items()} }")
+        dual[label] = serve_requests(dpipe, scfg, requests, frames, dplan,
+                                     f"DUAL_CONTROL {label}", image_hints=True)
+    del dpipe
+    torch.cuda.empty_cache()
+
+    sampler_steps = 25
+    log(f"== phase 20: PLMS, DPM-Solver++ 2M and 3M (SDE, sde_eta=1) (full SD1.5 width, 1 "
+        f"request x {frames} frames at 512x512 each, {sampler_steps} steps, CFG 7)")
+    spipe = MagicPosePipeline(model_cfg, device="cuda")
+    spipe.init_params(seed=0)
+    samplers = sampler_requests(spipe, frames, sampler_steps)
+
+    log("== phase 21: profile of one exact image DDIM step (utils/profiling.trace, "
+        "torch.profiler)")
+    profile = profile_ddim_step(spipe, frames, os.path.join(ROOT, "chiprun_out", "profile"))
+    del spipe
+    torch.cuda.empty_cache()
+
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
 
@@ -2537,7 +2832,11 @@ def main(argv=None) -> int:
              **{f"image serving, {label} (2 requests x {r['steps']} DDIM steps)": r["launches"]
                 for label, r in served.items()},
              "video serving, turbo (2 requests x 50 DDIM steps)": video_turbo["launches"],
-             "head-packing probe (P1-P4)": probe_launches}
+             "head-packing probe (P1-P4)": probe_launches,
+             **{f"DUAL_CONTROL image serving, {label} (2 requests x 50 DDIM steps)": r["launches"]
+                for label, r in dual.items()},
+             **{f"image serving, {name} (1 request x {sampler_steps} steps)":
+                samplers[name]["launches"] for name in SAMPLERS}}
     kernels = []
     for name, meta in KERNELS.items():
         by_path = {p: sum(launches.get(m, 0) for m in meta["modes"])
@@ -2642,7 +2941,8 @@ def main(argv=None) -> int:
                            fused_and_pooled_shapes=fused_rows, groupnorm_shapes=gn_rows,
                            small_turbo=small_turbo, served=served, video_turbo=video_turbo,
                            packed_shapes=packed_rows, head_packing_probe=probe,
-                           kernels=kernels), f, indent=1)
+                           kernel_gate=gate, small_dual=small_dual, dual_control=dual,
+                           samplers=samplers, profile=profile, kernels=kernels), f, indent=1)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

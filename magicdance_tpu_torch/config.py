@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import typing
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -360,6 +361,13 @@ def _to_tuple(x: Any) -> Any:
     return x
 
 
+def _optional_dataclass(cls, name: str):
+    """The dataclass X of a field annotated Optional[X], else None."""
+    hint = typing.get_type_hints(cls).get(name)
+    args = [a for a in typing.get_args(hint) if a is not type(None)]
+    return args[0] if len(args) == 1 and dataclasses.is_dataclass(args[0]) else None
+
+
 def from_dict(cls, d: dict[str, Any]):
     """Recursively build a (frozen) dataclass from a plain dict."""
     if not dataclasses.is_dataclass(cls):
@@ -374,6 +382,9 @@ def from_dict(cls, d: dict[str, Any]):
         declared = f.default_factory() if f.default_factory is not dataclasses.MISSING else f.default  # type: ignore[misc]
         if isinstance(v, dict) and dataclasses.is_dataclass(declared):
             kwargs[k] = from_dict(type(declared), v)
+        elif isinstance(v, dict) and _optional_dataclass(cls, k) is not None:
+            # a nested config whose default is None (ModelConfig.image_control)
+            kwargs[k] = from_dict(_optional_dataclass(cls, k), v)
         elif isinstance(declared, enum.Enum) and isinstance(v, str):
             kwargs[k] = type(declared)(v)
         else:

@@ -6,7 +6,8 @@ learned position embeddings over 77 tokens, final LayerNorm; returns
 last_hidden_state (B, 77, 768) in fp32. Its 77-token causal attention is
 plain PyTorch math (fp32 logits and softmax), as it was plain XLA in JAX.
 It computes in fp32 whatever dtype its weights are stored in (a trainer
-keeps the frozen CLIP in bf16 storage).
+keeps the frozen CLIP in bf16 storage). `encode_long_prompt` encodes prompts
+longer than one window in windows.
 """
 
 from __future__ import annotations
@@ -86,3 +87,25 @@ class CLIPTextEncoder(nn.Module):
                             self.final_layer_norm.weight.float(),
                             self.final_layer_norm.bias.float(),
                             self.final_layer_norm.eps)
+
+
+def encode_long_prompt(encoder: CLIPTextEncoder, token_ids: torch.Tensor,
+                       windows: int = 3) -> torch.Tensor:
+    """Prompts longer than the encoder's window, encoded in windows: the raw
+    ids are cut (or padded with EOS) to `windows` chunks of max_length - 2
+    tokens, each chunk wrapped in BOS/EOS and encoded alone, and the hidden
+    states concatenated along the sequence (ref cldm/hack.py:32).
+
+    token_ids: (B, n) raw BPE ids without BOS/EOS. Returns
+    (B, windows * max_length, hidden) fp32."""
+    cfg = encoder.cfg
+    body = cfg.max_length - 2
+    b, n = token_ids.shape
+    total = windows * body
+    pad = torch.full((b, max(0, total - n)), cfg.eos_token_id, dtype=token_ids.dtype,
+                     device=token_ids.device)
+    ids = torch.cat([token_ids[:, :total], pad], dim=1)
+    bos = torch.full((b, 1), cfg.bos_token_id, dtype=ids.dtype, device=ids.device)
+    eos = torch.full((b, 1), cfg.eos_token_id, dtype=ids.dtype, device=ids.device)
+    return torch.cat([encoder(torch.cat([bos, ids[:, w * body:(w + 1) * body], eos], dim=1))
+                      for w in range(windows)], dim=1)

@@ -1,10 +1,16 @@
-"""MagicPose composed denoiser: main UNet + appearance UNet + pose ControlNet.
+"""MagicPose composed denoiser: main UNet + appearance UNet + pose ControlNet
+(+ the image ControlNet of the DUAL_CONTROL variant).
 
-Counterpart of `magicdance_tpu.models.magicpose.MagicPoseModel` without the
-image-control branch (DUAL_CONTROL raises): the appearance branch is a second
-UNet run on the reference latent in bank-write mode; the pose branch returns
-the 13 ControlNet residuals; the CFG uncond pass (`uc=True`) is a vanilla SD
-forward that skips both branches. With motion modules (the temporal variant)
+Counterpart of `magicdance_tpu.models.magicpose.MagicPoseModel`: the
+appearance branch is a second UNet run on the reference latent in bank-write
+mode; the pose branch returns the 13 ControlNet residuals, and under
+DUAL_CONTROL a second ControlNet (`image_control_model`) on an image hint
+returns 13 more, summed position by position with the pose branch's; the CFG
+uncond pass (`uc=True`) is a vanilla SD forward that skips every branch.
+`concat_cond` (mask / masked-latent channels of the inpaint variants) is
+concatenated onto the noisy latent's channels before the UNet and the
+ControlNets (`cfg.unet.in_channels` counts them; the appearance UNet reads
+the bare reference latent). With motion modules (the temporal variant)
 the batch holds clips of `num_frames` frames, clip major; the appearance
 UNet and the ControlNet stay per frame, and one reference per clip serves its
 frames. The sampler's turbo levers reach the networks through `forward`
@@ -30,10 +36,12 @@ from magicdance_tpu_torch.models.unet import Bank, UNet
 
 def appearance_unet_config(cfg: ModelConfig) -> UNetConfig:
     """The appearance branch shares the UNet architecture, never with motion
-    modules."""
+    modules. It reads the reference latent alone, without the concat_cond
+    channels: its input has the latent's channels (`out_channels`), as the
+    JAX module's conv_in takes them from its input."""
     u = cfg.unet
     return UNetConfig(
-        in_channels=u.in_channels, out_channels=u.out_channels,
+        in_channels=u.out_channels, out_channels=u.out_channels,
         model_channels=u.model_channels, channel_mult=u.channel_mult,
         num_res_blocks=u.num_res_blocks,
         attention_resolutions=u.attention_resolutions, num_heads=u.num_heads,
@@ -58,8 +66,6 @@ class MagicPoseModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.has_image_control:
-            raise NotImplementedError("the image-control branch is not ported yet")
         self.cfg = cfg
         self.unet = UNet(cfg.unet)
         if cfg.has_appearance:
@@ -67,8 +73,14 @@ class MagicPoseModel(nn.Module):
         if cfg.has_pose:
             self.pose_control = PoseControlNet(cfg.pose_control,
                                                in_channels=cfg.unet.in_channels)
+        if cfg.has_image_control:
+            # the second ControlNet (image hint); None -> the pose branch's
+            # architecture
+            self.image_control_model = PoseControlNet(cfg.image_control or cfg.pose_control,
+                                                      in_channels=cfg.unet.in_channels)
         for net in (self.unet, getattr(self, "appearance_unet", None),
-                    getattr(self, "pose_control", None)):
+                    getattr(self, "pose_control", None),
+                    getattr(self, "image_control_model", None)):
             if net is not None:
                 net.compute_dtype = model_dtype(cfg)
 
@@ -79,25 +91,44 @@ class MagicPoseModel(nn.Module):
                                        collect_bank=True)
         return bank
 
+    def compute_pose_residuals(self, x_noisy: torch.Tensor, pose_hint: torch.Tensor,
+                               timesteps: torch.Tensor, context: torch.Tensor,
+                               self_kv_pool: int = 1, self_kv_min_seq: int = 4096
+                               ) -> Tuple[torch.Tensor, ...]:
+        """The pose branch alone: its 13 residuals."""
+        return self.pose_control(x_noisy, pose_hint, timesteps, context,
+                                 self_kv_pool, self_kv_min_seq)
+
     def compute_control_residuals(self, x_noisy: torch.Tensor,
                                   pose_hint: Optional[torch.Tensor],
                                   timesteps: torch.Tensor,
                                   context: torch.Tensor, self_kv_pool: int = 1,
-                                  self_kv_min_seq: int = 4096
+                                  self_kv_min_seq: int = 4096,
+                                  image_hint: Optional[torch.Tensor] = None
                                   ) -> Optional[Tuple[torch.Tensor, ...]]:
-        """The pose branch's 13 residuals, or None without a pose branch/hint
-        (the quantity the turbo sampler caches)."""
+        """Every residual branch summed position by position: the pose
+        ControlNet's 13 residuals plus, under DUAL_CONTROL with an
+        `image_hint`, the image ControlNet's; None without a branch or hint.
+        The sum is the quantity the turbo sampler caches, so reuse keeps
+        both branches."""
+        res = None
         if self.cfg.has_pose and pose_hint is not None:
-            return self.pose_control(x_noisy, pose_hint, timesteps, context,
-                                     self_kv_pool, self_kv_min_seq)
-        return None
+            res = self.compute_pose_residuals(x_noisy, pose_hint, timesteps, context,
+                                              self_kv_pool, self_kv_min_seq)
+        if self.cfg.has_image_control and image_hint is not None:
+            ir = self.image_control_model(x_noisy, image_hint, timesteps, context,
+                                          self_kv_pool, self_kv_min_seq)
+            res = ir if res is None else tuple(a + b for a, b in zip(res, ir))
+        return res
 
     def forward(self, x_noisy: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor, *,
                 reference_noisy: Optional[torch.Tensor] = None,
                 pose_hint: Optional[torch.Tensor] = None,
+                image_hint: Optional[torch.Tensor] = None,
                 bank: Optional[Bank] = None, uc: bool = False,
                 num_frames: int = 1,
+                concat_cond: Optional[torch.Tensor] = None,
                 pose_residuals: Optional[Tuple[torch.Tensor, ...]] = None,
                 collect_deep: bool = False,
                 deep_cache_in: Optional[torch.Tensor] = None,
@@ -107,14 +138,19 @@ class MagicPoseModel(nn.Module):
         computed inline: the training path, one reference per sample, per
         clip, or one for every frame) or a precomputed `bank`; `uc=True` is
         the CFG uncond vanilla-SD pass. `num_frames`: frames per clip for the
-        motion modules. `pose_residuals`, if given, replace the pose branch
-        (the turbo cache); `collect_deep` / `deep_cache_in` / `deep_level`
-        are the UNet's DeepCache arguments (with collect_deep the return is
-        (eps, deep feature)); `self_kv_pool` / `self_kv_min_seq` pool the
-        self keys/values of the main UNet and the ControlNet."""
+        motion modules. `image_hint` (B, H, W, 3): the DUAL_CONTROL image
+        ControlNet's hint. `concat_cond` (B, h, w, C'): channels concatenated
+        onto x_noisy. `pose_residuals`, if given, replace every control
+        branch (the turbo cache holds their sum); `collect_deep` /
+        `deep_cache_in` / `deep_level` are the UNet's DeepCache arguments
+        (with collect_deep the return is (eps, deep feature)); `self_kv_pool`
+        / `self_kv_min_seq` pool the self keys/values of the main UNet and the
+        ControlNets."""
         deep_kw = dict(collect_deep=collect_deep, deep_cache_in=deep_cache_in,
                        deep_level=deep_level, self_kv_pool=self_kv_pool,
                        self_kv_min_seq=self_kv_min_seq)
+        if concat_cond is not None:
+            x_noisy = torch.cat([x_noisy, concat_cond.to(x_noisy.dtype)], dim=-1)
         if uc:
             res = self.unet(x_noisy, timesteps, context, num_frames=num_frames, **deep_kw)
             return (res[0], res[2]) if collect_deep else res[0]
@@ -137,7 +173,8 @@ class MagicPoseModel(nn.Module):
                 bank = _repeat_bank(bank, b)
         if pose_residuals is None:
             pose_residuals = self.compute_control_residuals(
-                x_noisy, pose_hint, timesteps, context, self_kv_pool, self_kv_min_seq)
+                x_noisy, pose_hint, timesteps, context, self_kv_pool, self_kv_min_seq,
+                image_hint=image_hint)
         res = self.unet(x_noisy, timesteps, context, bank=bank,
                         pose_residuals=pose_residuals, num_frames=num_frames, **deep_kw)
         return (res[0], res[2]) if collect_deep else res[0]
@@ -146,11 +183,12 @@ class MagicPoseModel(nn.Module):
                       context: torch.Tensor, uncond_context: torch.Tensor, *,
                       bank: Optional[Bank] = None,
                       pose_hint: Optional[torch.Tensor] = None,
+                      image_hint: Optional[torch.Tensor] = None,
                       num_frames: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fused classifier-free guidance: the cond and uncond passes as one
         UNet forward over 2B rows. Uncond rows read the bank through a gate
-        of 0 (exactly plain self-attention) and get zero pose residuals: the
-        `controlnet_important` uncond pass, whatever `control_mode` asks for
+        of 0 (exactly plain self-attention) and get zero control residuals:
+        the `controlnet_important` uncond pass, whatever `control_mode` asks for
         (as in JAX). Returns (eps_cond, eps_uncond), each (B, h, w, 4)."""
         b = x_noisy.shape[0]
         xx = torch.cat([x_noisy, x_noisy])
@@ -158,7 +196,8 @@ class MagicPoseModel(nn.Module):
         cc = torch.cat([context.expand(b, *context.shape[1:]),
                         uncond_context.expand(b, *uncond_context.shape[1:])])
         mask = torch.cat([torch.ones(b), torch.zeros(b)]).to(x_noisy.device)
-        residuals = self.compute_control_residuals(x_noisy, pose_hint, timesteps, context)
+        residuals = self.compute_control_residuals(x_noisy, pose_hint, timesteps, context,
+                                                   image_hint=image_hint)
         if residuals is not None:
             residuals = tuple(torch.cat([r, torch.zeros_like(r)]) for r in residuals)
         if bank is not None and self.cfg.has_appearance:

@@ -173,6 +173,11 @@ class GaussianPosterior(NamedTuple):
         parity test)."""
         return self.mean + torch.exp(0.5 * self.logvar) * noise.to(self.mean)
 
+    def kl(self) -> torch.Tensor:
+        """KL divergence to N(0, I), summed over each sample: (B,)."""
+        var = torch.exp(self.logvar)
+        return 0.5 * torch.sum(self.mean**2 + var - 1.0 - self.logvar, dim=(1, 2, 3))
+
 
 class AutoencoderKL(nn.Module):
     def __init__(self, cfg: VAEConfig):

@@ -149,6 +149,20 @@ def predict_eps_from_v(sched: DiffusionSchedule, x_t: torch.Tensor,
             + _extract(sched.sqrt_one_minus_alphas_cumprod, t, x_t) * x_t)
 
 
+def predict_start_from_noise(sched: DiffusionSchedule, x_t: torch.Tensor,
+                             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """x_0 from x_t and an eps prediction."""
+    return (_extract(sched.sqrt_recip_alphas_cumprod, t, x_t) * x_t
+            - _extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t) * noise)
+
+
+def predict_start_from_z_and_v(sched: DiffusionSchedule, x_t: torch.Tensor,
+                               t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """x_0 from x_t and a v-prediction."""
+    return (_extract(sched.sqrt_alphas_cumprod, t, x_t) * x_t
+            - _extract(sched.sqrt_one_minus_alphas_cumprod, t, x_t) * v)
+
+
 class DDIMSchedule(NamedTuple):
     """Per-sampling-step arrays, shape (S,), ordered t ascending."""
 

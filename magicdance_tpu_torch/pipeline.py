@@ -128,10 +128,13 @@ class MagicPosePipeline:
         x_T: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         window_offsets: Optional[Sequence[int]] = None,
+        image_hints: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """pose_maps: (F, H, W, 3) in [0, 1] or None; reference_image:
-        (1, H, W, 3) in [-1, 1] or None. Returns (F, H, W, 3) images in
-        [-1, 1] (or (F, H/8, W/8, 4) latents with decode=False).
+        (1, H, W, 3) in [-1, 1] or None; image_hints: (F, H, W, 3) in [0, 1],
+        the second ControlNet's hints (DUAL_CONTROL variant), or None.
+        Returns (F, H, W, 3) images in [-1, 1] (or (F, H/8, W/8, 4) latents
+        with decode=False).
 
         x_T: optional (F, h, w, 4) initial noise; otherwise it is drawn from
         `generator` (a torch.Generator on the pipeline's device), one draw
@@ -141,6 +144,8 @@ class MagicPosePipeline:
         any other variant it samples images, as in JAX."""
         cfg = self.cfg
         video = video and cfg.has_temporal
+        if image_hints is not None:
+            image_hints = image_hints.to(self.device)
         if pose_maps is not None:
             F, H = pose_maps.shape[0], pose_maps.shape[1]
             pose_maps = pose_maps.to(self.device)
@@ -157,7 +162,7 @@ class MagicPosePipeline:
             x_T = x_T.expand(F, latent, latent, 4)
         x_T = x_T.to(self.device, torch.float32).contiguous()
         ddim = make_ddim_schedule(self.sched, scfg.steps, eta=scfg.eta)
-        kw = dict(reference_latent=ref_latent, pose_hint=pose_maps,
+        kw = dict(reference_latent=ref_latent, pose_hint=pose_maps, image_hint=image_hints,
                   parameterization=cfg.diffusion.parameterization, generator=generator)
         if video:
             lat = ddim_sample_video(self.model, self.sched, ddim, scfg, x_T, ctx, uctx,

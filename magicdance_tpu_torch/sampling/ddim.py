@@ -19,7 +19,13 @@ pools the bank entries (`downsample_bank`) and `self_kv_downsample` the self
 keys/values of the read and plain passes. JAX's quirks hold: with
 `fused_cfg` the turbo flags are ignored; with `cfg_scale == 1` there is no
 CFG, so `fused_cfg` and `cfg_interval` do nothing; `fused_cfg` with
-`self_kv_downsample > 1` is refused.
+`self_kv_downsample > 1` is refused. Under DUAL_CONTROL an `image_hint`
+feeds the second ControlNet in every branch; the `pose_every` cache holds
+the summed residuals of both ControlNets.
+
+`make_eps_fn` is the per-step conditioning of the exact path (bank write
+pass, control branches, cond pass, CFG against a vanilla-SD uncond pass)
+as one eps closure: the PLMS and DPM-Solver++ samplers build on it.
 """
 
 from __future__ import annotations
@@ -191,6 +197,7 @@ def ddim_sample(
     *,
     reference_latent: Optional[torch.Tensor] = None,
     pose_hint: Optional[torch.Tensor] = None,
+    image_hint: Optional[torch.Tensor] = None,
     parameterization: Parameterization = Parameterization.EPS,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
@@ -198,7 +205,8 @@ def ddim_sample(
 
     model: a MagicPoseModel. x_T: (B, h, w, 4); context / uncond_context:
     (1 or B, 77, context_dim); reference_latent: (Br, h, w, 4), Br in {1, B};
-    pose_hint: (B, H, W, 3). `generator` supplies the noise when eta > 0 or
+    pose_hint: (B, H, W, 3); image_hint: (B, H, W, 3), the DUAL_CONTROL
+    image ControlNet's hint. `generator` supplies the noise when eta > 0 or
     wonoise is off; with the default recipe the sampler draws nothing."""
     check_control_mode(scfg)
     if scfg.self_kv_downsample > 1 and scfg.fused_cfg:
@@ -207,7 +215,8 @@ def ddim_sample(
     B = x_T.shape[0]
     use_cfg = scfg.cfg_scale != 1.0 and uncond_context is not None
     has_appearance = reference_latent is not None and model.cfg.has_appearance
-    has_controls = pose_hint is not None and model.cfg.has_pose
+    has_controls = (pose_hint is not None and model.cfg.has_pose) or (
+        image_hint is not None and model.cfg.has_image_control)
     plan = TurboPlan(scfg, sched, ddim, use_cfg, has_appearance, has_controls, scfg.fused_cfg)
     kv_kw = self_kv_kwargs(scfg)
     fused = use_cfg and scfg.fused_cfg
@@ -247,16 +256,18 @@ def ddim_sample(
 
         if fused:
             out_c, out_u = model.cfg_fused_eps(x, t, ctx, uctx, bank=bank,
-                                               pose_hint=pose_hint)
+                                               pose_hint=pose_hint, image_hint=image_hint)
             eps_c, eps_u = to_eps(out_c, x, t), to_eps(out_u, x, t)
             eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
         else:
             pose_kw = {}
             if plan.pose_reuse:
                 if plan.pose_refresh[step]:
-                    pose_res = model.compute_control_residuals(x, pose_hint, t, ctx, **kv_kw)
+                    pose_res = model.compute_control_residuals(x, pose_hint, t, ctx,
+                                                               image_hint=image_hint, **kv_kw)
                 pose_kw = dict(pose_residuals=pose_res)
-            cond_kw = dict(bank=bank, pose_hint=pose_hint, **pose_kw, **kv_kw)
+            cond_kw = dict(bank=bank, pose_hint=pose_hint, image_hint=image_hint, **pose_kw,
+                           **kv_kw)
             if plan.deepcache and plan.deep_refresh[step]:
                 out_c, deep = model(x, t, ctx, collect_deep=True,
                                     deep_level=plan.deep_level, **cond_kw)
@@ -293,3 +304,48 @@ def ddim_sample(
         x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
                          ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
     return x
+
+
+def make_eps_fn(model, sched: DiffusionSchedule, scfg: SampleConfig, batch: int,
+                context: torch.Tensor, uncond_context: Optional[torch.Tensor],
+                reference_latent: Optional[torch.Tensor], pose_hint: Optional[torch.Tensor],
+                parameterization: Parameterization,
+                generator: Optional[torch.Generator]):
+    """eps(x, t_scalar) of the exact recipe at one timestep: the bank write
+    pass on the reference (clean under `wonoise`, else noised to t with a
+    draw from `generator`), the cond pass with the control branches, and,
+    with CFG, the vanilla-SD uncond pass combined as eu + s (ec - eu). The
+    model outputs are turned into eps for V-parameterized models. One
+    function for the PLMS and DPM-Solver++ samplers, as the JAX package's
+    `eps_at` / `x0_at` closures are one recipe."""
+    use_cfg = scfg.cfg_scale != 1.0 and uncond_context is not None
+    has_appearance = reference_latent is not None and model.cfg.has_appearance
+
+    def tile(c):
+        if c is None:
+            return None
+        return c.expand(batch, *c.shape[1:]) if c.shape[0] == 1 else c
+
+    ctx, uctx = tile(context), tile(uncond_context)
+    ref_ctx = context[:1]
+
+    def eps_at(x: torch.Tensor, t_scalar: int) -> torch.Tensor:
+        t = torch.full((batch,), t_scalar, dtype=torch.int64, device=x.device)
+        bank = None
+        if has_appearance:
+            t_ref = torch.full((reference_latent.shape[0],), t_scalar, dtype=torch.int64,
+                               device=x.device)
+            ref_noisy = reference_latent
+            if not scfg.wonoise:
+                noise = torch.randn(reference_latent.shape, generator=generator,
+                                    device=x.device, dtype=reference_latent.dtype)
+                ref_noisy = q_sample(sched, reference_latent, t_ref, noise)
+            bank = model.compute_bank(ref_noisy, t_ref, ref_ctx)
+        e = output_to_eps(parameterization, sched, model(x, t, ctx, bank=bank,
+                                                         pose_hint=pose_hint), x, t)
+        if use_cfg:
+            eu = output_to_eps(parameterization, sched, model(x, t, uctx, uc=True), x, t)
+            e = eu + scfg.cfg_scale * (e - eu)
+        return e
+
+    return eps_at

@@ -63,6 +63,7 @@ def ddim_sample_video(
     *,
     reference_latent: Optional[torch.Tensor] = None,
     pose_hint: Optional[torch.Tensor] = None,
+    image_hint: Optional[torch.Tensor] = None,
     parameterization: Parameterization = Parameterization.EPS,
     window_offsets: Optional[Sequence[int]] = None,
     generator: Optional[torch.Generator] = None,
@@ -72,10 +73,12 @@ def ddim_sample_video(
 
     model: a MagicPoseModel with motion modules; context / uncond_context:
     (1, 77, context_dim); reference_latent: (1, h, w, 4); pose_hint:
-    (F, H, W, 3). `window_offsets`: the per-step cyclic offsets (S ints in
-    [0, F)), else drawn from `generator`, which also supplies the noise when
-    eta > 0 or wonoise is off. The uncond pass is the vanilla-SD forward, as
-    in the JAX video sampler."""
+    (F, H, W, 3); image_hint: (F, H, W, 3), the DUAL_CONTROL image
+    ControlNet's hint, gathered per window as the pose maps are.
+    `window_offsets`: the per-step cyclic offsets (S ints in [0, F)), else
+    drawn from `generator`, which also supplies the noise when eta > 0 or
+    wonoise is off. The uncond pass is the vanilla-SD forward, as in the JAX
+    video sampler."""
     check_control_mode(scfg)
     if window_sharding is not None:
         raise NotImplementedError("window_sharding is not ported yet (one device)")
@@ -94,7 +97,8 @@ def ddim_sample_video(
         raise ValueError(f"window_offsets: expected {S} offsets, got {tuple(offsets.shape)}")
     use_cfg = scfg.cfg_scale != 1.0 and uncond_context is not None
     has_appearance = reference_latent is not None and model.cfg.has_appearance
-    has_controls = pose_hint is not None and model.cfg.has_pose
+    has_controls = (pose_hint is not None and model.cfg.has_pose) or (
+        image_hint is not None and model.cfg.has_image_control)
     plan = TurboPlan(scfg, sched, ddim, use_cfg, has_appearance, has_controls,
                      fused_cfg=False)
     kv_kw = self_kv_kwargs(scfg)
@@ -137,13 +141,16 @@ def ddim_sample_video(
                                    scfg.bank_downsample, scfg.bank_downsample_min_seq)
 
         hint_w = pose_hint[flat] if pose_hint is not None else None
+        ihint_w = image_hint[flat] if image_hint is not None else None
         pose_kw = {}
         if plan.pose_reuse:
             if plan.pose_refresh[step]:
-                res = model.compute_control_residuals(xw, hint_w, t, win_ctx, **kv_kw)
+                res = model.compute_control_residuals(xw, hint_w, t, win_ctx,
+                                                      image_hint=ihint_w, **kv_kw)
                 pose_frames = tuple(to_frames(r) for r in res)
             pose_kw = dict(pose_residuals=tuple(r[flat] for r in pose_frames))
-        cond_kw = dict(bank=bank, pose_hint=hint_w, num_frames=W, **pose_kw, **kv_kw)
+        cond_kw = dict(bank=bank, pose_hint=hint_w, image_hint=ihint_w, num_frames=W,
+                       **pose_kw, **kv_kw)
         if plan.deepcache and plan.deep_refresh[step]:
             out_c, d = model(xw, t, win_ctx, collect_deep=True, deep_level=plan.deep_level,
                              **cond_kw)

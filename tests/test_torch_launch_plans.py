@@ -165,3 +165,54 @@ def test_request_plans_match_counted_calls(monkeypatch, case):
     assert calls == plan
     mode = {"fused_cfg": "two_source_attention_gated", "fused_gn": "groupnorm_silu"}.get(case)
     assert mode is None or plan[mode] > 0
+
+
+def test_full_width_dual_control_plan():
+    """DUAL_CONTROL at SD1.5 width: no bank write and no bank read; per DDIM
+    step two ControlNets (6 kernel sites each), the cond and the uncond pass
+    (15 each), all self-attention."""
+    assert chip_smoke.serving_launch_plan(chip_smoke.dual_model_config(), 64, 2, 1) == {
+        "self_attention": 6 + 6 + 15 + 15}
+
+
+@pytest.mark.parametrize("case", ["dual_exact", "dual_turbo", "dual_fused", "plms", "dpmpp_2m",
+                                  "dpmpp_3m"])
+def test_dual_control_and_sampler_plans_match_counted_calls(monkeypatch, case):
+    """One narrow request at 128x128, two frames: DUAL_CONTROL (pose and image
+    hints) exact, with the control residuals refreshed every second step,
+    and under fused CFG; and the PLMS and DPM-Solver++ samplers on the image
+    model, whose every step makes one evaluation of the exact recipe."""
+    from magicdance_tpu_torch.sampling.dpm import dpmpp_2m_sample, dpmpp_3m_sample
+    from magicdance_tpu_torch.sampling.plms import plms_sample
+
+    dual = case.startswith("dual")
+    cfg = chip_smoke.narrow_dual_config() if dual else chip_smoke.narrow_model_config()
+    pipe = MagicPosePipeline(cfg, device="cpu")
+    pipe.init_params(seed=0, scale=0.1)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 16, 16, 4, generator=g)
+    hint = torch.rand(2, 128, 128, 3, generator=g)
+    ctx = torch.randn(1, 77, 16, generator=g)
+    kw = {"dual_turbo": dict(pose_every=2), "dual_fused": dict(fused_cfg=True)}.get(case, {})
+    scfg = T.SampleConfig(steps=3, **kw)
+    ddim = make_ddim_schedule(pipe.sched, scfg.steps)
+    calls = count_calls(monkeypatch)
+    if dual:
+        out = ddim_sample(pipe.model, pipe.sched, ddim, scfg, x, ctx, ctx, pose_hint=hint,
+                          image_hint=torch.rand(2, 128, 128, 3, generator=g))
+    else:
+        ref = dict(reference_latent=torch.randn(1, 16, 16, 4, generator=g), pose_hint=hint)
+        sampler = {"plms": lambda: plms_sample(pipe.model, pipe.sched, ddim, scfg, x, ctx, ctx,
+                                               **ref),
+                   "dpmpp_2m": lambda: dpmpp_2m_sample(pipe.model, pipe.sched, 3, scfg, x, ctx,
+                                                       ctx, **ref),
+                   "dpmpp_3m": lambda: dpmpp_3m_sample(pipe.model, pipe.sched, 3, scfg, x, ctx,
+                                                       ctx, sde_eta=1.0, generator=g, **ref)}
+        out = sampler[case]()
+    assert torch.isfinite(out).all()
+    plan = chip_smoke.request_launch_plan(cfg, 16, 2, scfg)
+    assert calls == plan
+    if dual:
+        assert set(plan) == {"self_attention"}
+    else:
+        assert plan == {m: 3 * n for m, n in chip_smoke.serving_launch_plan(cfg, 16, 2, 1).items()}

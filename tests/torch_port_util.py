@@ -98,6 +98,33 @@ def make_pipelines(jc: jcfg.ModelConfig, image_size: int = 64):
     return jp, tp
 
 
+def make_models(jc: jcfg.ModelConfig, image_size: int = 64):
+    """The JAX denoiser (module, params) and the port's on the CPU with the
+    same weights, without the VAE and CLIP: every leaf drawn with numpy on
+    the shapes of `jax.eval_shape` of the init (the hints and the reference
+    the config's branches take)."""
+    from magicdance_tpu_torch.models import MagicPoseModel as TModel
+
+    lat = image_size // 8
+    x = jnp.zeros((1, lat, lat, 4))
+    kw = {}
+    if jc.has_appearance:
+        kw["reference_noisy"] = x
+    for name, on in (("pose_hint", jc.has_pose), ("image_hint", jc.has_image_control)):
+        if on:
+            kw[name] = jnp.zeros((1, image_size, image_size, 3))
+    jm = JModel(jc)
+    params = {"params": jax.tree.map(jnp.asarray, shaped_random(
+        lambda: jm.init(jax.random.PRNGKey(0), x, jnp.zeros((1,), jnp.int32),
+                        jnp.zeros((1, jc.clip.max_length, jc.unet.context_dim)), **kw),
+        0)["params"])}
+    tm = TModel(port_cfg(jc)).eval().requires_grad_(False)
+    from magicdance_tpu_torch.convert.from_jax import load_flax_params
+
+    load_flax_params(tm, jax.tree.map(np.asarray, params))
+    return jm, params, tm
+
+
 def sample_both(jp, tp, steps: int, inputs: dict, video: bool = False, **scfg_kw):
     """The JAX sampler (`ddim_sample`, or `ddim_sample_video` with
     `video=True`) and the port's on the same numpy inputs {x_T, ctx, uctx,
