@@ -154,6 +154,28 @@ Phases, in order; every check raises, so any failure exits non-zero:
      (torch.profiler, CPU and CUDA activity): the ten device operations
      with the most total time and their counts, the Chrome trace written to
      chiprun_out/profile/ddim_step.json.
+  22. a reference checkpoint through the sampling CLI at full SD1.5 width:
+     a seeded state dict in the reference's current key layout
+     (`convert.torch_convert.reference_key_map(ModelConfig())`, one draw per
+     key at its reference shape) saved as an fp16 `.th` under chiprun_out/
+     (deleted at the end); `cli.sample.build_pipeline` with `--checkpoint`
+     it: every loaded parameter bit-equal to its drawn tensor cast to the
+     parameter's dtype; one request through `cli.sample.generate` on numpy
+     inputs (a seeded uint8 reference, F = 2 pose maps, 512x512, DDIM-50,
+     CFG 7) held to `request_launch_plan` and to uint8 frames from finite
+     images; then `--video` without a checkpoint (16 frames, one window,
+     DDIM-10) held to the video plan (kernels A, B and G); the file's
+     bytes, the seconds to save, to load and convert and of each request,
+     and the peak memory, with the card's name and power limit.
+  23. OpenPose: the body, hand and face nets (`models.openpose`, plain
+     convolutions and max-pools, no hand kernel) from seeded state dicts in
+     the reference checkpoints' key layouts through the port's converters,
+     on the card and on the CPU at the detector's inputs (368x368: a 512x512
+     frame resized to BOXSIZE and padded to stride 8; a hand or face ROI),
+     fp32, held to 2e-4 x max(1, max|CPU|); each net's milliseconds on the
+     card; with cv2 installed, the whole `OpenposeDetector` on one seeded
+     512x512 frame on both devices (equal keypoint counts) and its
+     milliseconds per frame.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
   gated mode, K8 and K9, launches by path, and each kernel's `body`: the
   device functions that run it in bf16 and fp32; kernel B's entry also sums
@@ -2495,6 +2517,272 @@ def profile_ddim_step(pipe, frames: int, out_dir: str):
 
 
 # --------------------------------------------------------------------------
+# phase 22: a reference checkpoint through the sampling CLI
+# --------------------------------------------------------------------------
+
+
+def cli_plan(cfg, scfg, frames: int, video: bool = False) -> dict:
+    """Kernel launches of one `cli.sample.generate` request: the sampler's
+    (`request_launch_plan`) plus the VAE's mid attention in one encode and
+    the decode's chunks of 8 (a kernel site only at narrow widths)."""
+    plan = dict(request_launch_plan(cfg, 64, frames, scfg, frames=frames if video else 1,
+                                    video=video))
+    for m, n in _vae_launches(cfg.vae, 64, 1 + -(-frames // 8)).items():
+        plan[m] = plan.get(m, 0) + n
+    return {m: n for m, n in plan.items() if n}
+
+
+def cli_request(args, pipe, ref, poses, label: str, card: str):
+    """`cli.sample.generate` on numpy inputs, held to `cli_plan` and to
+    uint8 frames of the right shape from finite, non-constant images."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from magicdance_tpu_torch.cli import sample as S
+    from magicdance_tpu_torch.ops import kernels as K
+
+    plan = cli_plan(pipe.cfg, S.sample_config(args), len(poses), video=args.video)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        # from_model_range warns on non-finite pixels: fail on them instead
+        warnings.simplefilter("error", RuntimeWarning)
+        frames = S.generate(args, pipe, ref, poses)
+    secs = time.perf_counter() - t0
+    launches = {m: n for m, n in K.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    want = (len(poses), args.size, args.size, 3)
+    if frames.dtype != np.uint8 or frames.shape != want or frames.std() == 0:
+        raise AssertionError(f"{label}: frames {frames.dtype} {frames.shape} (want uint8 "
+                             f"{want}), std {frames.std():.3f}")
+    if launches != plan:
+        raise AssertionError(f"{label}: launches {launches}, plan {plan}")
+    log(f"  {label}: 1 request x {len(poses)} frames, DDIM-{args.steps}, CFG {args.cfg}: "
+        f"{secs:.3f} s ({len(poses) / secs:.4f} frames/s), peak memory {peak / 2**30:.2f} GiB "
+        f"[{card}]; uint8 {frames.shape}; launches {launches} = plan")
+    return dict(seconds=secs, frames=len(poses), steps=args.steps, peak_bytes=peak,
+                launches=launches, plan=plan)
+
+
+def sample_cli_checkpoint(card: str, frames: int = 2, steps: int = 50, video_frames: int = 16,
+                          video_steps: int = 10):
+    """Phase 22: a seeded reference-layout `model_state` file for
+    `ModelConfig()` (the current layout: `model.diffusion_model.*`,
+    `appearance_control_model.*`, `pose_control_model.*`,
+    `first_stage_model.*`, `cond_stage_model.transformer.*`), one draw per
+    key of `convert.torch_convert.reference_key_map` at its reference shape,
+    saved as fp16; `cli.sample` with `--checkpoint` that file: every loaded
+    parameter bit-equal to its drawn tensor cast to the parameter's dtype,
+    one request through `generate` (F = `frames`, DDIM-`steps`, CFG 7) held to
+    its launch plan; then `--video` without a checkpoint (16 frames, one
+    window, DDIM-`video_steps`). The file is deleted at the end."""
+    import numpy as np
+    import torch
+
+    from magicdance_tpu_torch.cli import sample as S
+    from magicdance_tpu_torch.config import ModelConfig
+    from magicdance_tpu_torch.convert import torch_convert as TC
+    from magicdance_tpu_torch.data.transforms import to_hint_range, to_model_range
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    pairs = TC.reference_key_map(cfg)
+    shapes = TC.reference_shapes(cfg, pairs)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    drawn = {ref: (torch.randn(shape, generator=gen, device="cuda") * 0.02).half()
+             for ref, shape in shapes.items()}
+    n_params = sum(t.numel() for t in drawn.values())
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "phase22_model_state.th")
+    rs = np.random.RandomState(22)
+    ref = to_model_range(rs.randint(0, 256, (512, 512, 3)).astype(np.uint8))[None]
+    poses = to_hint_range(rs.randint(0, 256, (frames, 512, 512, 3)).astype(np.uint8))
+    out = {}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.save({k: v.cpu() for k, v in drawn.items()}, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        states = TC.convert_magicpose_state(TC.load_torch_state(path), cfg)
+        convert_s = time.perf_counter() - t0
+        del states
+        args = S.build_argparser().parse_args(
+            ["--checkpoint", path, "--reference", "(arrays)", "--pose_dir", "(arrays)",
+             "--output", out_dir, "--steps", str(steps), "--cfg", "7", "--seed", "22"])
+        t0 = time.perf_counter()
+        pipe = S.build_pipeline(args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        log(f"  {len(pairs)} reference keys, {n_params / 1e9:.3f} B parameters drawn on the "
+            f"card (fp16); saved {size} bytes in {save_s:.2f} s; load + convert alone "
+            f"{convert_s:.2f} s; cli.sample.build_pipeline (construct, load, convert, strict "
+            f"load onto the card) {build_s:.2f} s [{card}]")
+        params = {f"{name}.{k}": t for name in ("model", "vae", "clip")
+                  for k, t in getattr(pipe, name).state_dict().items()}
+        if len(params) != len(pairs):
+            raise AssertionError(f"{len(params)} parameters, {len(pairs)} reference keys")
+        bad = [port for ref_key, port in pairs
+               if not torch.equal(params[port], drawn[ref_key].to(params[port].dtype))]
+        dtypes = sorted({str(t.dtype) for t in params.values()})
+        if bad:
+            raise AssertionError(f"{len(bad)} loaded parameters differ from the drawn "
+                                 f"tensors, e.g. {bad[:5]}")
+        log(f"  every one of the {len(pairs)} parameters equals its drawn tensor cast to "
+            f"the parameter's dtype ({dtypes}), bit for bit on the card")
+        del drawn
+        out["image"] = cli_request(args, pipe, ref, poses, "cli.sample --checkpoint", card)
+        out.update(keys=len(pairs), parameters=n_params, file_bytes=size, save_s=save_s,
+                   load_convert_s=convert_s, build_pipeline_s=build_s)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    del pipe
+    torch.cuda.empty_cache()
+
+    vargs = S.build_argparser().parse_args(
+        ["--video", "--reference", "(arrays)", "--pose_dir", "(arrays)", "--output", out_dir,
+         "--steps", str(video_steps), "--seed", "22"])
+    t0 = time.perf_counter()
+    vpipe = S.build_pipeline(vargs)
+    torch.cuda.synchronize()
+    log(f"  cli.sample --video: temporal pipeline with seeded random weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    vposes = to_hint_range(rs.randint(0, 256, (video_frames, 512, 512, 3)).astype(np.uint8))
+    out["video"] = cli_request(vargs, vpipe, ref, vposes, "cli.sample --video", card)
+    del vpipe
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 22 in {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 23: OpenPose on the card
+# --------------------------------------------------------------------------
+
+
+class _KeyEcho(dict):
+    """Every key maps to itself: an OpenPose converter run on it returns
+    {port key: reference key}, the key table of its checkpoint."""
+
+    def __getitem__(self, key):
+        return key
+
+
+def openpose_nets(seed: int = 23):
+    """The body, hand and face nets on the CPU from seeded state dicts in the
+    `body_pose_model.pth` / `hand_pose_model.pth` / `facenet.pth` key layouts
+    (He-scaled weights, N(0, 0.1^2) biases), through the port's converters."""
+    import torch
+
+    from magicdance_tpu_torch.models import openpose as O
+
+    gen = torch.Generator().manual_seed(seed)
+    nets = {}
+    for name, make, convert in (("body", O.BodyPoseNet, O.convert_body_pose),
+                                ("hand", O.HandPoseNet, O.convert_hand_pose),
+                                ("face", O.FacePoseNet, O.convert_face_pose)):
+        net = make()
+        shapes = {k: v.shape for k, v in net.state_dict().items()}
+        sd = {}
+        for port, ref in sorted(convert(_KeyEcho()).items()):
+            shape = shapes[port]
+            scale = (2.0 / shape[1:].numel()) ** 0.5 if port.endswith(".weight") else 0.1
+            sd[ref] = torch.randn(shape, generator=gen) * scale
+        net.load_state_dict(convert(sd), strict=True)
+        nets[name] = net.eval()
+    return nets
+
+
+def openpose_on_card(card: str):
+    """Phase 23: the OpenPose nets on the card against the same nets on the
+    CPU (fp32, TF32 off) at the detector's inputs -- the body net on a
+    512x512 frame resized to BOXSIZE = 368 and padded to stride 8, the hand
+    and face nets on a ROI resized to 368 -- held to 2e-4 x max(1,
+    max|CPU|); the milliseconds of each net on the card; with cv2 present,
+    the whole `OpenposeDetector` on one seeded 512x512 frame on both devices:
+    equal keypoint counts, and its milliseconds per frame."""
+    import copy
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from magicdance_tpu_torch.data.openpose_detect import BOXSIZE, STRIDE
+    from magicdance_tpu_torch.utils.timing import device_time_ms
+
+    t_phase = time.perf_counter()
+    cpu_nets = openpose_nets()
+    gpu_nets = {k: copy.deepcopy(v).to("cuda") for k, v in cpu_nets.items()}
+    side = BOXSIZE + (-BOXSIZE) % STRIDE
+    gen = torch.Generator().manual_seed(230)
+    out = {}
+    for name in ("body", "hand", "face"):
+        x = torch.rand(1, 3, side, side, generator=gen) - 0.5
+        with torch.inference_mode():
+            want = cpu_nets[name](x)
+            got = gpu_nets[name](x.cuda())
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        tol = 2e-4 * max(1.0, scale)
+        xg = x.cuda()
+        with torch.inference_mode():
+            ms = device_time_ms(lambda: gpu_nets[name](xg), min_total_s=0.2, max_iters=20)
+        shapes = [tuple(g.shape) for g in got]
+        log(f"  {name} net at (1, 3, {side}, {side}): outputs {shapes}, card vs CPU max abs "
+            f"diff {err:.3e} (tol {tol:.3e}, max|CPU| {scale:.3f}); {ms:.3f} ms a call on "
+            f"the card [{card}]")
+        if not err <= tol:
+            raise AssertionError(f"{name} net: card vs CPU {err:.3e} > {tol:.3e}")
+        out[name] = dict(max_abs_err=err, tol=tol, max_abs_cpu=scale, ms=ms, input=[1, 3, side,
+                                                                                  side])
+    if importlib.util.find_spec("cv2") is None:
+        log("  cv2 is not installed here: the detector's host part (resize, peaks, PAF "
+            "grouping) is not run; the nets ran alone")
+    else:
+        from magicdance_tpu_torch.data.openpose_detect import OpenposeDetector
+        from magicdance_tpu_torch.data.pose import keypoint_quality
+
+        frame = np.random.RandomState(23).randint(0, 256, (512, 512, 3)).astype(np.uint8)
+        results = {}
+        for dev, nets in (("cpu", cpu_nets), ("cuda", gpu_nets)):
+            det = OpenposeDetector(device=dev)
+            det.nets.update(nets)
+            res = det(frame)
+            if dev == "cuda":  # the first call warmed it up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det(frame)
+                torch.cuda.synchronize()
+                out["detector_ms_per_frame"] = (time.perf_counter() - t0) * 1e3
+            results[dev] = dict(
+                people=len(res.body), body_keypoints=keypoint_quality(res),
+                hands=0 if res.hands is None else len(res.hands),
+                hand_keypoints=0 if res.hands is None else int((res.hands[..., 0] >= 0).sum()),
+                faces=0 if res.faces is None else len(res.faces),
+                face_keypoints=0 if res.faces is None else int((res.faces[..., 0] >= 0).sum()))
+        if results["cpu"] != results["cuda"]:
+            raise AssertionError(f"detector keypoint counts differ: {results}")
+        out["detector_counts"] = results["cuda"]
+        log(f"  OpenposeDetector (body, hands, faces) on a seeded 512x512 frame: keypoint "
+            f"counts {results['cuda']} on the card and the CPU alike; "
+            f"{out['detector_ms_per_frame']:.1f} ms per frame on the card (host clock, "
+            f"cv2 and the PAF grouping included) [{card}]")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 23 in {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 18: the head-packing probe and kernel K9
 # --------------------------------------------------------------------------
 
@@ -2816,6 +3104,15 @@ def main(argv=None) -> int:
     del spipe
     torch.cuda.empty_cache()
 
+    log(f"== phase 22: a reference checkpoint through the sampling CLI (full SD1.5 width, "
+        f"fp16 reference-layout file, 1 request x {frames} frames at 512x512, DDIM-{steps}; "
+        f"then --video, 16 frames, DDIM-10)")
+    cli = sample_cli_checkpoint(card, frames=frames, steps=steps)
+
+    log("== phase 23: OpenPose on the card (body, hand and face nets, card vs CPU in fp32; "
+        "the detector end to end)")
+    openpose = openpose_on_card(card)
+
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
 
@@ -2836,7 +3133,10 @@ def main(argv=None) -> int:
              **{f"DUAL_CONTROL image serving, {label} (2 requests x 50 DDIM steps)": r["launches"]
                 for label, r in dual.items()},
              **{f"image serving, {name} (1 request x {sampler_steps} steps)":
-                samplers[name]["launches"] for name in SAMPLERS}}
+                samplers[name]["launches"] for name in SAMPLERS},
+             f"sampling CLI --checkpoint (1 request x {steps} DDIM steps)":
+                cli["image"]["launches"],
+             "sampling CLI --video (1 request x 10 DDIM steps)": cli["video"]["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         by_path = {p: sum(launches.get(m, 0) for m in meta["modes"])
@@ -2942,7 +3242,8 @@ def main(argv=None) -> int:
                            small_turbo=small_turbo, served=served, video_turbo=video_turbo,
                            packed_shapes=packed_rows, head_packing_probe=probe,
                            kernel_gate=gate, small_dual=small_dual, dual_control=dual,
-                           samplers=samplers, profile=profile, kernels=kernels), f, indent=1)
+                           samplers=samplers, profile=profile, sample_cli=cli,
+                           openpose=openpose, kernels=kernels), f, indent=1)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -8,8 +8,11 @@ clips of `video_frames` frames folded into the batch. Stage selection is
 explicit (`--stage 1|2|3` or a JSON TrainConfig). Runs on the GPU unless
 `--device cpu`.
 
-Not ported yet: `--init_checkpoint` and `--motion_module_checkpoint` (the
-conversion slice) raise NotImplementedError. Without a checkpoint the
+`--init_checkpoint` takes a full reference checkpoint (`model_state-*.th`,
+`control_sd15_ini.ckpt`; it must hold the VAE and CLIP weights) through
+`convert.torch_convert`; `--motion_module_checkpoint` overlays AnimateDiff
+motion modules on the UNet (stage 3, ref train_tiktok.py:146-192). A resumed
+run restores its own checkpoint over either. Without a checkpoint the
 weights are seeded random (every leaf), which is for smoke runs.
 
 Usage:
@@ -32,10 +35,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data", required=True, help="TikTok-v4 root")
     p.add_argument("--output", required=True)
     p.add_argument("--init_checkpoint", default=None,
-                   help="torch checkpoint to initialize from (not ported yet)")
+                   help="reference torch checkpoint (.th/.ckpt, with VAE and CLIP "
+                        "weights) to initialize from")
     p.add_argument("--motion_module_checkpoint", default=None,
-                   help="AnimateDiff motion-module checkpoint for stage 3 "
-                        "(not ported yet)")
+                   help="AnimateDiff motion-module checkpoint for stage 3, merged "
+                        "onto the UNet")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--batch", type=int, default=None, help="per-device batch")
     p.add_argument("--lr", type=float, default=None)
@@ -49,11 +53,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
-    if args.init_checkpoint:
-        raise NotImplementedError("--init_checkpoint comes with the conversion slice")
-    if args.motion_module_checkpoint:
-        raise NotImplementedError("--motion_module_checkpoint comes with the conversion "
-                                  "slice")
 
     import numpy as np
     import torch
@@ -91,8 +90,32 @@ def main(argv=None) -> None:
     device = trainer.device
     global_batch = cfg.batch_size_per_device
     print(f"[train] device={device} global_batch={global_batch}")
-    print("[train] random init (no --init_checkpoint)")
-    trainer.init_random(seed=cfg.seed)
+    # ---- parameter init ---------------------------------------------------
+    from magicdance_tpu_torch.convert import torch_convert as TC
+
+    states = None
+    if args.init_checkpoint:
+        states = TC.convert_magicpose_state(TC.load_torch_state(args.init_checkpoint), cfg.model)
+        if "vae" not in states or "clip" not in states:
+            raise ValueError("checkpoint lacks VAE/CLIP weights; supply a full "
+                             "model_state/.ckpt file")
+    else:
+        print("[train] random init (no --init_checkpoint)")
+        trainer.init_random(seed=cfg.seed)
+    if args.motion_module_checkpoint:
+        # stage-3 surgery: AnimateDiff motion weights over the UNet's
+        # (merge_state_dict_mm, ref train_tiktok.py:146-192)
+        if states is None:
+            states = {name: getattr(trainer, name).state_dict()
+                      for name in ("model", "vae", "clip")}
+        mm = TC.convert_motion_modules(TC.load_torch_state(args.motion_module_checkpoint),
+                                       cfg.model.unet)
+        states["model"] = TC.merge_motion_state(states["model"],
+                                                {f"unet.{k}": v for k, v in mm.items()})
+        print(f"[train] merged {len({k.split('.')[0] for k in mm})} motion modules from "
+              f"{args.motion_module_checkpoint}")
+    if states is not None:
+        trainer.load_state_dicts(states["model"], states["vae"], states["clip"])
 
     ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"), cfg.save_total_limit)
     start_step = 0

@@ -4,8 +4,8 @@ The port's own copy of the model, sampling and training dataclasses: the
 variant enum, the UNet / ControlNet / VAE / CLIP / diffusion configs,
 `ModelConfig`, the DDIM `SampleConfig`, the freeze regimes, `OptimConfig`,
 `TrainConfig` and the three stage presets, plus `from_dict` / `to_dict` /
-`load_json` / `save_json`. Field names and defaults are those of the JAX
-package, so one JSON config drives either.
+`load_json` / `load_yaml` / `save_json`. Field names and defaults are those
+of the JAX package, so one JSON config drives either.
 """
 
 from __future__ import annotations
@@ -408,6 +408,15 @@ def to_dict(cfg) -> dict[str, Any]:
 def load_json(path: str, cls=TrainConfig):
     with open(path) as f:
         return from_dict(cls, json.load(f))
+
+
+def load_yaml(path: str, cls=TrainConfig):
+    try:
+        import yaml  # type: ignore
+    except ImportError as e:  # pragma: no cover
+        raise ImportError("pyyaml not available; use load_json") from e
+    with open(path) as f:
+        return from_dict(cls, yaml.safe_load(f))
 
 
 def save_json(cfg, path: str) -> None:

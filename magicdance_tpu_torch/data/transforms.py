@@ -9,19 +9,43 @@ All functions take/return HWC uint8 or float arrays (host side — this is the
 CPU half of the pipeline feeding device batches).
 
 The PyTorch port's own copy of the parts of `magicdance_tpu.data.transforms`
-that the training-pair dataset and the trainer's sample grid use (numpy and
-PIL only), so that the port imports nothing of the JAX package.
+that the training-pair dataset, the trainer's sample grid and the sampling
+CLI use (numpy and PIL only), so that the port imports nothing of the JAX
+package. PIL is imported where an image is resized, so the range
+conversions run without it.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from PIL import Image
 
 
-def resize(img: np.ndarray, size: int, method=Image.BICUBIC) -> np.ndarray:
+def remove_white_border(img: np.ndarray, thresh: int = 245) -> np.ndarray:
+    """Trim near-white margins (ref transforms.py:5 RemoveWhite)."""
+    gray = img.mean(axis=2)
+    rows = np.where(gray.min(axis=1) < thresh)[0]
+    cols = np.where(gray.min(axis=0) < thresh)[0]
+    if rows.size == 0 or cols.size == 0:
+        return img
+    return img[rows[0] : rows[-1] + 1, cols[0] : cols[-1] + 1]
+
+
+def center_crop_square(img: np.ndarray) -> np.ndarray:
+    """Crop the largest centered square (ref transforms.py:23 aspect-aware
+    CenterCrop; test_any_image_pose.py:46-82)."""
+    h, w = img.shape[:2]
+    s = min(h, w)
+    top = (h - s) // 2
+    left = (w - s) // 2
+    return img[top : top + s, left : left + s]
+
+
+def resize(img: np.ndarray, size: int, method=None) -> np.ndarray:
+    """Resize to size x size (PIL, bicubic unless `method` says)."""
+    from PIL import Image
+
     pil = Image.fromarray(img.astype(np.uint8))
-    return np.asarray(pil.resize((size, size), method))
+    return np.asarray(pil.resize((size, size), Image.BICUBIC if method is None else method))
 
 
 def random_resized_crop(
@@ -87,6 +111,16 @@ def from_model_range(img: np.ndarray) -> np.ndarray:
             stacklevel=2,
         )
     return np.clip(np.nan_to_num((img + 1.0) * 127.5), 0, 255).astype(np.uint8)
+
+
+def prepare_image(
+    img: np.ndarray, size: int = 512, crop_to_square: bool = True
+) -> np.ndarray:
+    """Inference-time reference/pose preprocessing: trim, square-crop, resize
+    (ref test_any_image_pose.py:46-82)."""
+    if crop_to_square:
+        img = center_crop_square(img)
+    return resize(img, size)
 
 
 def is_monochrome(img: np.ndarray, std_thresh: float = 10.0) -> bool:

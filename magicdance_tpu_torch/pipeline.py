@@ -77,6 +77,21 @@ class MagicPosePipeline:
             for p in m.parameters():
                 p.copy_(torch.randn(p.shape, generator=gen, device=self.device) * scale)
 
+    def load_state_dicts(self, states) -> None:
+        """{"model", "vae", "clip"} state dicts, e.g. a reference checkpoint
+        through `convert.torch_convert.convert_magicpose_state`; strict: a
+        network without weights, a missing or an unexpected key raises,
+        so nothing stays random. Each value is cast to its parameter's dtype
+        (the denoiser's is `model_dtype(cfg)`, bf16 by default)."""
+        from magicdance_tpu_torch.convert.torch_convert import load_strict
+
+        lacking = [name for name in ("model", "vae", "clip") if name not in states]
+        if lacking:
+            raise KeyError(f"no weights for {lacking}: the checkpoint lacks them; supply a "
+                           "full model_state/.ckpt file")
+        for name in ("model", "vae", "clip"):
+            load_strict(getattr(self, name), states[name], name)
+
     def load_jax_params(self, params) -> None:
         """The JAX pipeline's {"model", "vae", "clip"} tree (numpy leaves)."""
         from magicdance_tpu_torch.convert.from_jax import load_flax_params

@@ -285,13 +285,18 @@ class Trainer:
     def load_state_dicts(self, model: Mapping[str, torch.Tensor],
                          vae: Mapping[str, torch.Tensor],
                          clip: Mapping[str, torch.Tensor]) -> None:
-        """Full-precision weights for the three networks (strict), then the
-        partition; e.g. from `convert.from_jax.flax_to_state_dict`."""
-        for m, sd in ((self.model, model), (self.vae, vae), (self.clip, clip)):
+        """Weights for the three networks (strict: a missing or unexpected
+        key raises), loaded at full precision, then the partition; e.g. from
+        `convert.from_jax.flax_to_state_dict` or a reference checkpoint
+        through `convert.torch_convert.convert_magicpose_state`."""
+        from magicdance_tpu_torch.convert.torch_convert import load_strict
+
+        for name, m, sd in (("model", self.model, model), ("vae", self.vae, vae),
+                            ("clip", self.clip, clip)):
             with torch.no_grad():
                 for p in m.parameters():
                     p.data = p.data.float()
-            m.load_state_dict(sd, strict=True)
+            load_strict(m, sd, name)
         self._partition()
 
     @torch.no_grad()

@@ -230,10 +230,14 @@ def test_port_never_imports_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'magicdance_tpu'))\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('magicdance_tpu_torch')]))\n"
+        "print(' '.join(n for n in sys.modules if n.startswith('magicdance_tpu_torch')))\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    walked = set(out.stdout.split())
+    assert len(walked) >= 15
+    assert {f"magicdance_tpu_torch.{m}" for m in (
+        "cli.sample", "cli.detect_pose", "convert.torch_convert", "models.openpose",
+        "data.openpose_detect", "data.pose")} <= walked

@@ -160,6 +160,17 @@ def sample_both(jp, tp, steps: int, inputs: dict, video: bool = False, **scfg_kw
     return got, np.asarray(want)
 
 
+def reference_state(cfg: tcfg.ModelConfig, pairs, seed: int) -> dict:
+    """A reference-layout checkpoint for the port's `cfg`: one seeded draw
+    per reference key of `pairs` (from `convert.torch_convert`'s tables) at
+    its reference shape, N(0, 0.1^2), numpy float32."""
+    from magicdance_tpu_torch.convert.torch_convert import reference_shapes
+
+    rs = np.random.RandomState(seed)
+    return {ref: (0.1 * rs.standard_normal(shape)).astype(np.float32)
+            for ref, shape in reference_shapes(cfg, pairs).items()}
+
+
 def randomize(tree, seed: int):
     """Every leaf of a (nested dict) parameter tree drawn from numpy: kernels
     N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), biases and embeddings
