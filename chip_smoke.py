@@ -176,6 +176,20 @@ Phases, in order; every check raises, so any failure exits non-zero:
      card; with cv2 installed, the whole `OpenposeDetector` on one seeded
      512x512 frame on both devices (equal keypoint counts) and its
      milliseconds per frame.
+  24. evaluation: a seeded TikTok-layout tree (2 videos, each a reference and
+     8 targets at 512x512) through `cli.eval.main` at full SD1.5 width with
+     random weights, DDIM-50, CFG 7, --batch 8 (one F = 8 request a video),
+     the launches held to the request plan, seconds per request and
+     frames/s; `metrics.center.get_all_eval_scores` on the written tree with
+     every type (l1 mae ssim psnr lpips fid fid-img is fvd fid-vid) through
+     seeded full-width reference-layout files (LPIPS VGG16, torchvision
+     InceptionV3, I3D, 3D-ResNet50), FID-Img with 2 frames a video, the CLIP
+     ViT-L/14 image similarity: finite, SSIM in [0, 1], fid-img = fid, and
+     fid-img moved by the frame sampling; each metric net card vs CPU at one
+     batch of the drivers' inputs, fp32, held to 2e-4 x max(1, max|CPU|),
+     its ms per call, FLOPs from the layer shapes and share of the fp32
+     peak; SSIM <= 1 on the card with TF32 allowed outside the metric. The
+     files (about 1.6 GB, under chiprun_out/) are deleted at the end.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
   gated mode, K8 and K9, launches by path, and each kernel's `body`: the
   device functions that run it in bf16 and fp32; kernel B's entry also sums
@@ -2783,6 +2797,389 @@ def openpose_on_card(card: str):
 
 
 # --------------------------------------------------------------------------
+# phase 24: evaluation on the card (cli.eval, the metric drivers and nets)
+# --------------------------------------------------------------------------
+
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 (CUDA cores, no tensor cores)
+EVAL_TYPES = ["l1", "mae", "ssim", "psnr", "lpips", "fid", "fid-img", "is", "fvd", "fid-vid"]
+# the torchvision VGG16 conv indices of LPIPS's 13 convs, and the lpips
+# package's slice holding each
+_LPIPS_TV = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+_LPIPS_SLICE = [1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5]
+CLIP_L14 = dict(hidden_size=1024, num_layers=24, num_heads=16, patch_size=14,
+                projection_dim=768, image_size=224)
+
+
+def _metric_ref_keys(net: str, key: str, shape: tuple) -> list:
+    """(reference key, how it is drawn, shape) behind one port parameter of
+    a metric net: lpips (`lpips.LPIPS(net='vgg')`), inception (torchvision
+    `inception_v3`, its BN folded into the conv at load, so one port weight
+    stands for a conv and a BN and the port's bias for none), i3d
+    (`i3d_pretrained_400.pt`), r3d (`resnet-50-kinetics.pth`), clip (HF
+    `CLIPModel` vision keys)."""
+    prefix, _, leaf = key.rpartition(".")
+    kind = "he" if len(shape) >= 2 else {"weight": "scale", "running_var": "var"}.get(leaf, "small")
+    if net == "lpips":
+        if key.startswith("vgg.conv_"):
+            ci = int(prefix.split("_")[1])
+            return [(f"net.slice{_LPIPS_SLICE[ci]}.{_LPIPS_TV[ci]}.{leaf}", kind, shape)]
+        return [(f"lin{prefix.split('_')[1]}.model.1.weight", "lin", shape)]
+    if net == "inception":
+        if prefix == "fc":
+            return [(key, kind, shape)]
+        if leaf == "bias":
+            return []
+        c = (shape[0],)
+        return [(f"{prefix}.conv.weight", "he", shape), (f"{prefix}.bn.weight", "scale", c),
+                (f"{prefix}.bn.bias", "small", c), (f"{prefix}.bn.running_mean", "small", c),
+                (f"{prefix}.bn.running_var", "var", c)]
+    if net == "i3d":
+        return [(key.replace(".conv.", ".conv3d."), kind, shape)]
+    if net == "r3d":
+        ref = re.sub(r"^layer(\d)_(\d+)\.", r"layer\1.\2.", key)
+        ref = ref.replace("downsample_conv.", "downsample.0.").replace("downsample_bn.",
+                                                                        "downsample.1.")
+        return [(f"module.{ref}", kind, shape)]
+    p = "vision_model"
+    if key == "class_embedding":
+        return [(f"{p}.embeddings.class_embedding", "small", shape)]
+    if key == "position_embedding":
+        return [(f"{p}.embeddings.position_embedding.weight", "small", shape)]
+    if key == "patch_embedding.weight":
+        return [(f"{p}.embeddings.patch_embedding.weight", "he", shape)]
+    if key == "visual_projection.weight":
+        return [(key, "he", shape)]
+    if prefix == "pre_layernorm":
+        return [(f"{p}.pre_layrnorm.{leaf}", kind, shape)]
+    if prefix == "post_layernorm":
+        return [(f"{p}.post_layernorm.{leaf}", kind, shape)]
+    i, rest = re.match(r"layer_(\d+)\.(.*)", key).groups()
+    rest = re.sub(r"^fc([12])\.", r"mlp.fc\1.", rest)
+    return [(f"{p}.encoder.layers.{i}.{rest}", kind, shape)]
+
+
+def metric_nets():
+    """Constructors of the port's metric nets at full width, by the name
+    phase 24 gives their reference-layout files."""
+    from magicdance_tpu_torch.metrics.clip_score import CLIPVisionEncoder
+    from magicdance_tpu_torch.metrics.i3d import I3D
+    from magicdance_tpu_torch.metrics.inception import InceptionV3
+    from magicdance_tpu_torch.metrics.lpips import LPIPS
+    from magicdance_tpu_torch.metrics.resnet3d import ResNet3D
+
+    return {"lpips": LPIPS, "inception": InceptionV3, "i3d": I3D, "r3d": ResNet3D,
+            "clip": lambda: CLIPVisionEncoder(**CLIP_L14)}
+
+
+def metric_reference_states(seed: int = 24, device: str = "cuda") -> dict:
+    """Seeded full-width state dicts in the reference layouts (fp32 CPU
+    tensors): the LPIPS VGG16, torchvision InceptionV3, I3D at width 1.0,
+    3D-ResNet50 and CLIP ViT-L/14 at 224^2. Conv and linear weights He-scaled
+    (N(0, 2 / fan_in)), so the features differ from image to image; norm
+    scales 1 + N(0, 0.1^2), BN variances U(0.5, 1.5), biases, means and
+    embeddings N(0, 0.1^2); LPIPS's lin weights |He|. Drawn on `device`."""
+    import math
+
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    states = {}
+    for net, make in metric_nets().items():
+        with torch.device("meta"):
+            shapes = {k: tuple(v.shape) for k, v in make().state_dict().items()}
+        sd = {}
+        for key, shape in shapes.items():
+            for ref, kind, ref_shape in _metric_ref_keys(net, key, shape):
+                if kind == "var":
+                    x = torch.rand(ref_shape, generator=gen, device=device) + 0.5
+                else:
+                    x = torch.randn(ref_shape, generator=gen, device=device)
+                if kind in ("he", "lin"):
+                    x = x * (2.0 / math.prod(ref_shape[1:])) ** 0.5
+                    x = x.abs() if kind == "lin" else x
+                elif kind == "scale":
+                    x = 1 + 0.1 * x
+                elif kind == "small":
+                    x = 0.1 * x
+                sd[ref] = x.cpu()
+        states[net] = sd
+    return states
+
+
+def write_eval_tree(root: str, videos: int = 2, frames: int = 8, size: int = 512,
+                    seed: int = 24) -> None:
+    """A seeded TikTok-layout tree: `videos` videos, each a reference (frame
+    0) and `frames` targets, with their pose maps, uint8 noise at size^2."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    for split in ("disco_test_set", "pose_map_disco_test_set"):
+        for v in range(videos):
+            d = os.path.join(root, split, f"vid{v}")
+            os.makedirs(d)
+            for i in range(frames + 1):
+                Image.fromarray(rs.randint(0, 256, (size, size, 3)).astype(np.uint8)).save(
+                    os.path.join(d, f"{i:04d}.png"))
+
+
+def count_flops(net, *inputs, attention: float = 0.0) -> float:
+    """Floating-point operations of one call, from the layer shapes: 2 per
+    multiply-add of every Conv2d/Conv3d/Linear (via forward hooks on one
+    call), plus `attention` (the attention products, which are no module)."""
+    import math
+
+    import torch
+    from torch import nn
+
+    total = [attention]
+
+    def hook(m, _inp, out):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            total[0] += 2.0 * out.numel() * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+        else:
+            total[0] += 2.0 * out.numel() * m.in_features
+
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear))]
+    try:
+        with torch.inference_mode():
+            net(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def metric_nets_on_card(card: str, states: dict, frames: dict) -> dict:
+    """Phase 24c: each metric net from its reference-layout state dict
+    through the port's converter, on the CPU and on the card, at one batch
+    of the drivers' inputs (2 images, or 1 clip), fp32 with TF32 off: card
+    within 2e-4 x max(1, max|CPU|); the card's ms per call, the FLOPs of the
+    call from the layer shapes and their share of the fp32 peak; SSIM on
+    near-constant frames <= 1 on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from magicdance_tpu_torch.device import full_fp32
+    from magicdance_tpu_torch.metrics import clip_score, core, i3d, inception, lpips, resnet3d
+    from magicdance_tpu_torch.metrics.center import luma_uint8
+    from magicdance_tpu_torch.utils.timing import device_time_ms
+
+    converts = {"lpips": lpips.convert_lpips_torch_state,
+                "inception": inception.convert_inception_torchvision,
+                "i3d": i3d.convert_i3d, "r3d": resnet3d.convert_resnet3d,
+                "clip": clip_score.convert_clip_vision}
+    gen, gt = frames["gen"], frames["gt"]
+    rs = np.random.RandomState(240)
+    clip_in = np.stack([clip_score.preprocess_clip_image(x) for x in gen[:2]])
+    npos = (CLIP_L14["image_size"] // CLIP_L14["patch_size"]) ** 2 + 1
+    inputs = {
+        "lpips": (gen[:2] / 127.5 - 1.0, gt[:2] / 127.5 - 1.0),  # (2, 512, 512, 3) pairs
+        "inception": (rs.rand(2, 299, 299, 3) * 2 - 1,),
+        "i3d": (frames["i3d"][None] / 127.5 - 1.0,),  # one video, 10 frames at 224^2
+        "r3d": (frames["r3d"][None] - np.asarray(resnet3d.KINETICS_PIXEL_MEAN),),  # 16 at 112^2
+        "clip": (clip_in,),
+    }
+    attention = {"clip": 4.0 * 2 * npos * npos * CLIP_L14["hidden_size"]
+                 * CLIP_L14["num_layers"]}
+    out = {}
+    for name, make in metric_nets().items():
+        cpu_net = make()
+        cpu_net.load_state_dict(converts[name](states[name]), strict=True)
+        cpu_net.eval().requires_grad_(False)
+        gpu_net = copy.deepcopy(cpu_net).to("cuda")
+        x_cpu = tuple(torch.as_tensor(np.asarray(a, np.float32)) for a in inputs[name])
+        x_card = tuple(a.cuda() for a in x_cpu)
+        with torch.inference_mode(), full_fp32():
+            # InceptionV3 returns (pool, logits): both are compared
+            want = torch.cat([w.reshape(-1) for w in _as_tuple(cpu_net(*x_cpu))])
+            got = torch.cat([g.reshape(-1) for g in _as_tuple(gpu_net(*x_card))])
+            err = float((got.cpu() - want).abs().max())
+            scale = float(want.abs().max())
+            tol = 2e-4 * max(1.0, scale)
+            ms = device_time_ms(lambda: gpu_net(*x_card), min_total_s=0.2, max_iters=20)
+            flops = count_flops(gpu_net, *x_card, attention=attention.get(name, 0.0))
+        share = flops / (ms * 1e-3) / PEAK_FP32_FLOPS
+        shapes = [list(a.shape) for a in x_cpu]
+        log(f"  {name} at {shapes}: card vs CPU max abs diff {err:.3e} (tol {tol:.3e}, "
+            f"max|CPU| {scale:.3f}); {ms:.3f} ms a call on the card, {flops / 1e9:.1f} GFLOP, "
+            f"{share:.1%} of the 67 TFLOP/s fp32 peak [{card}]")
+        if not err <= tol:
+            raise AssertionError(f"{name}: card vs CPU {err:.3e} > {tol:.3e}")
+        out[name] = dict(input=shapes, max_abs_err=err, tol=tol, max_abs_cpu=scale, ms=ms,
+                         gflop=flops / 1e9, share_of_fp32_peak=share)
+        del cpu_net, gpu_net
+        torch.cuda.empty_cache()
+
+    # SSIM with TF32 allowed process-wide (PyTorch's default for cuDNN):
+    # the metric must turn it off for its window sums by itself
+    near = (0.5 + rs.rand(1, 64, 64, 1) * 0.02).astype(np.float32)
+    structured = rs.rand(1, 64, 64, 1).astype(np.float32)
+    luma = luma_uint8(gen[:2])[..., None].astype(np.float32) / 255.0
+    luma_gt = luma_uint8(gt[:2])[..., None].astype(np.float32) / 255.0
+    values = {}
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for label, a, b in (("near-constant vs structured", near, structured),
+                            ("generated vs ground-truth luma", luma, luma_gt)):
+            on_card = float(core.ssim(torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()))
+            on_cpu = float(core.ssim(torch.from_numpy(a), torch.from_numpy(b)))
+            values[label] = dict(card=on_card, cpu=on_cpu)
+            if not (-1.0 <= on_card <= 1.0 and abs(on_card - on_cpu) <= 1e-5):
+                raise AssertionError(f"SSIM {label}: card {on_card}, CPU {on_cpu}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"  SSIM on the card with TF32 allowed outside the metric: within [-1, 1] and 1e-5 "
+        f"of the CPU: {values}")
+    out["ssim_checks"] = values
+    return out
+
+
+def eval_on_card(card: str, videos: int = 2, frames: int = 8, steps: int = 50):
+    """Phase 24: (a) `cli.eval.main` on a seeded TikTok-layout tree
+    (`videos` videos, each a reference and `frames` targets at 512x512) at
+    full `ModelConfig()` width with random weights, DDIM-`steps`, CFG 7,
+    `--batch frames`: one request of F = `frames` per video, the launches
+    held to the request plan, seconds per request and frames/s; (b)
+    `get_all_eval_scores` on the written tree with every type through
+    seeded full-width reference-layout files (LPIPS VGG16, torchvision
+    InceptionV3, I3D, 3D-ResNet50), FID-Img with 2 frames a video beside
+    it, and the CLIP ViT-L/14 image similarity; (c) `metric_nets_on_card`.
+    The files and the tree are deleted at the end."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from magicdance_tpu_torch.cli import eval as E
+    from magicdance_tpu_torch.cli import sample as S
+    from magicdance_tpu_torch.config import ModelConfig
+    from magicdance_tpu_torch.metrics.center import get_all_eval_scores
+    from magicdance_tpu_torch.metrics.clip_score import CLIPScorer
+    from magicdance_tpu_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "chiprun_out", "phase24")
+    shutil.rmtree(work, ignore_errors=True)
+    data, out_root = os.path.join(work, "tiktok"), os.path.join(work, "eval_out")
+    out = {}
+    try:
+        write_eval_tree(data, videos=videos, frames=frames)
+        argv = ["--data", data, "--output", out_root, "--steps", str(steps), "--cfg", "7",
+                "--size", "512", "--batch", str(frames), "--seed", "24"]
+        args = E.build_argparser().parse_args(argv)
+        plan = {m: n * videos for m, n in cli_plan(ModelConfig(), S.sample_config(args),
+                                                    frames).items()}
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            # from_model_range warns on non-finite pixels: fail on them instead
+            warnings.simplefilter("error", RuntimeWarning)
+            records = E.main(argv)
+        main_s = time.perf_counter() - t0
+        launches = {m: n for m, n in K.LAUNCHES.items() if n}
+        if launches != plan:
+            raise AssertionError(f"cli.eval: launches {launches}, plan {plan}")
+        if [r["frames"] for r in records] != [frames] * videos:
+            raise AssertionError(f"cli.eval records {records}")
+        for v in range(videos):
+            for sub in ("gen_images", "gt_images", "pose_maps"):
+                names = sorted(os.listdir(os.path.join(out_root, f"vid{v}", sub)))
+                if names != [f"{i:04d}.png" for i in range(1, frames + 1)]:
+                    raise AssertionError(f"vid{v}/{sub}: {names}")
+            img = np.asarray(Image.open(os.path.join(out_root, f"vid{v}", "gen_images",
+                                                     "0001.png")))
+            if img.shape != (512, 512, 3) or img.std() == 0:
+                raise AssertionError(f"vid{v}: generated frame {img.shape}, std {img.std()}")
+        secs = [r["seconds"] for r in records]
+        out["generation"] = dict(seconds_per_request=secs, frames=frames, steps=steps,
+                                 frames_per_s=[frames / s for s in secs], main_s=main_s,
+                                 peak_bytes=torch.cuda.max_memory_allocated(),
+                                 launches=launches, plan=plan)
+        log(f"  cli.eval: {videos} videos x 1 request of F = {frames} at 512x512, DDIM-{steps}, "
+            f"CFG 7: {[round(s, 3) for s in secs]} s per request "
+            f"({[round(frames / s, 4) for s in secs]} frames/s), main() {main_s:.2f} s "
+            f"(pipeline build, dataset, PNG writes included), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]; launches "
+            f"{launches} = plan")
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        states = metric_reference_states()
+        files = {}
+        for name, sd in states.items():
+            files[name] = os.path.join(work, f"{name}.pth")
+            torch.save({"state_dict": sd} if name == "r3d" else sd, files[name])
+        log(f"  reference-layout files: "
+            f"{ {k: sum(t.numel() for t in v.values()) for k, v in states.items()} } parameters "
+            f"drawn and saved in {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        scores = get_all_eval_scores(
+            out_root, EVAL_TYPES, lpips_weights=files["lpips"],
+            inception_weights=files["inception"], i3d_weights=files["i3d"],
+            resnet3d_weights=files["r3d"], device="cuda")
+        scores_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sampled = get_all_eval_scores(out_root, ["fid-img"], inception_weights=files["inception"],
+                                      sample_frames=2, device="cuda")["fid-img"]
+        sampled_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        clip = CLIPScorer(files["clip"], device="cuda")
+        sims = [clip.image_similarity(os.path.join(out_root, f"vid{v}", "gen_images"),
+                                      os.path.join(out_root, f"vid{v}", "gt_images"))
+                for v in range(videos)]
+        clip_s = time.perf_counter() - t0
+        del clip
+        want_keys = {"l1", "mae", "ssim", "psnr", "lpips", "fid", "fid-img", "is_mean", "is_std",
+                     "fvd", "fid-vid", "num_images"}
+        bad = [k for k, v in scores.items() if not np.isfinite(v)]
+        if set(scores) != want_keys or bad or scores["num_images"] != videos * frames:
+            raise AssertionError(f"scores {scores}")
+        if not (0.0 <= scores["ssim"] <= 1.0 and scores["fid"] > 0 and scores["fvd"] > 0
+                and scores["fid-vid"] > 0 and scores["fid-img"] == scores["fid"]
+                and abs(sampled - scores["fid-img"]) > 1e-3
+                and all(-1.0 <= x <= 1.0 for x in sims)):
+            raise AssertionError(f"scores {scores}, fid-img at 2 frames {sampled}, clip {sims}")
+        out["scores"] = dict(values=scores, fid_img_2_frames=sampled, clip_similarity=sims,
+                             seconds=scores_s, fid_img_2_frames_s=sampled_s, clip_s=clip_s)
+        log(f"  get_all_eval_scores(every type) on the {videos * frames} frames: {scores} in "
+            f"{scores_s:.1f} s; fid-img with 2 frames a video {sampled:.4f} "
+            f"({sampled_s:.1f} s; fid-img = fid with all frames); CLIP ViT-L/14 image "
+            f"similarity per video {sims} ({clip_s:.1f} s) [{card}]")
+
+        gen = np.stack([np.asarray(Image.open(os.path.join(out_root, "vid0", "gen_images", n)))
+                        for n in sorted(os.listdir(os.path.join(out_root, "vid0", "gen_images")))])
+        gt = np.stack([np.asarray(Image.open(os.path.join(out_root, "vid0", "gt_images", n)))
+                       for n in sorted(os.listdir(os.path.join(out_root, "vid0", "gt_images")))])
+
+        def video(size, length):  # the drivers' resize and last-frame tail padding
+            fr = [np.asarray(Image.fromarray(f).resize((size, size), Image.BILINEAR)) for f in gen]
+            return np.stack(fr + [fr[-1]] * (length - len(fr))).astype(np.float32)
+
+        out["nets"] = metric_nets_on_card(card, states, dict(
+            gen=gen.astype(np.float32), gt=gt.astype(np.float32), i3d=video(224, 10),
+            r3d=video(112, 16)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 24 in {out['phase_s']:.1f} s [{card}]")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 18: the head-packing probe and kernel K9
 # --------------------------------------------------------------------------
 
@@ -3113,6 +3510,11 @@ def main(argv=None) -> int:
         "the detector end to end)")
     openpose = openpose_on_card(card)
 
+    log(f"== phase 24: evaluation on the card (cli.eval at full SD1.5 width, 2 videos x 1 "
+        f"request of F = 8 at 512x512, DDIM-{steps}; every metric type through "
+        f"get_all_eval_scores and the CLIP similarity; the metric nets card vs CPU in fp32)")
+    evaluation = eval_on_card(card, steps=steps)
+
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
 
@@ -3136,7 +3538,9 @@ def main(argv=None) -> int:
                 samplers[name]["launches"] for name in SAMPLERS},
              f"sampling CLI --checkpoint (1 request x {steps} DDIM steps)":
                 cli["image"]["launches"],
-             "sampling CLI --video (1 request x 10 DDIM steps)": cli["video"]["launches"]}
+             "sampling CLI --video (1 request x 10 DDIM steps)": cli["video"]["launches"],
+             f"eval CLI (2 requests x 8 frames x {steps} DDIM steps)":
+                evaluation["generation"]["launches"]}
     kernels = []
     for name, meta in KERNELS.items():
         by_path = {p: sum(launches.get(m, 0) for m in meta["modes"])
@@ -3243,7 +3647,8 @@ def main(argv=None) -> int:
                            packed_shapes=packed_rows, head_packing_probe=probe,
                            kernel_gate=gate, small_dual=small_dual, dual_control=dual,
                            samplers=samplers, profile=profile, sample_cli=cli,
-                           openpose=openpose, kernels=kernels), f, indent=1)
+                           openpose=openpose, evaluation=evaluation, kernels=kernels), f,
+                      indent=1)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -128,11 +128,12 @@ def sample_config(args):
                         deepcache_level=args.deepcache_level)
 
 
-def build_pipeline(args):
+def build_pipeline(args, tag: str = "sample"):
     """The pipeline on `--device` with the `--checkpoint` weights (a
     reference checkpoint through `convert.torch_convert`, loaded strictly;
     the denoiser holds them in its compute dtype, bf16 unless the config
-    says otherwise), or seeded random weights without one (smoke mode)."""
+    says otherwise), or seeded random weights without one (smoke mode).
+    `tag` prefixes what it prints (the calling CLI's name)."""
     from magicdance_tpu_torch.data.tokenizer import CLIPTokenizer
     from magicdance_tpu_torch.pipeline import MagicPosePipeline
 
@@ -145,9 +146,9 @@ def build_pipeline(args):
         )
 
         pipe.load_state_dicts(convert_magicpose_state(load_torch_state(args.checkpoint), cfg))
-        print(f"[sample] loaded {args.checkpoint}")
+        print(f"[{tag}] loaded {args.checkpoint}")
     else:
-        print("[sample] no checkpoint given — random weights (smoke mode)")
+        print(f"[{tag}] no checkpoint given — random weights (smoke mode)")
         pipe.init_params(seed=0)
     return pipe
 

@@ -5,7 +5,10 @@ a walk over the Flax tree with one rule per leaf name:
 
   * Dense `kernel` (in, out)        -> Linear `weight` (out, in)
   * Conv `kernel` HWIO              -> Conv2d `weight` OIHW
+  * Conv `kernel` DHWIO             -> Conv3d `weight` OIDHW
   * norm `scale`, Embed `embedding` -> `weight`
+  * BatchNormInference `mean`/`var` -> `running_mean`/`running_var` (the
+    metric nets' inference BatchNorm, `metrics.i3d.BatchNormInference`)
   * anything else (`bias`, `position_embedding`) keeps its name and layout.
 
 The motion modules (`enc_motion_*`, `dec_motion_*`) are Dense, LayerNorm
@@ -39,6 +42,8 @@ def flax_key(path: tuple) -> str:
     *mods, name = (str(p) for p in path)
     if name in ("kernel", "scale", "embedding"):
         name = "weight"
+    elif name in ("mean", "var"):
+        name = f"running_{name}"
     return ".".join(mods + [name])
 
 
@@ -46,7 +51,9 @@ def convert_leaf(path: tuple, leaf) -> tuple[str, torch.Tensor]:
     """One Flax leaf at `path` -> (state-dict key, fp32 tensor)."""
     a = np.asarray(leaf, dtype=np.float32)
     if str(path[-1]) == "kernel":
-        if a.ndim == 4:
+        if a.ndim == 5:
+            a = a.transpose(4, 3, 0, 1, 2)
+        elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         elif a.ndim == 2:
             a = a.T

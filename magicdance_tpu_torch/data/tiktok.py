@@ -14,10 +14,9 @@ by step count) instead of an infinite IterableDataset; sharding by
 (rank, world) args — the reference's local-FS dataset never actually sharded
 by rank (SURVEY.md §2.3).
 
-The PyTorch port's own copy of the training-pair path of
-`magicdance_tpu.data.tiktok` (numpy and PIL only): `TikTokPairDataset` with
-the Python decode path. The native C++ loader and the eval dataset are not
-ported yet.
+The PyTorch port's own copy of `magicdance_tpu.data.tiktok` (numpy and PIL
+only): `TikTokPairDataset` with the Python decode path, and
+`TikTokEvalDataset`. The native C++ loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,8 +29,10 @@ import numpy as np
 from PIL import Image
 
 from magicdance_tpu_torch.data.transforms import (
+    center_crop_square,
     is_monochrome,
     random_resized_crop,
+    resize,
     to_hint_range,
     to_model_range,
 )
@@ -132,4 +133,49 @@ class TikTokPairDataset:
                     items.append(s)
             yield {
                 k: np.stack([it[k] for it in items]) for k in items[0]
+            }
+
+
+@dataclass
+class TikTokEvalDataset:
+    """Eval sequences: frame 0 = reference, the rest = targets
+    (ref tiktok_video_arnold_copy.py:217-280; consumed by test_tiktok and
+    `cli/eval.py`). Every `every_nth` target is kept; the videos are split
+    `rank::world_size` across processes."""
+
+    root: str
+    split: str = "disco_test_set"
+    pose_split: str = "pose_map_disco_test_set"
+    image_size: int = 512
+    every_nth: int = 1
+    rank: int = 0
+    world_size: int = 1
+
+    def __post_init__(self):
+        base = os.path.join(self.root, self.split)
+        self.videos = [
+            v for v in sorted(os.listdir(base))
+            if os.path.isdir(os.path.join(base, v))
+        ][self.rank :: self.world_size]
+
+    def __iter__(self) -> Iterator[dict]:
+        for v in self.videos:
+            img_dir = os.path.join(self.root, self.split, v)
+            pose_dir = os.path.join(self.root, self.pose_split, v)
+            frames = _list_frames(img_dir)
+            if len(frames) < 2:
+                continue
+            prep = lambda p: resize(center_crop_square(_load(p)), self.image_size)  # noqa: E731
+            reference = prep(os.path.join(img_dir, frames[0]))
+            targets = frames[1 :: self.every_nth]
+            yield {
+                "video": v,
+                "reference": to_model_range(reference)[None],
+                "gt": np.stack(
+                    [to_model_range(prep(os.path.join(img_dir, f))) for f in targets]
+                ),
+                "pose": np.stack(
+                    [to_hint_range(prep(os.path.join(pose_dir, f))) for f in targets]
+                ),
+                "frame_names": targets,
             }

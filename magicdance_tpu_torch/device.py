@@ -1,7 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the full-fp32 context
+every fp32 path on the card runs under."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -19,3 +21,16 @@ def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.dev
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matmuls and convolutions in full fp32 (no TF32) inside the
+    block; the process-wide flags are restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -18,14 +18,13 @@ package's fp32 reference computes it.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
 
 from magicdance_tpu_torch.config import ModelConfig, SampleConfig
 from magicdance_tpu_torch.data.tokenizer import CLIPTokenizer, empty_prompt_ids
-from magicdance_tpu_torch.device import resolve_device
+from magicdance_tpu_torch.device import full_fp32, resolve_device
 from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPoseModel
 from magicdance_tpu_torch.models.magicpose import model_dtype
 from magicdance_tpu_torch.models.vae import encode_to_latent, latent_to_decoder_input
@@ -34,19 +33,6 @@ from magicdance_tpu_torch.sampling.ddim import ddim_sample
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
 
 DECODE_CHUNK = 8
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """fp32 matmuls and convolutions in full fp32 (no TF32) inside the
-    block; the process-wide flags are restored after it."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 class MagicPosePipeline:

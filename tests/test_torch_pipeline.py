@@ -240,4 +240,6 @@ def test_port_never_imports_jax():
     assert len(walked) >= 15
     assert {f"magicdance_tpu_torch.{m}" for m in (
         "cli.sample", "cli.detect_pose", "convert.torch_convert", "models.openpose",
-        "data.openpose_detect", "data.pose")} <= walked
+        "data.openpose_detect", "data.pose", "metrics.core", "metrics.lpips",
+        "metrics.inception", "metrics.center", "metrics.fid", "metrics.fvd", "metrics.i3d",
+        "metrics.resnet3d", "metrics.clip_score", "cli.eval")} <= walked

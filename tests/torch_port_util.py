@@ -390,3 +390,138 @@ def port_batch(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+
+
+# --------------------------------------------------------------------------
+# metrics (tests/test_torch_metrics.py, test_torch_video_metrics.py):
+# reference-layout state dicts drawn with numpy -- conv and linear weights
+# He-scaled (std sqrt(2 / fan_in)), so activations keep their scale through
+# deep ReLU nets and the features differ from image to image; BatchNorm
+# running stats away from the identity -- and seeded frame trees.
+# --------------------------------------------------------------------------
+
+
+def assert_net_close(got, want) -> None:
+    """A metric net in fp32: max|got - want| <= 2e-4 x max(1, max|want|)."""
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    tol = 2e-4 * max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= tol, f"max abs err {err:.3e} > tol {tol:.3e}"
+
+
+def he_normal(rs, shape) -> np.ndarray:
+    fan_in = int(np.prod(shape[1:]))
+    return (rs.standard_normal(shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+
+
+def bn_state(rs, prefix: str, c: int) -> dict:
+    return {f"{prefix}.weight": (1 + 0.1 * rs.standard_normal(c)).astype(np.float32),
+            f"{prefix}.bias": (0.1 * rs.standard_normal(c)).astype(np.float32),
+            f"{prefix}.running_mean": (0.1 * rs.standard_normal(c)).astype(np.float32),
+            f"{prefix}.running_var": rs.uniform(0.5, 1.5, c).astype(np.float32)}
+
+
+def lpips_state(seed: int) -> dict:
+    """An `lpips.LPIPS(net='vgg')` state dict: torchvision VGG16 conv indices
+    under `net.slice{1..5}`, non-negative `lin{i}.model.1.weight`."""
+    from magicdance_tpu_torch.metrics.lpips import LPIPS
+
+    tv_idx = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    slice_of = [1, 1, 2, 2, 3, 3, 3, 4, 4, 4, 5, 5, 5]
+    rs = np.random.RandomState(seed)
+    sd = {}
+    for k, v in LPIPS().state_dict().items():
+        if k.startswith("vgg."):
+            ci, leaf = int(k.split(".")[1][len("conv_"):]), k.rsplit(".", 1)[1]
+            ref = f"net.slice{slice_of[ci]}.{tv_idx[ci]}.{leaf}"
+            sd[ref] = (he_normal(rs, tuple(v.shape)) if leaf == "weight"
+                       else (0.1 * rs.standard_normal(tuple(v.shape))).astype(np.float32))
+        else:
+            i = int(k.split(".")[0][len("lin_"):])
+            sd[f"lin{i}.model.1.weight"] = np.abs(he_normal(rs, tuple(v.shape)))
+    return sd
+
+
+def inception_state(seed: int) -> dict:
+    """A torchvision `inception_v3` state dict (conv + BN per conv, fc), with
+    two AuxLogits entries the converter must skip."""
+    from magicdance_tpu_torch.metrics.inception import InceptionV3
+
+    rs = np.random.RandomState(seed)
+    sd = {}
+    for k, v in InceptionV3().state_dict().items():
+        prefix, leaf = k.rsplit(".", 1)
+        if prefix == "fc":
+            sd[k] = (he_normal(rs, tuple(v.shape)) if leaf == "weight"
+                     else (0.1 * rs.standard_normal(tuple(v.shape))).astype(np.float32))
+        elif leaf == "weight":
+            sd[f"{prefix}.conv.weight"] = he_normal(rs, tuple(v.shape))
+            sd.update(bn_state(rs, f"{prefix}.bn", v.shape[0]))
+    sd["AuxLogits.conv0.conv.weight"] = he_normal(rs, (128, 768, 1, 1))
+    sd["AuxLogits.fc.weight"] = he_normal(rs, (1000, 768))
+    return sd
+
+
+def clip_vision_state(seed: int, hidden: int, layers: int, patch: int, proj: int,
+                      image_size: int) -> dict:
+    """The vision keys of an HF `CLIPModel` state dict (with the
+    `pre_layrnorm` spelling) for a ViT of these sizes."""
+    rs = np.random.RandomState(seed)
+    p = "vision_model"
+
+    def w(*shape):
+        return he_normal(rs, shape)
+
+    def small(*shape):
+        return (0.1 * rs.standard_normal(shape)).astype(np.float32)
+
+    def ln(key):
+        return {f"{key}.weight": 1 + small(hidden), f"{key}.bias": small(hidden)}
+
+    sd = {f"{p}.embeddings.patch_embedding.weight": w(hidden, 3, patch, patch),
+          f"{p}.embeddings.class_embedding": small(hidden),
+          f"{p}.embeddings.position_embedding.weight":
+              small((image_size // patch) ** 2 + 1, hidden),
+          **ln(f"{p}.pre_layrnorm"), **ln(f"{p}.post_layernorm"),
+          "visual_projection.weight": w(proj, hidden)}
+    for i in range(layers):
+        lp = f"{p}.encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd[f"{lp}.self_attn.{name}.weight"] = w(hidden, hidden)
+            sd[f"{lp}.self_attn.{name}.bias"] = small(hidden)
+        sd.update(ln(f"{lp}.layer_norm1"))
+        sd.update(ln(f"{lp}.layer_norm2"))
+        sd.update({f"{lp}.mlp.fc1.weight": w(4 * hidden, hidden),
+                   f"{lp}.mlp.fc1.bias": small(4 * hidden),
+                   f"{lp}.mlp.fc2.weight": w(hidden, 4 * hidden),
+                   f"{lp}.mlp.fc2.bias": small(hidden)})
+    return sd
+
+
+def save_state(sd: dict, path) -> str:
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}, str(path))
+    return str(path)
+
+
+def write_frame_tree(root, seqs: int, frames: int, size: int, seed: int,
+                     shift_from: int = None) -> None:
+    """`{root}/seq{i}/gen_images|gt_images/{j:03d}.png`: a seeded uint8 base
+    frame in [0, 128) per j; the ground truth is the base plus noise (std
+    12), the generated frame the base itself, +120 for j >= shift_from (a
+    second distribution, so scores over the first frames and over all
+    differ)."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    for s in range(seqs):
+        gen_dir, gt_dir = root / f"seq{s}" / "gen_images", root / f"seq{s}" / "gt_images"
+        gen_dir.mkdir(parents=True)
+        gt_dir.mkdir(parents=True)
+        for j in range(frames):
+            base = rs.randint(0, 128, (size, size, 3))
+            gt = base + np.round(rs.standard_normal(base.shape) * 12)
+            gen = base + (120 if shift_from is not None and j >= shift_from else 0)
+            for d, img in ((gen_dir, gen), (gt_dir, gt)):
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(d / f"{j:03d}.png")
