@@ -190,6 +190,28 @@ Phases, in order; every check raises, so any failure exits non-zero:
      its ms per call, FLOPs from the layer shapes and share of the fp32
      peak; SSIM <= 1 on the card with TF32 allowed outside the metric. The
      files (about 1.6 GB, under chiprun_out/) are deleted at the end.
+  25. distribution (torch.distributed; cuDNN deterministic for the phase).
+     25a, one rank over NCCL through `parallel.multihost.initialize_distributed`
+     at full SD1.5 width: three stage-2 steps (phase 9's preset, weights and
+     batches at B = 2, adam_eps 1e-4) of the data-parallel ZeRO-1 trainer
+     against the plain trainer (no group): losses and grad norms within 1e-3
+     relative, parameters within 2% of the learning rate, every step held to
+     phase 9's launch plan; one frame-parallel image request (F = 2,
+     DDIM-50, CFG 7) and one window-parallel video request (16 frames in
+     windows of 8, stride 4: four windows; DDIM-10) through
+     `sample_frames(mesh=)` against the same requests unsharded, equal bit
+     for bit or within the bf16 rule (the phase prints which), each held to
+     its launch plan. 25b, two ranks sharing the card over gloo (this script
+     again, `--p25-rank`; NCCL takes no two ranks on one device; every
+     collective on a CUDA tensor staged through host memory): the image
+     request at one frame a rank and the video request at two windows a
+     rank against 25a's within the bf16 rule, both ranks with the same
+     result; two stage-2 steps at B = 1 a rank against 25a's first two
+     steps at B = 2 with the same draws (loss and grad norm 1e-3 relative,
+     parameters 2% of the learning rate); seconds per step and per request,
+     optimizer-state bytes and peak memory per rank. A failed rendezvous, a
+     rank's non-zero exit or a mismatch fails the phase; the groups are
+     destroyed and the files under chiprun_out/phase25 deleted at the end.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
   gated mode, K8 and K9, launches by path, and each kernel's `body`: the
   device functions that run it in bf16 and fp32; kernel B's entry also sums
@@ -3180,6 +3202,428 @@ def eval_on_card(card: str, videos: int = 2, frames: int = 8, steps: int = 50):
 
 
 # --------------------------------------------------------------------------
+# phase 25: distribution on the card (torch.distributed)
+# --------------------------------------------------------------------------
+
+P25_TRAIN_STEPS = 3
+P25_VIDEO = dict(frames=16, steps=10, window=8, stride=4)  # 4 windows of 8: 2 a rank at world 2
+
+
+def p25_train_config(batch: int):
+    """Phase 9's stage-2 preset at `batch` images a rank, warm-up 1, with
+    adam_eps 1e-4 (as the CPU trainer tests): Adam divides every element by
+    its own scale, and 1e-4 keeps rounding noise in near-zero gradients from
+    becoming O(lr) steps, so updates compare to 2% of the learning rate."""
+    import dataclasses
+
+    from magicdance_tpu_torch import config as C
+
+    cfg = C.stage2_pose_control()
+    return dataclasses.replace(cfg, batch_size_per_device=batch, optim=dataclasses.replace(
+        cfg.optim, warmup_steps=1, adam_eps=1e-4))
+
+
+def p25_batches(rows=None):
+    """Phase 9's first batches (the same generator seed), B = 2; `rows`:
+    (start, stop) of them a rank keeps."""
+    import torch
+
+    from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.from_numpy(empty_prompt_ids(2, 77)).cuda()
+    out = []
+    for _ in range(P25_TRAIN_STEPS):
+        b = {"image": torch.rand(2, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
+             "reference": torch.rand(2, 512, 512, 3, generator=gen, device="cuda") * 2 - 1,
+             "pose": torch.rand(2, 512, 512, 3, generator=gen, device="cuda"),
+             "input_ids": ids}
+        out.append({k: v[rows[0]:rows[1]] for k, v in b.items()} if rows else b)
+    return out
+
+
+def p25_train(steps: int, batch: int, rows=None, keep_step: int = 0):
+    """`steps` stage-2 steps of a fresh trainer (seeded weights, phase 9's
+    batches; under a process group its rows of them): per step loss, grad
+    norm, seconds and launches; the optimizer bytes this rank holds and the
+    peak memory; the trainable parameters after `keep_step` (on the host)
+    and after the last step (on the card)."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    cfg = p25_train_config(batch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda")
+    tr.init_random(seed=0)
+    build_s = time.perf_counter() - t0
+    out = dict(loss=[], grad_norm=[], seconds=[], launches=[], build_s=build_s,
+               lr=cfg.optim.learning_rate)
+    for i, b in enumerate(p25_batches(rows)[:steps]):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = tr.train_step(b)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t)
+        out["launches"].append({k: n for k, n in K.LAUNCHES.items() if n})
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if i + 1 == keep_step:
+            out["kept"] = {k: p.detach().cpu() for k, p in tr.train_params.items()}
+    out["opt_bytes"] = tr.opt.state_bytes()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["params"] = {k: p.detach().clone() for k, p in tr.train_params.items()}
+    out["mesh"] = (dict(zip(tr.mesh.mesh_dim_names, tr.mesh.shape)) if tr.mesh is not None
+                   else None)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def p25_inputs(frames: int):
+    """One request's pose maps and reference (512x512) and shared x_T."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    pose = torch.rand(frames, 512, 512, 3, generator=gen, device="cuda")
+    ref = torch.rand(1, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    x_T = torch.randn(1, 64, 64, 4, generator=gen, device="cuda").expand(frames, 64, 64, 4)
+    return pose, ref, x_T.contiguous()
+
+
+def p25_request(pipe, scfg, frames: int, mesh, video: bool, plan: dict, label: str):
+    """One request (seeded inputs; video: fixed offsets) with `mesh` or
+    without; its output on the host, seconds, launches (held to `plan`)."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+
+    pose, ref, x_T = p25_inputs(frames)
+    offsets = [(5 * i) % frames for i in range(scfg.steps)] if video else None
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = pipe.sample_frames(pose, ref, scfg, x_T=x_T, video=video, window_offsets=offsets,
+                             mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {m: n for m, n in K.LAUNCHES.items() if n}
+    if launches != plan:
+        raise AssertionError(f"{label}: launches {launches}, plan {plan}")
+    if tuple(out.shape) != (frames, 512, 512, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: bad output {tuple(out.shape)}")
+    return out.cpu(), secs, launches
+
+
+def p25_serving(mesh, rows_of_windows: int, unsharded: bool = False):
+    """The image request (F = 2, DDIM-50, CFG 7) and the video request
+    (16 frames in windows of 8, stride 4, DDIM-10) with `mesh`, each on a
+    fresh full-width pipeline with seeded weights; with `unsharded`, the
+    same requests without the mesh first, on the same pipeline."""
+    import torch
+
+    from magicdance_tpu_torch.config import ModelConfig, SampleConfig
+    from magicdance_tpu_torch.parallel.mesh import as_axis
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline
+
+    axis = as_axis(mesh)
+    v = P25_VIDEO
+    f0, f1 = axis.rows(2)
+    image_cfg, video_cfg = ModelConfig(), temporal_model_config()
+    image_scfg = SampleConfig()
+    video_scfg = SampleConfig(steps=v["steps"], window=v["window"], stride=v["stride"])
+    out = {}
+    for name, cfg, scfg, frames, video, plan in (
+            ("image", image_cfg, image_scfg, 2, False,
+             request_launch_plan(image_cfg, 64, f1 - f0, image_scfg)),
+            ("video", video_cfg, video_scfg, v["frames"], True,
+             request_launch_plan(video_cfg, 64, rows_of_windows, video_scfg,
+                                 frames=v["window"], video=True))):
+        t0 = time.perf_counter()
+        pipe = MagicPosePipeline(cfg, device="cuda")
+        pipe.init_params(seed=0)
+        torch.cuda.synchronize()
+        out[f"{name}_build_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        if unsharded:
+            out[f"{name}_plain"] = p25_request(pipe, scfg, frames, None, video, plan,
+                                               f"unsharded {name} request")
+        out[name] = p25_request(pipe, scfg, frames, mesh, video, plan, f"{name} request")
+        out[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def p25_windows(world: int, rank: int) -> int:
+    """Rows of this rank's windows in one pass of the video request (the
+    windows split as `torch.tensor_split` splits them)."""
+    from magicdance_tpu_torch.sampling.overlap import window_starts
+
+    v = P25_VIDEO
+    n = len(window_starts(v["frames"], v["window"], v["stride"]))
+    return (n // world + (1 if rank < n % world else 0)) * v["window"]
+
+
+def bf16_agreement(got, want, label: str) -> str:
+    """'bit for bit', or the max deviation within min(5e-2, 0.1 x RMS) of
+    `want` (the bf16 rule); raises beyond it."""
+    import torch
+
+    if torch.equal(got, want):
+        return "bit for bit"
+    err = float((got.float() - want.float()).abs().max())
+    rms = float(want.float().pow(2).mean().sqrt())
+    tol = min(BF16_TOL, BF16_REL_TOL * rms)
+    if not err <= tol:
+        raise AssertionError(f"{label}: max abs {err:.3e} > bf16 tolerance {tol:.3e}")
+    return f"max abs {err:.3e} <= {tol:.3e} (bf16 rule, RMS {rms:.3e})"
+
+
+def params_agree(got: dict, want: dict, lr: float, label: str) -> float:
+    """Every trainable tensor within 2% of the learning rate; the largest
+    deviation."""
+    worst = 0.0
+    for k, w in want.items():
+        err = float((got[k].to(w.device) - w).abs().max())
+        worst = max(worst, err)
+        if not err <= 0.02 * lr:
+            raise AssertionError(f"{label}: {k} differs by {err:.3e} > 2% of lr {lr:g}")
+    return worst
+
+
+def rel_agree(got: list, want: list, tol: float, label: str) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not abs(a - b) <= tol * abs(b):
+            raise AssertionError(f"{label} step {i + 1}: {a!r} vs {b!r} (> {tol:g} relative)")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def distribution_on_card(card: str) -> dict:
+    """Phase 25: 25a one rank over NCCL, 25b two ranks sharing the card over
+    gloo (spawned), each held to the unsharded or world-1 results."""
+    import shutil
+    import subprocess
+
+    import torch
+    import torch.distributed as dist
+
+    from magicdance_tpu_torch.parallel.mesh import make_mesh
+    from magicdance_tpu_torch.parallel.multihost import initialize_distributed
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "chiprun_out", "phase25")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    res = {"card": card}
+    try:
+        # -- 25a: the unsharded references, then one NCCL rank -----------------
+        _, totals, _ = training_launch_plan(p25_train_config(2).model, 64)
+        plain = p25_train(P25_TRAIN_STEPS, 2)
+        initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{free_port()}",
+                               world_size=1, rank=0)
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError("25a: not a one-rank NCCL group")
+        dp = p25_train(P25_TRAIN_STEPS, 2, keep_step=2)
+        mesh = make_mesh(("data",))
+        serve_dp = p25_serving(mesh, p25_windows(1, 0), unsharded=True)
+        serve_plain = {k: serve_dp[f"{k}_plain"] for k in ("image", "video")}
+        dist.destroy_process_group()
+        expect = {m: n for m, n in totals.items() if n}
+        for label, run in (("plain", plain), ("world 1", dp)):
+            for i, got in enumerate(run["launches"]):
+                if got != expect:
+                    raise AssertionError(f"25a {label} step {i + 1}: launches {got}, plan "
+                                         f"{expect}")
+        rel_agree(dp["loss"], plain["loss"], 1e-3, "25a loss")
+        rel_agree(dp["grad_norm"], plain["grad_norm"], 1e-3, "25a grad norm")
+        worst = params_agree(dp["params"], plain["params"], dp["lr"], "25a parameters")
+        if dp["mesh"] != {"data": 1}:
+            raise AssertionError(f"25a: mesh {dp['mesh']}")
+        agree_image = bf16_agreement(serve_dp["image"][0], serve_plain["image"][0],
+                                     "25a image request")
+        agree_video = bf16_agreement(serve_dp["video"][0], serve_plain["video"][0],
+                                     "25a video request")
+        steady = lambda s: sum(s[1:]) / max(1, len(s) - 1)  # noqa: E731
+        log(f"  25a training, world 1 over NCCL vs the plain trainer ({P25_TRAIN_STEPS} steps, "
+            f"B = 2): losses {[round(x, 6) for x in dp['loss']]} vs "
+            f"{[round(x, 6) for x in plain['loss']]}, grad norms "
+            f"{[round(x, 6) for x in dp['grad_norm']]}; parameters within {worst:.3e} "
+            f"(2% of lr = {0.02 * dp['lr']:.1e}); s/step {[round(x, 3) for x in dp['seconds']]} "
+            f"(steady {steady(dp['seconds']):.3f}) vs plain "
+            f"{[round(x, 3) for x in plain['seconds']]} (steady {steady(plain['seconds']):.3f}); "
+            f"optimizer bytes {dp['opt_bytes']} vs {plain['opt_bytes']}; peak memory "
+            f"{dp['peak_bytes'] / 2**30:.2f} vs {plain['peak_bytes'] / 2**30:.2f} GiB; "
+            f"launches per step {expect}; trainer built in {dp['build_s']:.1f} s, pipelines "
+            f"in {serve_dp['image_build_s']:.1f} / {serve_dp['video_build_s']:.1f} s")
+        log(f"  25a image request (F = 2, DDIM-50, CFG 7), frame-parallel world 1: "
+            f"{serve_dp['image'][1]:.3f} s vs unsharded {serve_plain['image'][1]:.3f} s, "
+            f"{agree_image}; video request (16 frames, windows of 8 stride 4, DDIM-10), "
+            f"window-parallel world 1: {serve_dp['video'][1]:.3f} s vs unsharded "
+            f"{serve_plain['video'][1]:.3f} s, {agree_video}")
+        res["a"] = dict(
+            train_plain=dict(loss=plain["loss"], grad_norm=plain["grad_norm"],
+                             seconds=plain["seconds"], opt_bytes=plain["opt_bytes"],
+                             peak_bytes=plain["peak_bytes"]),
+            train_world1=dict(loss=dp["loss"], grad_norm=dp["grad_norm"],
+                              seconds=dp["seconds"], opt_bytes=dp["opt_bytes"],
+                              peak_bytes=dp["peak_bytes"], params_max_dev=worst),
+            image=dict(seconds=serve_dp["image"][1], unsharded_s=serve_plain["image"][1],
+                       agreement=agree_image, peak_bytes=serve_dp["image_peak_bytes"]),
+            video=dict(seconds=serve_dp["video"][1], unsharded_s=serve_plain["video"][1],
+                       agreement=agree_video, peak_bytes=serve_dp["video_peak_bytes"]))
+        launches = {"train": dict(sum_counts(dp["launches"])),
+                    "image": serve_dp["image"][2], "video": serve_dp["video"][2]}
+        world1 = dict(image=serve_dp["image"][0], video=serve_dp["video"][0],
+                      kept=dp["kept"], loss=dp["loss"][:2], grad_norm=dp["grad_norm"][:2],
+                      lr=dp["lr"], opt_bytes=dp["opt_bytes"])
+        del plain, dp, serve_plain, serve_dp
+        torch.cuda.empty_cache()
+
+        # -- 25b: two ranks on the one card over gloo --------------------------
+        t_b = time.perf_counter()
+        init = f"file://{os.path.join(work, 'rdzv')}"
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--p25-rank",
+                                   str(r), "--p25-init", init, "--p25-work", work],
+                                  stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+                 for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, 600 - (time.perf_counter() - t_b)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(work, f"rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"25b rank {r} exited {p.returncode}:\n{tail}")
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                for line in f:
+                    if line.startswith("  rank"):
+                        log(line.rstrip())
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        b_secs = time.perf_counter() - t_b
+        for r, got in enumerate(ranks):
+            if not torch.equal(got["image"][0], ranks[0]["image"][0]) or not torch.equal(
+                    got["video"][0], ranks[0]["video"][0]):
+                raise AssertionError(f"25b: rank {r}'s result differs from rank 0's")
+            rel_agree(got["loss"], world1["loss"], 1e-3, f"25b rank {r} loss")
+            rel_agree(got["grad_norm"], world1["grad_norm"], 1e-3, f"25b rank {r} grad norm")
+            for i, l in enumerate(got["launches"]):
+                if l != expect:
+                    raise AssertionError(f"25b rank {r} step {i + 1}: launches {l}, plan "
+                                         f"{expect}")
+        b_image = bf16_agreement(ranks[0]["image"][0], world1["image"], "25b image request")
+        b_video = bf16_agreement(ranks[0]["video"][0], world1["video"], "25b video request")
+        kept = torch.load(os.path.join(work, "rank0_params.pt"), weights_only=False)
+        b_worst = params_agree(kept, world1["kept"], world1["lr"], "25b parameters")
+        log(f"  25b two ranks over gloo on one card (collectives staged through host "
+            f"memory): image request one frame a rank {[round(x['image'][1], 3) for x in ranks]} "
+            f"s, {b_image}; video request two windows a rank "
+            f"{[round(x['video'][1], 3) for x in ranks]} s, {b_video}")
+        log(f"  25b training, B = 1 a rank (2 steps) vs world 1 at B = 2: losses "
+            f"{[round(x, 6) for x in ranks[0]['loss']]} vs "
+            f"{[round(x, 6) for x in world1['loss']]}, grad norms "
+            f"{[round(x, 6) for x in ranks[0]['grad_norm']]} vs "
+            f"{[round(x, 6) for x in world1['grad_norm']]}; parameters after step 2 within "
+            f"{b_worst:.3e}; s/step {[[round(s, 3) for s in x['seconds']] for x in ranks]}; "
+            f"optimizer bytes a rank {[x['opt_bytes'] for x in ranks]} vs world 1 "
+            f"{world1['opt_bytes']}; peak memory a rank "
+            f"{[round(x['peak_bytes'] / 2**30, 2) for x in ranks]} GiB; phase 25b "
+            f"{b_secs:.1f} s")
+        res["b"] = dict(
+            image=dict(seconds=[x["image"][1] for x in ranks], agreement=b_image),
+            video=dict(seconds=[x["video"][1] for x in ranks], agreement=b_video),
+            train=dict(loss=ranks[0]["loss"], grad_norm=ranks[0]["grad_norm"],
+                       seconds=[x["seconds"] for x in ranks],
+                       opt_bytes=[x["opt_bytes"] for x in ranks],
+                       world1_opt_bytes=world1["opt_bytes"], params_max_dev=b_worst),
+            peak_bytes=[x["peak_bytes"] for x in ranks], phase_s=b_secs)
+        for name in ("train", "image", "video"):
+            launches[f"b_{name}"] = dict(sum_counts([x["launch_totals"][name] for x in ranks]))
+        res["launches"] = launches
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 25 in {res['phase_s']:.1f} s [{card}]")
+    return res
+
+
+def sum_counts(dicts):
+    from collections import Counter
+
+    total = Counter()
+    for d in dicts:
+        total.update(d)
+    return total
+
+
+def p25_rank(rank: int, init: str, work: str) -> int:
+    """One of phase 25b's two ranks: the image and video requests on its
+    share, two training steps on its row, results to `work`."""
+    import torch
+
+    from magicdance_tpu_torch.parallel.mesh import make_mesh, MeshAxis
+    from magicdance_tpu_torch.parallel.multihost import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    initialize_distributed(backend="gloo", init_method=init, world_size=2, rank=rank,
+                           timeout_s=600)
+    mesh = make_mesh(("data",))
+    log(f"  rank {rank}: group in {time.perf_counter() - t0:.1f} s")
+    serve = p25_serving(mesh, p25_windows(2, rank))
+    log(f"  rank {rank}: served at {time.perf_counter() - t0:.1f} s (pipelines built in "
+        f"{serve['image_build_s']:.1f} / {serve['video_build_s']:.1f} s, requests "
+        f"{serve['image'][1]:.1f} / {serve['video'][1]:.1f} s)")
+    axis = MeshAxis(mesh)
+    train = p25_train(2, 1, rows=axis.rows(2), keep_step=2)
+    log(f"  rank {rank}: trained at {time.perf_counter() - t0:.1f} s (trainer built in "
+        f"{train['build_s']:.1f} s, steps {[round(x, 1) for x in train['seconds']]} s)")
+    out = dict(image=serve["image"], video=serve["video"], loss=train["loss"],
+               grad_norm=train["grad_norm"], seconds=train["seconds"],
+               launches=train["launches"], opt_bytes=train["opt_bytes"],
+               peak_bytes=max(train["peak_bytes"], serve["image_peak_bytes"],
+                              serve["video_peak_bytes"]),
+               launch_totals=dict(train=dict(sum_counts(train["launches"])),
+                                  image=serve["image"][2], video=serve["video"][2]))
+    if rank == 0:
+        torch.save(train["kept"], os.path.join(work, "rank0_params.pt"))
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    log(f"  rank {rank}: saved at {time.perf_counter() - t0:.1f} s")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+# --------------------------------------------------------------------------
 # phase 18: the head-packing probe and kernel K9
 # --------------------------------------------------------------------------
 
@@ -3287,6 +3731,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
                     help="also write every measurement as JSON to this path")
+    # phase 25b runs this script again as each of its two ranks
+    ap.add_argument("--p25-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--p25-init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--p25-work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3305,6 +3753,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's package is not beside this script: {e}",
               file=sys.stderr)
         return 2
+
+    if args.p25_rank is not None:
+        return p25_rank(args.p25_rank, args.p25_init, args.p25_work)
 
     frames, requests = 2, 2
     log("== phase 1: card")
@@ -3515,6 +3966,11 @@ def main(argv=None) -> int:
         f"get_all_eval_scores and the CLIP similarity; the metric nets card vs CPU in fp32)")
     evaluation = eval_on_card(card, steps=steps)
 
+    log("== phase 25: distribution on the card (25a: one rank over NCCL; 25b: two ranks "
+        "sharing the card over gloo), full SD1.5 width")
+    distribution = distribution_on_card(card)
+    dl = distribution["launches"]
+
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
 
@@ -3540,7 +3996,19 @@ def main(argv=None) -> int:
                 cli["image"]["launches"],
              "sampling CLI --video (1 request x 10 DDIM steps)": cli["video"]["launches"],
              f"eval CLI (2 requests x 8 frames x {steps} DDIM steps)":
-                evaluation["generation"]["launches"]}
+                evaluation["generation"]["launches"],
+             f"distributed training, world 1 over NCCL (stage 2, {P25_TRAIN_STEPS} steps)":
+                dl["train"],
+             "frame-parallel image serving, world 1 over NCCL (1 request x 50 DDIM steps)":
+                dl["image"],
+             "window-parallel video serving, world 1 over NCCL (1 request x 10 DDIM steps)":
+                dl["video"],
+             "distributed training, 2 ranks over gloo (stage 2, 2 steps, both ranks)":
+                dl["b_train"],
+             "frame-parallel image serving, 2 ranks over gloo (1 request x 50 DDIM steps, "
+             "both ranks)": dl["b_image"],
+             "window-parallel video serving, 2 ranks over gloo (1 request x 10 DDIM steps, "
+             "both ranks)": dl["b_video"]}
     kernels = []
     for name, meta in KERNELS.items():
         by_path = {p: sum(launches.get(m, 0) for m in meta["modes"])
@@ -3647,7 +4115,9 @@ def main(argv=None) -> int:
                            packed_shapes=packed_rows, head_packing_probe=probe,
                            kernel_gate=gate, small_dual=small_dual, dual_control=dual,
                            samplers=samplers, profile=profile, sample_cli=cli,
-                           openpose=openpose, evaluation=evaluation, kernels=kernels), f,
+                           openpose=openpose, evaluation=evaluation,
+                           distribution={k: v for k, v in distribution.items()
+                                         if k != "launches"}, kernels=kernels), f,
                       indent=1)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

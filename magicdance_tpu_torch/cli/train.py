@@ -1,4 +1,4 @@
-"""Training CLI: the MagicPose curriculum on one GPU.
+"""Training CLI: the MagicPose curriculum, on one GPU or data parallel.
 
 Counterpart of `magicdance_tpu.cli.train` (ref train_tiktok.py:546 main;
 scripts/appearance_control_pretraining.sh and
@@ -7,6 +7,12 @@ scripts/appearance_disentangle_pose_control.sh): stages 1 and 2 train on
 clips of `video_frames` frames folded into the batch. Stage selection is
 explicit (`--stage 1|2|3` or a JSON TrainConfig). Runs on the GPU unless
 `--device cpu`.
+
+Under `torchrun` every process joins the group (NCCL on the GPU, gloo with
+`--device cpu`): the global batch is `--batch` (per device) times the
+ranks, each rank trains on its rows of it (data parallel with ZeRO-1, see
+`train.trainer`), and rank 0 alone prints, logs, writes the sample grids and
+saves the checkpoints; every rank resumes from the newest one.
 
 `--init_checkpoint` takes a full reference checkpoint (`model_state-*.th`,
 `control_sd15_ini.ckpt`; it must hold the VAE and CLIP weights) through
@@ -18,6 +24,8 @@ weights are seeded random (every leaf), which is for smoke runs.
 Usage:
   python -m magicdance_tpu_torch.cli.train --stage 2 --data TikTok-v4 \\
       --output runs/stage2 [--steps 100000] [--device cuda]
+  torchrun --nproc_per_node 8 -m magicdance_tpu_torch.cli.train --stage 2 \\
+      --data TikTok-v4 --output runs/stage2 [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true", default=True)
     p.add_argument("--save_steps", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--init_method", default=None,
+                   help="process-group rendezvous (e.g. file:///shared/rdzv) for ranks "
+                        "given by RANK / WORLD_SIZE; default: torchrun's environment")
     return p
 
 
@@ -56,12 +67,14 @@ def main(argv=None) -> None:
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from magicdance_tpu_torch import config as C
     from magicdance_tpu_torch.data.loader import PrefetchLoader
     from magicdance_tpu_torch.data.tiktok import TikTokPairDataset
     from magicdance_tpu_torch.data.tiktok_video import TikTokClipDataset
     from magicdance_tpu_torch.data.tokenizer import empty_prompt_ids
+    from magicdance_tpu_torch.parallel.multihost import initialize_distributed, is_primary
     from magicdance_tpu_torch.train.checkpoint import CheckpointManager
     from magicdance_tpu_torch.train.trainer import Trainer
     from magicdance_tpu_torch.utils.logging import MetricLogger
@@ -83,13 +96,24 @@ def main(argv=None) -> None:
         cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim,
                                                                  learning_rate=args.lr))
 
+    initialize_distributed(backend="gloo" if args.device == "cpu" else "nccl",
+                           init_method=args.init_method)
+    primary = is_primary()
+
+    def say(msg: str) -> None:
+        if primary:
+            print(msg, flush=True)
+
     os.makedirs(args.output, exist_ok=True)
-    C.save_json(cfg, os.path.join(args.output, "config.json"))
+    if primary:
+        C.save_json(cfg, os.path.join(args.output, "config.json"))
 
     trainer = Trainer(cfg, device=args.device)
     device = trainer.device
-    global_batch = cfg.batch_size_per_device
-    print(f"[train] device={device} global_batch={global_batch}")
+    global_batch = cfg.batch_size_per_device * trainer.data.size
+    mesh = (dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))
+            if trainer.mesh is not None else None)
+    say(f"[train] device={device} mesh={mesh} global_batch={global_batch}")
     # ---- parameter init ---------------------------------------------------
     from magicdance_tpu_torch.convert import torch_convert as TC
 
@@ -100,7 +124,7 @@ def main(argv=None) -> None:
             raise ValueError("checkpoint lacks VAE/CLIP weights; supply a full "
                              "model_state/.ckpt file")
     else:
-        print("[train] random init (no --init_checkpoint)")
+        say("[train] random init (no --init_checkpoint)")
         trainer.init_random(seed=cfg.seed)
     if args.motion_module_checkpoint:
         # stage-3 surgery: AnimateDiff motion weights over the UNet's
@@ -112,7 +136,7 @@ def main(argv=None) -> None:
                                        cfg.model.unet)
         states["model"] = TC.merge_motion_state(states["model"],
                                                 {f"unet.{k}": v for k, v in mm.items()})
-        print(f"[train] merged {len({k.split('.')[0] for k in mm})} motion modules from "
+        say(f"[train] merged {len({k.split('.')[0] for k in mm})} motion modules from "
               f"{args.motion_module_checkpoint}")
     if states is not None:
         trainer.load_state_dicts(states["model"], states["vae"], states["clip"])
@@ -122,7 +146,7 @@ def main(argv=None) -> None:
     if args.resume and ckpt.latest_step() is not None:
         trainer.load_state_dict(ckpt.restore(map_location=device))
         start_step = trainer.step
-        print(f"[train] resumed from step {start_step}")
+        say(f"[train] resumed from step {start_step}")
 
     # ---- data: (reference, target, pose) pairs, or F-frame clips folded
     # into the batch axis (ref train_tiktok.py:1189-1200); empty prompts ----
@@ -146,7 +170,7 @@ def main(argv=None) -> None:
                 batch.pop("pose", None)
             yield batch
 
-    loader = PrefetchLoader(it_factory, workers=2, device=device)
+    loader = PrefetchLoader(it_factory, workers=2, device=device, mesh=trainer.mesh)
 
     # ---- periodic visualization (ref train_tiktok.py:388-531,1258-1268:
     # every logging_gen_steps, sample a batch and write a
@@ -182,10 +206,10 @@ def main(argv=None) -> None:
         out = os.path.join(args.output, "samples", f"step_{it:08d}.png")
         os.makedirs(os.path.dirname(out), exist_ok=True)
         save_image_grid(rows, out)
-        print(f"[train] wrote sample grid {out}")
+        say(f"[train] wrote sample grid {out}")
 
     # ---- loop -----------------------------------------------------------
-    logger = MetricLogger(os.path.join(args.output, "tb"))
+    logger = MetricLogger(os.path.join(args.output, "tb")) if primary else None
     try:
         batch = next(loader)
         t_last = time.time()
@@ -198,21 +222,25 @@ def main(argv=None) -> None:
                 dt = time.time() - t_last
                 t_last = time.time()
                 ips = cfg.logging_steps * global_batch * F / dt
-                logger.log(it + 1, {**m, "images_per_sec": ips})
-                print(f"[train] step {it + 1} loss={m['loss']:.4f} {ips:.1f} img/s")
-            if vis_batch is not None:
+                if logger is not None:
+                    logger.log(it + 1, {**m, "images_per_sec": ips})
+                say(f"[train] step {it + 1} loss={m['loss']:.4f} {ips:.1f} img/s")
+            if vis_batch is not None and primary:
                 try:
                     visualize(it + 1, vis_batch)
                 except Exception as e:  # visualization must never kill training
-                    print(f"[train] visualize failed: {e!r}")
+                    say(f"[train] visualize failed: {e!r}")
             if (it + 1) % cfg.save_steps == 0:
                 ckpt.save(it + 1, trainer.state_dict())
-                print(f"[train] saved step {it + 1}")
+                say(f"[train] saved step {it + 1}")
         ckpt.save(cfg.num_train_steps, trainer.state_dict())
     finally:
         loader.close()
-        logger.close()
-    print("[train] done")
+        if logger is not None:
+            logger.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    say("[train] done")
 
 
 if __name__ == "__main__":

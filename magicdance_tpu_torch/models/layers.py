@@ -205,7 +205,9 @@ class Upsample(nn.Module):
 
 class GEGLUFeedForward(nn.Module):
     """GEGLU MLP, mult 4. The gate uses the tanh-approximated GELU, which is
-    what `flax.linen.gelu` computes by default."""
+    what `flax.linen.gelu` computes by default. `proj_in`'s output is
+    [value | gate]; the tensor-parallel plan reorders its rows so that each
+    rank's local output is its own [value | gate] pair."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -222,14 +224,17 @@ class CrossAttention(nn.Module):
     """Multi-head attention, q from x, k/v from context (or x). In bank-read
     mode the bank entry goes through the same to_k/to_v projections and the
     attention is one joint softmax over the layer's own keys and the bank's.
-    q/k/v stay packed (B, S, H*D) into the kernels."""
+    q/k/v stay packed (B, S, H*D) into the kernels; the head count is read
+    from their width, so under the tensor-parallel plan
+    (`parallel.mesh.tensor_parallel_plan`) each rank attends over its own
+    heads."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int], num_heads: int,
                  head_dim: int):
         super().__init__()
         inner = num_heads * head_dim
         context_dim = query_dim if context_dim is None else context_dim
-        self.num_heads = num_heads
+        self.head_dim = head_dim
         self.to_q = Linear(query_dim, inner, bias=False)
         self.to_k = Linear(context_dim, inner, bias=False)
         self.to_v = Linear(context_dim, inner, bias=False)
@@ -240,12 +245,13 @@ class CrossAttention(nn.Module):
                 bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         ctx = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        heads = q.shape[-1] // self.head_dim
         if kv_extra is not None:
             kb, vb = self.to_k(kv_extra), self.to_v(kv_extra)
-            out = bank_read_attention_packed(q, k, v, kb, vb, num_heads=self.num_heads,
+            out = bank_read_attention_packed(q, k, v, kb, vb, num_heads=heads,
                                              bank_mask=bank_mask)
         else:
-            out = attention_packed(q, k, v, num_heads=self.num_heads)
+            out = attention_packed(q, k, v, num_heads=heads)
         return self.to_out(out)
 
 

@@ -1,6 +1,6 @@
 """Inference pipeline: reference image + pose maps -> frames (PyTorch).
 
-Counterpart of `magicdance_tpu.pipeline.MagicPosePipeline` on one device:
+Counterpart of `magicdance_tpu.pipeline.MagicPosePipeline`:
 CLIP-encode the (empty) prompt once, VAE-encode the reference once
 (posterior mode), denoise the pose frames of a request with the DDIM
 sampler under the caller's `SampleConfig` (exact recipe, fused CFG or any
@@ -8,6 +8,10 @@ turbo lever), decode in chunks of 8. Images: all frames are one batch. Video
 (`video=True` on the temporal variant): the overlap-window sampler
 (`sampling.overlap`), windows of `scfg.window` frames `scfg.stride` apart;
 a temporal model asked for images samples them with one frame per clip.
+With a `mesh` (its 'data' axis) a request is served across ranks: the
+images' frames split over the ranks (frame-parallel), the video's windows
+per step (window-parallel, `sampling.overlap`), and every rank returns the
+whole result.
 Runs on the GPU unless the caller passes device="cpu"; the denoiser runs in
 `cfg.dtype`, VAE in
 `cfg.vae.compute_dtype`, CLIP in fp32. The pipeline owns that precision:
@@ -29,6 +33,7 @@ from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPos
 from magicdance_tpu_torch.models.magicpose import model_dtype
 from magicdance_tpu_torch.models.vae import encode_to_latent, latent_to_decoder_input
 from magicdance_tpu_torch.ops.schedules import make_ddim_schedule, make_schedule
+from magicdance_tpu_torch.parallel.mesh import as_axis
 from magicdance_tpu_torch.sampling.ddim import ddim_sample
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
 
@@ -43,9 +48,10 @@ class MagicPosePipeline:
         self.cfg = cfg
         self.device = resolve_device(device)
         vae_dtype = torch.bfloat16 if cfg.vae.compute_dtype == "bfloat16" else torch.float32
-        self.model = MagicPoseModel(cfg).to(self.device, model_dtype(cfg))
-        self.vae = AutoencoderKL(cfg.vae).to(self.device, vae_dtype)
-        self.clip = CLIPTextEncoder(cfg.clip).to(self.device)
+        with self.device:  # built where it runs: no host-side default init
+            self.model = MagicPoseModel(cfg).to(self.device, model_dtype(cfg))
+            self.vae = AutoencoderKL(cfg.vae).to(self.device, vae_dtype)
+            self.clip = CLIPTextEncoder(cfg.clip).to(self.device)
         for m in (self.model, self.vae, self.clip):
             m.eval().requires_grad_(False)
         self.sched = make_schedule(cfg.diffusion)
@@ -130,6 +136,7 @@ class MagicPosePipeline:
         generator: Optional[torch.Generator] = None,
         window_offsets: Optional[Sequence[int]] = None,
         image_hints: Optional[torch.Tensor] = None,
+        mesh=None,
     ) -> torch.Tensor:
         """pose_maps: (F, H, W, 3) in [0, 1] or None; reference_image:
         (1, H, W, 3) in [-1, 1] or None; image_hints: (F, H, W, 3) in [0, 1],
@@ -142,7 +149,16 @@ class MagicPosePipeline:
         shared by every frame when scfg.shared_noise. `video=True` on the
         temporal variant samples through the overlap windows, whose per-step
         cyclic offsets are `window_offsets` or drawn from `generator`; on
-        any other variant it samples images, as in JAX."""
+        any other variant it samples images, as in JAX.
+
+        mesh: a DeviceMesh with a 'data' axis (JAX `sample_frames(mesh=)`).
+        Every rank takes rank 0's x_T (and window offsets). Images: rank r
+        samples and decodes its share of the frames (`torch.tensor_split`'s,
+        any F) with the batch-1 bank computed by itself; video: the windows
+        of each step split over the ranks and the frame-space latents stay
+        whole, then the decode splits by frames. An all-gather returns the
+        whole (F, ...) result on every rank. The weights are the caller's on
+        every rank (the same seed or checkpoint)."""
         cfg = self.cfg
         video = video and cfg.has_temporal
         if image_hints is not None:
@@ -165,9 +181,20 @@ class MagicPosePipeline:
         ddim = make_ddim_schedule(self.sched, scfg.steps, eta=scfg.eta)
         kw = dict(reference_latent=ref_latent, pose_hint=pose_maps, image_hint=image_hints,
                   parameterization=cfg.diffusion.parameterization, generator=generator)
+        axis = as_axis(mesh)
+        axis.broadcast(x_T)
+        f0, f1 = axis.rows(F)
         if video:
             lat = ddim_sample_video(self.model, self.sched, ddim, scfg, x_T, ctx, uctx,
-                                    window_offsets=window_offsets, **kw)
+                                    window_offsets=window_offsets, window_sharding=axis,
+                                    **kw)[f0:f1]
         else:
-            lat = ddim_sample(self.model, self.sched, ddim, scfg, x_T, ctx, uctx, **kw)
-        return self.decode_latents(lat) if decode else lat
+            share = {k: (v[f0:f1] if k in ("pose_hint", "image_hint") and v is not None else v)
+                     for k, v in kw.items()}
+            lat = (ddim_sample(self.model, self.sched, ddim, scfg, x_T[f0:f1], ctx, uctx,
+                               rows=(f0, F), **share) if f1 > f0 else x_T[f0:f1])
+        if decode:
+            up = 2 ** (len(cfg.vae.channel_mult) - 1)
+            lat = (self.decode_latents(lat) if f1 > f0
+                   else lat.new_zeros((0, up * lat.shape[1], up * lat.shape[2], 3)))
+        return axis.gather_rows(lat, F)

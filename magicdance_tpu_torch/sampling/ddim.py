@@ -200,6 +200,7 @@ def ddim_sample(
     image_hint: Optional[torch.Tensor] = None,
     parameterization: Parameterization = Parameterization.EPS,
     generator: Optional[torch.Generator] = None,
+    rows: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Sample latents x_0 from x_T.
 
@@ -207,7 +208,10 @@ def ddim_sample(
     (1 or B, 77, context_dim); reference_latent: (Br, h, w, 4), Br in {1, B};
     pose_hint: (B, H, W, 3); image_hint: (B, H, W, 3), the DUAL_CONTROL
     image ControlNet's hint. `generator` supplies the noise when eta > 0 or
-    wonoise is off; with the default recipe the sampler draws nothing."""
+    wonoise is off; with the default recipe the sampler draws nothing.
+    `rows` = (first row, total rows): x_T is that share of a larger batch
+    (frame-parallel serving), and the per-step noise is drawn for the whole
+    batch and cut to the share, as one device would draw it."""
     check_control_mode(scfg)
     if scfg.self_kv_downsample > 1 and scfg.fused_cfg:
         raise ValueError("self_kv_downsample needs separate cond/uncond passes (the "
@@ -297,8 +301,9 @@ def ddim_sample(
                 eps = eps_c
 
         if scfg.eta > 0:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype)
+            first, total = rows if rows is not None else (0, B)
+            noise = torch.randn((total,) + tuple(x.shape[1:]), generator=generator,
+                                device=x.device, dtype=x.dtype)[first:first + B]
         else:
             noise = torch.zeros_like(x)
         x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],

@@ -20,8 +20,17 @@ scatter-averaged from the window batch onto the frames on refresh steps and
 gathered back through the CURRENT step's rotated layout on reuse steps, so
 they survive the rotation. The bank does not depend on the windows. As in
 JAX, `fused_cfg` does nothing here and the uncond pass is always the
-vanilla-SD forward; `window_sharding` (multi-device serving) is not ported
-and raises.
+vanilla-SD forward.
+
+`window_sharding` (multi-card serving; a DeviceMesh or its 'data'
+`MeshAxis`): the windows of every step split over the ranks, each rank runs
+the passes of its windows (and the batch-1 bank itself), and every
+scatter-average onto the frames -- the eps, and the frame-space caches of
+the turbo levers -- sums its windows locally in fp32 and all-reduces the
+sums and the counts: one collective per average. The frame-space latents,
+the offsets (rank 0's, broadcast) and every draw stay the same on every
+rank. The sums add in another order than on one device, so the result
+agrees to rounding, not bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 from magicdance_tpu_torch.config import Parameterization, SampleConfig
 from magicdance_tpu_torch.models.diffusion import output_to_eps
 from magicdance_tpu_torch.ops.schedules import DDIMSchedule, DiffusionSchedule, q_sample
+from magicdance_tpu_torch.parallel.mesh import MeshAxis, as_axis
 from magicdance_tpu_torch.sampling.ddim import (
     TurboPlan,
     check_control_mode,
@@ -78,19 +88,24 @@ def ddim_sample_video(
     `window_offsets`: the per-step cyclic offsets (S ints in [0, F)), else
     drawn from `generator`, which also supplies the noise when eta > 0 or
     wonoise is off. The uncond pass is the vanilla-SD forward, as in the JAX
-    video sampler."""
+    video sampler. `window_sharding`: see the module docstring; every rank
+    needs at least one window."""
     check_control_mode(scfg)
-    if window_sharding is not None:
-        raise NotImplementedError("window_sharding is not ported yet (one device)")
+    axis = as_axis(window_sharding)
     F = x_T.shape[0]
     W = min(scfg.window, F)
     dev = x_T.device
     starts = torch.as_tensor(window_starts(F, scfg.window, scfg.stride), device=dev)
     n_win = starts.shape[0]
+    if n_win < axis.size:
+        raise ValueError(f"{n_win} window(s) of {W} frames cannot cover {axis.size} ranks; "
+                         "use a smaller window")
+    w0, w1 = axis.rows(n_win)  # this rank's windows
     S = ddim.num_steps
     if window_offsets is None:  # one draw for every step: no host sync
         offsets = torch.randint(0, F, (S,), generator=generator,
                                 device=dev if generator is None else generator.device).to(dev)
+        axis.broadcast(offsets)
     else:
         offsets = torch.as_tensor(list(window_offsets), dtype=torch.int64, device=dev)
     if offsets.shape != (S,):
@@ -106,7 +121,7 @@ def ddim_sample_video(
     def tile(c):
         if c is None:
             return None
-        return c.expand(n_win * W, *c.shape[1:]) if c.shape[0] == 1 else c
+        return c.expand((w1 - w0) * W, *c.shape[1:]) if c.shape[0] == 1 else c
 
     def to_eps(out, x, t):
         return output_to_eps(parameterization, sched, out, x, t)
@@ -120,13 +135,13 @@ def ddim_sample_video(
     for i in range(S):
         step = S - 1 - i  # descending t
         t_scalar = int(ddim.timesteps[step])
-        idx = (starts[:, None] + offsets[i] + frame[None, :]) % F  # (n_win, W)
+        idx = (starts[w0:w1, None] + offsets[i] + frame[None, :]) % F  # (windows, W)
         flat = idx.reshape(-1)
         xw = x[flat]
         t = torch.full((flat.shape[0],), t_scalar, dtype=torch.int64, device=dev)
 
         def to_frames(vals_w):
-            return scatter_mean(vals_w, idx, F)
+            return scatter_mean(vals_w, idx, F, axis)
 
         if has_appearance and plan.bank_refresh[step]:
             t_ref = torch.full((reference_latent.shape[0],), t_scalar, dtype=torch.int64,
@@ -196,12 +211,15 @@ def ddim_sample_video(
     return x
 
 
-def scatter_mean(vals_w: torch.Tensor, idx: torch.Tensor, num_frames: int) -> torch.Tensor:
+def scatter_mean(vals_w: torch.Tensor, idx: torch.Tensor, num_frames: int,
+                 axis: Optional[MeshAxis] = None) -> torch.Tensor:
     """Average window-batched values (n_win*W, ...) onto the absolute frames
     (num_frames, ...) in fp32, cast back to their dtype (ref ddim.py:586-594
     pred_all/counts). Window by window: a window's frames are distinct, so
     each add is free of duplicate indices, and a frame's contributions are
-    summed in window order on every device (JAX's order on the CPU)."""
+    summed in window order on every device (JAX's order on the CPU). With
+    `axis`, `idx` holds this rank's windows and the sums and counts are
+    all-reduced over the ranks before the division."""
     n_win, w = idx.shape
     acc = torch.zeros((num_frames,) + vals_w.shape[1:], dtype=torch.float32,
                       device=vals_w.device)
@@ -212,4 +230,7 @@ def scatter_mean(vals_w: torch.Tensor, idx: torch.Tensor, num_frames: int) -> to
     for j in range(n_win):
         acc.index_add_(0, idx[j], vals_w[j * w:(j + 1) * w].float())
         counts.index_add_(0, idx[j], ones)
+    if axis is not None and axis.group is not None:
+        axis.all_reduce(acc)
+        axis.all_reduce(counts)
     return (acc / counts.reshape((num_frames,) + (1,) * (vals_w.dim() - 1))).to(vals_w.dtype)

@@ -6,6 +6,11 @@ Counterpart of `magicdance_tpu.train.checkpoint`: one directory per step,
 the caller's state dict -- for the trainer `Trainer.state_dict()`: step,
 weights, optimizer state, EMA and the generator's state, so a resumed run
 continues the same stream of draws.
+
+Under a process group, rank 0 writes and every rank waits at a barrier
+after the write; the trainer gathers its ZeRO-1 slices into the state dict
+first, so a checkpoint has one layout at any world size, and every rank
+restores from the same file (`Trainer.load_state_dict` re-shards).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import shutil
 from typing import Any, Optional
 
 import torch
+
+from magicdance_tpu_torch.parallel.multihost import is_primary, sync_global_devices
 
 
 class CheckpointManager:
@@ -43,13 +50,16 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> None:
         """Write atomically (a temporary file renamed into place), then
-        rotate."""
-        path = self._path(step)
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, "state.pt.tmp")
-        torch.save(state, tmp)
-        os.replace(tmp, os.path.join(path, "state.pt"))
-        self._rotate()
+        rotate; under a process group only rank 0 writes, and every rank
+        returns after it has."""
+        if is_primary():
+            path = self._path(step)
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, "state.pt.tmp")
+            torch.save(state, tmp)
+            os.replace(tmp, os.path.join(path, "state.pt"))
+            self._rotate()
+        sync_global_devices(f"checkpoint step {step}")
 
     def restore(self, step: Optional[int] = None,
                 map_location: Any = "cpu") -> Any:

@@ -35,10 +35,36 @@ from the loss, and a caller may hand its own `Draws` to `train_step`; the
 generator's state is part of the checkpointed state, so a resumed run
 continues the same stream.
 
+Distribution (torch.distributed; JAX jits the step over a mesh): under an
+initialized process group the trainer builds a mesh of `cfg.mesh_axes`
+(every rank on 'data' by default; a ("data", "model") mesh trains data
+parallel, as JAX's trainer, which never applies the tensor-parallel plan)
+and runs on the rank's card. Each rank computes the loss of its rows of the
+global batch; the trainable gradients are summed over the 'data' axis in
+buckets after the backward pass and divided by its size, so every rank holds
+the gradient of the global batch's mean loss, as XLA's psum gives. The
+random draws are the global batch's, from the generator every rank seeds
+alike, and each rank keeps its rows (whole clips in a temporal batch), so W
+ranks compute what one device computes on the W-times batch. The metrics are
+averaged over the ranks. A plain all-reduce after backward was chosen over
+DistributedDataParallel: the loss reaches the denoiser through remat
+(non-reentrant checkpoint) and the freeze regimes leave trainable leaves
+without a gradient in some configurations (they get zeros, as in JAX), so
+DDP would need `find_unused_parameters` (a graph walk every step); and the
+optimizer below is not a torch.optim class, so ZeroRedundancyOptimizer does
+not apply either.
+
+ZeRO-1 (`optim.shard_opt_state`, JAX `zero1_sharding`): each rank keeps
+the slice of `mu`, `nu`, the accumulator `acc` and the EMA along the axis
+`parallel.mesh.zero1_sharding` picks per leaf (small indivisible leaves stay
+whole), updates the same slice of the parameter, and the slices are then
+all-gathered into every rank's full parameter. The clip uses the global
+norm of the full averaged gradient (with a sharded `acc`, its squared slices
+are summed over the ranks). Checkpoints (`state_dict`) gather the slices:
+their layout does not depend on the world size.
+
 Not ported yet (each raises NotImplementedError): `frozen_dtype="int8"`
-(train/quant.py), a mesh of more than one device (ZeRO-1 and data parallel:
-on one device the ZeRO-1 sharding of `shard_opt_state` is the identity),
-`attention_impl` other than "auto", and dropout > 0.
+(train/quant.py), `attention_impl` other than "auto", and dropout > 0.
 """
 
 from __future__ import annotations
@@ -47,6 +73,7 @@ from dataclasses import dataclass
 from typing import Callable, Mapping, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from magicdance_tpu_torch.config import FreezeRegime, OptimConfig, TrainConfig
 from magicdance_tpu_torch.device import resolve_device
@@ -54,7 +81,17 @@ from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPos
 from magicdance_tpu_torch.models.diffusion import diffusion_loss, draw_timesteps_and_noise
 from magicdance_tpu_torch.models.vae import encode_sample_chunked, encode_to_latent
 from magicdance_tpu_torch.ops.schedules import make_schedule
+from magicdance_tpu_torch.parallel.mesh import (
+    MeshAxis,
+    as_axis,
+    make_mesh,
+    replicated,
+    zero1_sharding,
+)
 from magicdance_tpu_torch.pipeline import full_fp32
+
+# elements per bucket of the gradient all-reduce and the parameter all-gather
+BUCKET_ELEMS = 1 << 26
 
 # ---------------------------------------------------------------------------
 # freeze regimes as path predicates
@@ -117,20 +154,113 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+def buckets(tensors: list, cap: int = BUCKET_ELEMS) -> list[list[int]]:
+    """Indices of `tensors` in consecutive groups of at most `cap` elements
+    (a larger tensor is a group of its own)."""
+    out, cur, n = [], [], 0
+    for i, t in enumerate(tensors):
+        if cur and n + t.numel() > cap:
+            out.append(cur)
+            cur, n = [], 0
+        cur.append(i)
+        n += t.numel()
+    return out + ([cur] if cur else [])
+
+
+@torch.no_grad()
+def all_reduce_mean(tensors: list, axis: MeshAxis) -> None:
+    """Average each tensor over the axis in place, flattened in buckets."""
+    if axis.group is None:
+        return
+    for idx in buckets(tensors):
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        axis.all_reduce(flat).div_(axis.size)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            tensors[i].copy_(flat[off:off + n].view_as(tensors[i]))
+            off += n
+
+
+class Shards:
+    """Which slice of each key's state this rank of `axis` holds (ZeRO-1):
+    `shard` maps a key to the axis it is split along, or None (whole)."""
+
+    def __init__(self, axis: Optional[MeshAxis] = None,
+                 shard: Optional[Mapping[str, Optional[int]]] = None):
+        self.axis = axis or MeshAxis.single()
+        self.shard = dict(shard or {})
+
+    def local(self, key: str, t: torch.Tensor, rank: Optional[int] = None) -> torch.Tensor:
+        """The slice of full tensor `t` that rank `rank` (default: this one)
+        holds of `key` (a view; `t` itself when whole)."""
+        a = self.shard.get(key)
+        if a is None:
+            return t
+        n = t.shape[a] // self.axis.size
+        return t.narrow(a, (self.axis.rank if rank is None else rank) * n, n)
+
+    def gather(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """The full tensor of `key` from every rank's slice `t`."""
+        a = self.shard.get(key)
+        return t if a is None else torch.cat(self.axis.all_gather(t.contiguous()), dim=a)
+
+    @torch.no_grad()
+    def gather_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Every rank's slices of `params` into every rank's full tensors,
+        flattened in buckets (one all-gather each)."""
+        keys = [k for k in params if self.shard.get(k) is not None]
+        if self.axis.group is None or not keys:
+            return
+        mine = [self.local(k, params[k]) for k in keys]
+        for idx in buckets(mine):
+            parts = self.axis.all_gather(torch.cat([mine[i].reshape(-1) for i in idx]))
+            for r, part in enumerate(parts):
+                if r == self.axis.rank:
+                    continue
+                off = 0
+                for i in idx:
+                    view = self.local(keys[i], params[keys[i]], rank=r)
+                    view.copy_(part[off:off + view.numel()].view(view.shape))
+                    off += view.numel()
+
+
 class Optimizer:
     """Clip by global norm, then AdamW, with gradient accumulation. State:
     fp32 moments `mu`/`nu`, the inner update `count`, and for grad_accum > 1
-    the running mean `acc` of the micro-batch gradients and `mini_step`."""
+    the running mean `acc` of the micro-batch gradients and `mini_step`.
 
-    def __init__(self, ocfg: OptimConfig, params: Mapping[str, torch.Tensor]):
+    ZeRO-1: with `shards`, this rank holds its slices of the moments and
+    `acc`, updates its slice of each parameter, and the slices are then
+    all-gathered."""
+
+    def __init__(self, ocfg: OptimConfig, params: Mapping[str, torch.Tensor],
+                 shards: Optional[Shards] = None):
         self.cfg = ocfg
         self.schedule = make_lr_schedule(ocfg)
-        self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
-        self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.shards = shards or Shards()
+        local = self.shards.local
+        self.mu = {k: torch.zeros_like(local(k, p)) for k, p in params.items()}
+        self.nu = {k: torch.zeros_like(local(k, p)) for k, p in params.items()}
         self.count = 0
-        self.acc = ({k: torch.zeros_like(p) for k, p in params.items()}
+        self.acc = ({k: torch.zeros_like(local(k, p)) for k, p in params.items()}
                     if ocfg.grad_accum > 1 else None)
         self.mini_step = 0
+
+    def state_bytes(self) -> int:
+        """Bytes of the moments and accumulator this rank holds."""
+        return sum(t.numel() * t.element_size() for part in (self.mu, self.nu, self.acc or {})
+                   for t in part.values())
+
+    def _norm(self, keys: list, g: list) -> torch.Tensor:
+        """Global norm of the full tensors whose slices (or wholes) are `g`."""
+        shard = self.shards.shard
+        split = [t for k, t in zip(keys, g) if shard.get(k) is not None]
+        if not split:
+            return global_norm(g)
+        sq = self.shards.axis.all_reduce(sum(t.float().pow(2).sum() for t in split))
+        whole = [t for k, t in zip(keys, g) if shard.get(k) is None]
+        return torch.sqrt(sq + sum(t.float().pow(2).sum() for t in whole))
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
@@ -140,7 +270,7 @@ class Optimizer:
         keys = list(params)
         if self.acc is not None:
             acc = [self.acc[k] for k in keys]
-            diff = torch._foreach_sub([grads[k] for k in keys], acc)
+            diff = torch._foreach_sub([self.shards.local(k, grads[k]) for k in keys], acc)
             torch._foreach_div_(diff, float(self.mini_step + 1))
             torch._foreach_add_(acc, diff)
             if self.mini_step < self.cfg.grad_accum - 1:
@@ -150,10 +280,11 @@ class Optimizer:
             for a in acc:
                 a.zero_()
             self.mini_step = 0
+            norm = self._norm(keys, g)
         else:
-            g = [grads[k].clone() for k in keys]
+            norm = global_norm([grads[k] for k in keys])
+            g = [self.shards.local(k, grads[k]).clone() for k in keys]
         c = self.cfg
-        norm = global_norm(g)
         scale = torch.where(norm < c.grad_clip, torch.ones_like(norm), c.grad_clip / norm)
         torch._foreach_mul_(g, scale)
         mu = [self.mu[k] for k in keys]
@@ -170,21 +301,28 @@ class Optimizer:
         torch._foreach_add_(denom, c.adam_eps)
         upd = torch._foreach_div(mu, bc1)
         torch._foreach_div_(upd, denom)
-        p = [params[k] for k in keys]
+        p = [self.shards.local(k, params[k]) for k in keys]
         if c.weight_decay:
             torch._foreach_add_(upd, p, alpha=c.weight_decay)
         torch._foreach_add_(p, upd, alpha=-lr)
+        self.shards.gather_params(params)
         return True
 
     def state_dict(self) -> dict:
-        return {"mu": self.mu, "nu": self.nu, "count": self.count, "acc": self.acc,
-                "mini_step": self.mini_step}
+        """The full moments (gathered from every rank's slices): the same
+        layout at any world size. Every rank must call it."""
+        full = {name: {k: self.shards.gather(k, t) for k, t in getattr(self, name).items()}
+                for name in ("mu", "nu") + (("acc",) if self.acc is not None else ())}
+        return {"mu": full["mu"], "nu": full["nu"], "count": self.count,
+                "acc": full.get("acc"), "mini_step": self.mini_step}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
+        """Full moments, as `state_dict` writes them; each rank keeps its
+        slices."""
         for name in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
             for k, t in getattr(self, name).items():
-                t.copy_(sd[name][k])
+                t.copy_(self.shards.local(k, sd[name][k].to(t.device)))
         self.count = int(sd["count"])
         self.mini_step = int(sd["mini_step"])
 
@@ -216,17 +354,21 @@ class Trainer:
     the step. Build, set the weights (`init_random`, `load_state_dicts` or
     `convert.from_jax.load_train_state`), then call `train_step`."""
 
-    def __init__(self, cfg: TrainConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, cfg: TrainConfig, device: Union[str, torch.device] = "cuda",
+                 mesh=None):
+        """`mesh`: a DeviceMesh with a 'data' axis; by default one of
+        `cfg.mesh_axes` over every rank when a process group is initialized,
+        else none (one process). Under a group, "cuda" is the rank's card
+        (`parallel.multihost.initialize_distributed` sets it)."""
         ocfg = cfg.optim
         if ocfg.frozen_dtype == "int8":
             raise NotImplementedError("frozen_dtype='int8' (train/quant.py) is not "
                                       "ported yet")
         if ocfg.frozen_dtype not in _FROZEN_DTYPES:
             raise ValueError(f"unknown frozen_dtype {ocfg.frozen_dtype!r}")
-        if tuple(cfg.mesh_axes) != ("data",):
-            raise NotImplementedError("the port's trainer runs on one device; "
-                                      f"mesh axes {cfg.mesh_axes} come with the "
-                                      "distribution slice")
+        if "data" not in tuple(cfg.mesh_axes):
+            raise ValueError(f"mesh axes {cfg.mesh_axes} lack the 'data' axis the batch "
+                             "is split over")
         if cfg.attention_impl != "auto":
             raise NotImplementedError(f"attention_impl={cfg.attention_impl!r}: the "
                                       "port's trainer takes only 'auto'")
@@ -235,10 +377,15 @@ class Trainer:
         self.cfg = cfg
         # video clips arrive frame-folded into the batch: (B_clips * F, ...)
         self.num_frames = cfg.video_frames if cfg.model.has_temporal else 1
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh(cfg.mesh_axes)
+        self.mesh = mesh
+        self.data = as_axis(mesh, "data")
         self.device = resolve_device(device)
-        self.model = MagicPoseModel(cfg.model).to(self.device)
-        self.vae = AutoencoderKL(cfg.model.vae).to(self.device)
-        self.clip = CLIPTextEncoder(cfg.model.clip).to(self.device)
+        with self.device:  # built where it runs: no host-side default init
+            self.model = MagicPoseModel(cfg.model).to(self.device)
+            self.vae = AutoencoderKL(cfg.model.vae).to(self.device)
+            self.clip = CLIPTextEncoder(cfg.model.clip).to(self.device)
         for m in (self.model, self.vae, self.clip):
             m.train(False)
         self.sched = make_schedule(cfg.model.diffusion)
@@ -267,8 +414,15 @@ class Trainer:
             for p in m.parameters():
                 p.data = p.data.to(frozen)
                 p.requires_grad_(False)
-        self.opt = Optimizer(self.cfg.optim, self.train_params)
-        self.ema_params = ({k: p.detach().clone() for k, p in self.train_params.items()}
+        keys = list(self.train_params)
+        zero1 = (zero1_sharding(self.model, keys, self.data.size)
+                 if self.data.group is not None else replicated(keys))
+        self.opt = Optimizer(self.cfg.optim, self.train_params, Shards(
+            self.data, zero1 if self.cfg.optim.shard_opt_state else replicated(keys)))
+        # the EMA is ZeRO-1 sharded whatever shard_opt_state says, as in JAX
+        self.ema_shards = Shards(self.data, zero1)
+        self.ema_params = ({k: self.ema_shards.local(k, p.detach()).clone()
+                            for k, p in self.train_params.items()}
                            if self.cfg.optim.ema_rate > 0 else None)
 
     @torch.no_grad()
@@ -301,19 +455,30 @@ class Trainer:
 
     @torch.no_grad()
     def set_ema(self, ema: Mapping[str, torch.Tensor]) -> None:
+        """The full EMA tensors; each rank keeps its slices."""
         if self.ema_params is None:
             raise ValueError("ema_rate is 0: the trainer keeps no EMA")
         for k, t in self.ema_params.items():
-            t.copy_(ema[k])
+            t.copy_(self.ema_shards.local(k, ema[k].to(t.device)))
+
+    def full_ema(self) -> Optional[dict[str, torch.Tensor]]:
+        """The full EMA tensors, gathered from every rank's slices (every
+        rank must call it)."""
+        if self.ema_params is None:
+            return None
+        return {k: self.ema_shards.gather(k, t) for k, t in self.ema_params.items()}
 
     # -- one step -------------------------------------------------------------
     def draw(self, batch: Mapping[str, torch.Tensor]) -> Draws:
-        """This step's random numbers from the trainer's generator."""
+        """This step's random numbers from the trainer's generator: those of
+        the GLOBAL batch (this rank's rows times the 'data' axis), the same
+        on every rank, which keeps its rows (`local_draws`)."""
         f = 2 ** (len(self.cfg.model.vae.channel_mult) - 1)  # the VAE's downsampling
+        n = self.data.size
 
         def latent_shape(images):
             b, h, w, _ = images.shape
-            return (b, h // f, w // f, self.cfg.model.vae.embed_dim)
+            return (b * n, h // f, w // f, self.cfg.model.vae.embed_dim)
 
         shape = latent_shape(batch["image"])
         g, dev = self.generator, self.device
@@ -324,6 +489,26 @@ class Trainer:
             self.sched, torch.empty(shape, device=dev), generator=g,
             num_frames=self.num_frames)
         return Draws(t=t, noise=noise, vae_image=vae_image, vae_reference=vae_ref)
+
+    def local_draws(self, draws: Draws, batch: Mapping[str, torch.Tensor]) -> Draws:
+        """This rank's rows of the global batch's draws: rows
+        [rank * B, (rank + 1) * B) for this rank's B images (whole clips in
+        a temporal batch) and likewise for the references."""
+        n, r = self.data.size, self.data.rank
+        b = batch["image"].shape[0]
+        if draws.t.shape[0] != b * n:
+            raise ValueError(f"draws for {draws.t.shape[0]} images; the global batch holds "
+                             f"{b} x {n}")
+        if n == 1:
+            return draws
+
+        def rows(x, m):
+            return None if x is None else x[r * m:(r + 1) * m]
+
+        b_ref = batch["reference"].shape[0] if draws.vae_reference is not None else 0
+        return Draws(t=rows(draws.t, b), noise=rows(draws.noise, b),
+                     vae_image=rows(draws.vae_image, b),
+                     vae_reference=rows(draws.vae_reference, b_ref))
 
     def to_device(self, batch: Mapping) -> dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
@@ -360,15 +545,31 @@ class Trainer:
         return {k: p.grad if p.grad is not None else torch.zeros_like(p)
                 for k, p in self.train_params.items()}
 
+    def average(self, grads: Mapping[str, torch.Tensor],
+                metrics: Mapping[str, torch.Tensor]) -> dict:
+        """Average the gradients (in place) and the metrics over the 'data'
+        axis: the global batch's. Returns the averaged metrics."""
+        if self.data.group is None:
+            return dict(metrics)
+        all_reduce_mean(list(grads.values()), self.data)
+        vals = torch.stack([v.detach().float() for v in metrics.values()])
+        all_reduce_mean([vals], self.data)
+        return dict(zip(metrics, vals.unbind()))
+
     def loss_and_grads(self, batch: Mapping[str, torch.Tensor], draws: Draws):
-        """(loss, metrics, grads) of one batch (the loss is the counterpart
-        of the JAX trainer's `_loss`)."""
+        """(loss, metrics, grads) of this rank's rows of the batch with its
+        rows of the global draws, the gradients and metrics averaged over the
+        'data' axis (the loss is the counterpart of the JAX trainer's
+        `_loss`)."""
         for p in self.train_params.values():
             p.grad = None
+        draws = self.local_draws(draws, batch)
         with full_fp32():
             loss, metrics = self.loss_from_latents(*self.encode(batch, draws), batch, draws)
             loss.backward()
-        return loss.detach(), metrics, self.grads()
+        grads = self.grads()
+        metrics = self.average(grads, metrics)
+        return metrics["loss"], metrics, grads
 
     def apply_update(self, grads: Mapping[str, torch.Tensor]) -> None:
         """Optimizer update and EMA; clears the gradients; counts the step."""
@@ -376,17 +577,21 @@ class Trainer:
             self.opt.update(self.train_params, grads)
             if self.ema_params is not None:
                 rate = self.cfg.optim.ema_rate
+                local = self.ema_shards.local
                 with torch.no_grad():
                     torch._foreach_lerp_(list(self.ema_params.values()),
-                                         [p.detach() for p in self.train_params.values()],
+                                         [local(k, p.detach())
+                                          for k, p in self.train_params.items()],
                                          1.0 - rate)
         for p in self.train_params.values():
             p.grad = None
         self.step += 1
 
     def train_step(self, batch: Mapping, draws: Optional[Draws] = None) -> dict:
-        """One step: loss and grads, optimizer update, EMA. Returns metrics
-        as 0-d tensors on the device (no host sync)."""
+        """One step on this rank's rows of the global batch: loss and grads,
+        optimizer update, EMA. `draws` are the global batch's (default: from
+        the trainer's generator). Returns the metrics of the global batch as
+        0-d tensors on the device (no host sync)."""
         batch = self.to_device(batch)
         if draws is None:
             draws = self.draw(batch)
@@ -398,19 +603,23 @@ class Trainer:
     # -- state ----------------------------------------------------------------
     def state_dict(self) -> dict:
         """Everything a resumed run needs: step, weights, optimizer state,
-        EMA and the generator's state."""
+        EMA and the generator's state, in a layout that does not depend on
+        the world size (the ZeRO-1 slices are gathered: every rank must
+        call it)."""
         return {
             "step": self.step,
             "model": self.model.state_dict(),
             "vae": self.vae.state_dict(),
             "clip": self.clip.state_dict(),
             "opt": self.opt.state_dict(),
-            "ema": self.ema_params,
+            "ema": self.full_ema(),
             "generator": self.generator.get_state(),
         }
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
+        """A `state_dict` saved at any world size; each rank keeps its
+        slices."""
         for name in ("model", "vae", "clip"):
             module = getattr(self, name)
             for k, t in module.state_dict(keep_vars=True).items():

@@ -168,7 +168,7 @@ def test_prefetch_loader_close_joins_threads():
         return gen()
 
     before = threading.active_count()
-    loader = PrefetchLoader(factory, workers=2, host_depth=1, device_depth=1)
+    loader = PrefetchLoader(factory, workers=2, host_depth=1, device_depth=1, device="cpu")
     batch = next(loader)
     assert isinstance(batch["x"], torch.Tensor) and batch["x"].shape == (2, 4)
     loader.close()

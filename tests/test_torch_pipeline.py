@@ -242,4 +242,5 @@ def test_port_never_imports_jax():
         "cli.sample", "cli.detect_pose", "convert.torch_convert", "models.openpose",
         "data.openpose_detect", "data.pose", "metrics.core", "metrics.lpips",
         "metrics.inception", "metrics.center", "metrics.fid", "metrics.fvd", "metrics.i3d",
-        "metrics.resnet3d", "metrics.clip_score", "cli.eval")} <= walked
+        "metrics.resnet3d", "metrics.clip_score", "cli.eval", "parallel", "parallel.mesh",
+        "parallel.multihost")} <= walked

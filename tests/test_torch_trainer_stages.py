@@ -170,8 +170,8 @@ def test_diffusion_loss_variants_match_jax(param, loss_type, elbo, wonoise):
         np.asarray(j_get_v(j_sched(dj), jnp.asarray(x0), noise, t)), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [("frozen_dtype", "int8"), ("mesh_axes", ("data", "model")),
-                                         ("attention_impl", "xla"), ("dropout", 0.1)])
+@pytest.mark.parametrize("field,value", [("frozen_dtype", "int8"), ("attention_impl", "xla"),
+                                         ("dropout", 0.1)])
 def test_trainer_refuses_what_is_not_ported(field, value):
     from magicdance_tpu_torch.train.trainer import Trainer
 

@@ -144,7 +144,7 @@ def test_clip_dataset_batches_and_loader(tmp_path):
     assert batch["reference"].shape == (2, 16, 16, 3)
     assert batch["pose"].shape == (8, 16, 16, 3)
     assert batch["image"].min() >= -1 and batch["pose"].min() >= 0
-    with PrefetchLoader(lambda w: ds.batches(2, seed=w), workers=1) as loader:
+    with PrefetchLoader(lambda w: ds.batches(2, seed=w), workers=1, device="cpu") as loader:
         got = next(loader)
     assert {k: tuple(v.shape) for k, v in got.items()} == {
         "image": (8, 16, 16, 3), "reference": (2, 16, 16, 3), "pose": (8, 16, 16, 3)}

@@ -13,6 +13,7 @@ import torch
 
 import magicdance_tpu_torch.config as tcfg
 from magicdance_tpu_torch.ops import schedules as ts
+from magicdance_tpu_torch.parallel.mesh import MeshAxis
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
 from torch_port_util import (
     assert_close,
@@ -47,7 +48,8 @@ def test_ddim_sample_video_turbo_matches_jax(pipelines):
 
 def test_video_turbo_quirks(pipelines):
     """As in JAX: fused_cfg does nothing on the video path (no refusal, also
-    with self-KV pooling); window_sharding still raises."""
+    with self-KV pooling); window_sharding over more ranks than windows
+    raises."""
     _, tp = pipelines
     ddim = ts.make_ddim_schedule(tp.sched, 2)
     kw = dict(reference_latent=to_t(INPUTS["ref"]), pose_hint=to_t(INPUTS["hint"]),
@@ -62,7 +64,10 @@ def test_video_turbo_quirks(pipelines):
     assert torch.equal(run(uncond_every=2, self_kv_downsample=2, self_kv_min_seq=64,
                            fused_cfg=True), base)
     assert not torch.allclose(run(), base, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        ddim_sample_video(tp.model, tp.sched, ddim, tcfg.SampleConfig(steps=2, **TURBO),
-                          to_t(INPUTS["x_T"]), to_t(INPUTS["ctx"]), window_sharding=object())
+    five_ranks = MeshAxis.single()
+    five_ranks.size = 5  # F = 10 in windows of 4, stride 3: four windows
+    with pytest.raises(ValueError, match="cannot cover 5 ranks"):
+        ddim_sample_video(tp.model, tp.sched, ddim, tcfg.SampleConfig(
+            steps=2, window=W, stride=STRIDE, **TURBO), to_t(INPUTS["x_T"]),
+            to_t(INPUTS["ctx"]), window_sharding=five_ranks)
     assert np.isfinite(base.numpy()).all()

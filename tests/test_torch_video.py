@@ -22,6 +22,7 @@ from magicdance_tpu.ops import schedules as js
 from magicdance_tpu.sampling.overlap import ddim_sample_video as j_video
 from magicdance_tpu.sampling.overlap import window_starts as j_starts
 from magicdance_tpu_torch.ops import schedules as ts
+from magicdance_tpu_torch.parallel.mesh import MeshAxis
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video, window_starts
 from torch_port_util import (
     assert_close,
@@ -126,9 +127,11 @@ def test_video_sampler_refuses_what_is_not_ported(pipelines):
     ddim = ts.make_ddim_schedule(tp.sched, 2)
     x = torch.zeros(F, 8, 8, 4)
     ctx = torch.zeros(1, 77, 16)
+    two_ranks = MeshAxis.single()
+    two_ranks.size = 2  # one window of 16 frames cannot cover two ranks
     for scfg, kw in ((tcfg.SampleConfig(steps=2, deepcache_every=2),
-                      {"window_sharding": object()}),
-                     (tcfg.SampleConfig(steps=2), {"window_sharding": object()}),
+                      {"window_sharding": two_ranks}),
+                     (tcfg.SampleConfig(steps=2), {"window_sharding": two_ranks}),
                      (tcfg.SampleConfig(steps=2), {"window_offsets": [0]})):
         with pytest.raises((NotImplementedError, ValueError)):
             ddim_sample_video(tp.model, tp.sched, ddim, scfg, x, ctx, **kw)

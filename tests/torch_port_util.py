@@ -11,6 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
+import subprocess
+import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -525,3 +529,48 @@ def write_frame_tree(root, seqs: int, frames: int, size: int, seed: int,
             gen = base + (120 if shift_from is not None and j >= shift_from else 0)
             for d, img in ((gen_dir, gen), (gt_dir, gt)):
                 Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(d / f"{j:03d}.png")
+
+
+# --------------------------------------------------------------------------
+# multi-process tests (tests/test_torch_distributed.py,
+# test_torch_sharded_serving.py): `tests/torch_dist_worker.py` in `world`
+# processes over a gloo group whose store is a file under the test's
+# directory; every process is joined with a deadline and killed on failure.
+# --------------------------------------------------------------------------
+
+DIST_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
+
+
+class Ranks:
+    """`world` worker processes running `jobs` (see tests/torch_dist_worker.py);
+    `join()` waits for them and returns each rank's results."""
+
+    def __init__(self, workdir, jobs: list, world: int = 2, timeout: float = 240.0):
+        self.workdir, self.world, self.timeout = str(workdir), world, timeout
+        os.makedirs(self.workdir, exist_ok=True)
+        torch.save(jobs, os.path.join(self.workdir, "jobs.pt"))
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        env["OMP_NUM_THREADS"] = "1"
+        self.t0 = time.time()
+        self.procs = [subprocess.Popen(
+            [sys.executable, DIST_WORKER, str(r), str(world), self.workdir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+            for r in range(world)]
+
+    def join(self) -> list[dict]:
+        outs = []
+        try:
+            for p in self.procs:
+                left = max(1.0, self.timeout - (time.time() - self.t0))
+                outs.append(p.communicate(timeout=left)[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, out) in enumerate(zip(self.procs, outs)):
+            assert p.returncode == 0 and f"TORCH_DIST_OK rank={r}" in out, \
+                f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
+        return [torch.load(os.path.join(self.workdir, f"out_{r}.pt"), weights_only=False)
+                for r in range(self.world)]
