@@ -212,11 +212,44 @@ Phases, in order; every check raises, so any failure exits non-zero:
      optimizer-state bytes and peak memory per rank. A failed rendezvous, a
      rank's non-zero exit or a mismatch fails the phase; the groups are
      destroyed and the files under chiprun_out/phase25 deleted at the end.
+  26. the training leftovers (cuDNN deterministic for the phase), full SD1.5
+     width, phase 9's stage-2 preset at B = 2 (phase 25's config), seeded
+     weights. 26a: three steps with the
+     frozen weights in int8 (`models/quant.py`) against a bf16-frozen trainer
+     holding the dequantized values (the small frozen leaves given bf16
+     values in both): losses, grad norms and parameters bit for bit or
+     within phase 25's rules (the phase prints which), both held to phase
+     9's launch plan; frozen-storage bytes, peak memory and s/step of both.
+     26b: the same start, three steps under attention_impl="flash" held to
+     `flash_launch_plan` (JAX's dispatch under the override: every denoiser
+     site through the BSNH kernels) with their loss and grad-norm gaps to the
+     bf16 ("auto") run within P26_LOSS_GAP / P26_GRAD_GAP; a control, two
+     "flash" steps with a wrong cross-attention dQ, which must land beyond
+     them; one step under "xla" with no attention-kernel launch, within the
+     same bounds; two stage-3 steps under "auto" (phase 13's plan), then the
+     same two from the same state under "flash" (the temporal sites through
+     A/C/D, no grouped kernel; held to its plan), within the same bounds;
+     every site of both "flash" plans that phases 3 and 7 did not hold (A or
+     B without the LSE where the plan launches them, else the LSE forward, C
+     and D; cross-attention over 77 keys, the S = 64 sites, the temporal
+     sites, B = 1 and 16) against its plain versions, bf16 timed with the
+     SDPA library time and the bound, and fp32. 26c: `cli.train` at full width, frozen int8, no checkpoint
+     (the Flax-style init: every zero-init kernel exactly zero at step 0),
+     on a seeded tree of 512x512 JPEG frames and PNG pose maps under
+     chiprun_out/phase26 (deleted at the end) decoded by the native loader
+     (`data/native.py`), with the sample grid; the loader's images/s native
+     vs PIL and its crops against `rrc_params`'; a failed native build while
+     g++ and the jpeg/png headers are present fails the phase. 26d: narrow
+     fp32 card vs CPU: a stage-2 step in int8, under "flash", under "xla"
+     (2e-4), each held to its launch plan, and a request with dropout 0.1
+     (phase 4's check), equal to dropout 0 on the card.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
   gated mode, K8 and K9, launches by path, and each kernel's `body`: the
   device functions that run it in bf16 and fp32; kernel B's entry also sums
   its 16-frame rows per video DDIM step, C's and D's their stage-3 rows per
-  stage-3 step, K8's holds its video site), the card line, the result line.
+  stage-3 step, K8's holds its video site; A, B, C and D also list the
+  shapes the "flash" override adds, `flash_shapes`), the card line, the
+  result line.
 
 Exits non-zero without a result when torch.cuda.is_available() is false or
 the port's package is not beside this script.
@@ -225,7 +258,10 @@ the port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
+import math
 import os
 import re
 import sys
@@ -1145,6 +1181,102 @@ def stage3_grad_sites(model_cfg, latent: int) -> list:
         grad = grad or kind == "motion"
         if kind == "spatial" and grad and _kernel_site(s, 2 * s, x):
             out.append((s, x))
+    return out
+
+
+def flash_launch_plan(cfg, latent: int, batch: int):
+    """Kernel launches of one train step under attention_impl="flash", by
+    (mode, B, S_q, S_kv, D) (S_kv: a bank read's self and bank keys
+    together): JAX's dispatch under the override sends every denoiser site
+    to its BSNH flash kernels -- self-attention, bank reads and the
+    cross-attention over the context's tokens at any S, the temporal S = F
+    sites too (no grouped kernel) -- so each site runs the autograd
+    Functions where its inputs need a gradient (the LSE forward twice under
+    remat, dQ where the queries need one, dK/dV per source whose keys need
+    one) and kernel A or B without the LSE once where they do not.
+
+    Stage 2 (FINETUNE_CONTROL, `batch` images): the appearance UNet and the
+    ControlNet train, so each of their sites needs every gradient, except the
+    appearance UNet's last transformer block, which feeds nothing the loss
+    reads; in the frozen main UNet every bank read needs the bank's dK/dV and
+    all but the first dQ and the self source's dK/dV, and every
+    cross-attention needs dQ alone (the context and the frozen projections
+    need none). Stage 3 (MOTION_ONLY, `batch` clips of cfg.video_frames):
+    the appearance UNet and the ControlNet launch A and B without the LSE;
+    in the main UNet the sites before the first motion module too, each
+    motion-module attention needs every gradient, and every later bank read
+    needs dQ and the self source's dK/dV (the frozen bank none), every later
+    cross-attention dQ. The VAE and CLIP run under "auto"."""
+    from collections import Counter
+
+    from magicdance_tpu_torch.config import FreezeRegime
+    from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
+    from magicdance_tpu_torch.models.magicpose import appearance_unet_config
+
+    m = cfg.model
+    ctx = m.clip.max_length
+    fwd = 2 if m.unet.remat else 1
+    plan = Counter()
+
+    def function(b, sq, kv, d, dq=True, dkv=(True,)):
+        """One site through an autograd Function: kv lists its sources'
+        lengths, dkv whether each source's keys need a gradient."""
+        two = len(kv) == 2
+        plan["two_source_attention_lse" if two else "self_attention_lse", b, sq, sum(kv), d] += fwd
+        if dq:
+            plan["attention_dq_two_source" if two else "attention_dq", b, sq, sum(kv), d] += 1
+        for sk, need in zip(kv, dkv):
+            if need:
+                plan["attention_dkv", b, sq, sk, d] += 1
+
+    def spatial(ucfg, decoder=True):
+        return [(s, d) for kind, s, d in unet_sites(ucfg, latent, decoder) if kind == "spatial"]
+
+    app = spatial(appearance_unet_config(m)) if m.has_appearance else []
+    cn = (spatial(controlnet_unet_config(m.pose_control, m.unet.in_channels), decoder=False)
+          if m.has_pose else [])
+    if cfg.freeze is FreezeRegime.FINETUNE_CONTROL and not m.has_temporal:
+        for i, (s, d) in enumerate(app):
+            last = i == len(app) - 1
+            function(batch, s, [s], d, dq=not last, dkv=(not last,))
+            function(batch, s, [ctx], d, dq=not last, dkv=(not last,))
+        for s, d in cn:
+            function(batch, s, [s], d)
+            function(batch, s, [ctx], d)
+        for i, (s, d) in enumerate(spatial(m.unet)):
+            function(batch, s, [s, s], d, dq=i > 0, dkv=(i > 0, True))
+            function(batch, s, [ctx], d, dkv=(False,))
+    elif cfg.freeze is FreezeRegime.MOTION_ONLY and m.has_temporal:
+        frames = cfg.video_frames
+        n = batch * frames
+        for s, d in app:
+            plan["self_attention", batch, s, s, d] += 1
+            plan["self_attention", batch, s, ctx, d] += 1
+        for s, d in cn:
+            plan["self_attention", n, s, s, d] += 1
+            plan["self_attention", n, s, ctx, d] += 1
+        grad, u = False, m.unet
+        for kind, s, x in unet_sites(u, latent):
+            if kind == "motion":
+                grad = True
+                for _ in range(u.motion_layers * u.motion_attn_blocks):
+                    function(batch * s, frames, [frames], x // u.motion_num_heads)
+            elif grad:
+                function(n, s, [s, s], x, dkv=(True, False))
+                function(n, s, [ctx], x, dkv=(False,))
+            else:
+                plan["two_source_attention", n, s, 2 * s, x] += 1
+                plan["self_attention", n, s, ctx, x] += 1
+    else:
+        raise ValueError(f"no flash launch plan for {cfg.freeze} on {m.variant}")
+    return plan
+
+
+def plan_totals(plan) -> dict:
+    """Launches by kernel mode of a plan keyed (mode, ...)."""
+    out = {}
+    for key, n in plan.items():
+        out[key[0]] = out.get(key[0], 0) + n
     return out
 
 
@@ -3727,6 +3859,782 @@ def head_packing_probe():
     return result, launches
 
 
+# --------------------------------------------------------------------------
+# phase 26: the training leftovers (int8 frozen storage, attention_impl
+# "flash" / "xla", the native C++ batch loader, the Flax-style init, dropout)
+# --------------------------------------------------------------------------
+
+# "flash" / "xla" vs "auto", relative, each step. Sound runs on an H100
+# differ by <= 6.6e-7 (loss) and 1.1e-4 (grad norm); temporal dK/dV 1% too
+# large moves the grad norm by 2.9e-3 (`p26_control`)
+P26_LOSS_GAP = 1e-5
+P26_GRAD_GAP = 1e-3
+
+
+def p26_config(**over):
+    """Phase 25's stage-2 config (phase 9's preset, B = 2, warm-up 1,
+    adam_eps 1e-4) with `over` in its optimizer or its own fields."""
+    cfg = p25_train_config(2)
+    optim = {k: v for k, v in over.items() if hasattr(cfg.optim, k)}
+    rest = {k: v for k, v in over.items() if k not in optim}
+    return dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, **optim), **rest)
+
+
+def p26_steps(tr, batches, draws, plan=None, label=""):
+    """Steps of `tr` on the given batches and draws: losses, grad norms,
+    seconds, launches per step (each held to `plan`, {mode: launches}, when
+    given) and the peak memory."""
+    import torch
+
+    from magicdance_tpu_torch.ops import kernels as K
+
+    out = dict(loss=[], grad_norm=[], seconds=[], launches=[])
+    torch.cuda.reset_peak_memory_stats()
+    for b, d in zip(batches, draws):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = tr.train_step(b, d)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t)
+        got = {k: n for k, n in K.LAUNCHES.items() if n}
+        out["launches"].append(got)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if plan is not None and got != {k: n for k, n in plan.items() if n}:
+            raise AssertionError(f"{label} step {len(out['loss'])}: launches {got}, plan {plan}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, out["loss"] + out["grad_norm"])):
+        raise AssertionError(f"{label}: non-finite loss or grad norm {out}")
+    return out
+
+
+def p26_summary(r) -> str:
+    secs = r["seconds"]
+    return (f"losses {[round(x, 6) for x in r['loss']]}, grad norms "
+            f"{[round(x, 6) for x in r['grad_norm']]}, s/step {[round(x, 3) for x in secs]} "
+            f"(steady {sum(secs[1:]) / max(1, len(secs) - 1):.3f}), peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def p26_agreement(got, want, lr, label) -> str:
+    """Losses, grad norms and final parameters: 'bit for bit', or within
+    1e-3 relative and 2% of the learning rate (phase 25's rules); raises
+    beyond them."""
+    import torch
+
+    same = (got["loss"] == want["loss"] and got["grad_norm"] == want["grad_norm"]
+            and all(torch.equal(got["params"][k].cpu(), w.cpu())
+                    for k, w in want["params"].items()))
+    if same:
+        return "bit for bit"
+    rel_agree(got["loss"], want["loss"], 1e-3, f"{label} loss")
+    rel_agree(got["grad_norm"], want["grad_norm"], 1e-3, f"{label} grad norm")
+    worst = params_agree(got["params"], {k: w.to(got["params"][k].device)
+                                         for k, w in want["params"].items()}, lr, label)
+    return f"within phase 25's rules (parameters {worst:.3e} apart)"
+
+
+def p26_int8_and_impls(card: str) -> dict:
+    """26a: int8 frozen storage vs a bf16-frozen trainer holding the
+    dequantized values; 26b (steps): the same start under "flash" and
+    "xla", and one stage-3 step under "flash"."""
+    import torch
+
+    from magicdance_tpu_torch.models import quant
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    res = {}
+    q_cfg = p26_config(frozen_dtype="int8")
+    lr = q_cfg.optim.learning_rate
+    batches = p25_batches()
+    _, totals, _ = training_launch_plan(q_cfg.model, q_cfg.image_size // 8)
+    t0 = time.perf_counter()
+    q8 = Trainer(q_cfg, device="cuda")
+    q8.init_random(seed=0)
+    # the frozen leaves int8 leaves in fp32 get bf16 values, so that the
+    # bf16 trainer below stores the very numbers the int8 one computes with
+    with torch.no_grad():
+        for m in (q8.model, q8.vae, q8.clip):
+            for p in m.parameters():
+                if p.dtype == torch.float32 and not p.requires_grad:
+                    p.copy_(p.bfloat16().float())
+    init = {n: {k: t.cpu() for k, t in quant.dequantize_state_dict(
+        getattr(q8, n).state_dict()).items()} for n in ("model", "vae", "clip")}
+    draws = [q8.draw(b) for b in batches]
+    frozen_q = quant.storage_bytes((q8.model, q8.vae, q8.clip), q8.train_params)
+    n_int8 = sum(p.numel() for m in (q8.model, q8.vae, q8.clip) for p in m.parameters()
+                 if p.dtype == torch.int8)
+    log(f"  26a int8: trainer built in {time.perf_counter() - t0:.1f} s; {n_int8 / 1e9:.4f} B "
+        f"frozen parameters held in int8")
+    r8 = p26_steps(q8, batches, draws, totals, "int8")
+    r8["params"] = {k: p.detach().cpu() for k, p in q8.train_params.items()}
+    del q8
+    torch.cuda.empty_cache()
+
+    def start(cfg):
+        tr = Trainer(cfg, device="cuda")
+        tr.load_state_dicts(init["model"], init["vae"], init["clip"])
+        return tr
+
+    bf = start(p26_config())
+    frozen_b = quant.storage_bytes((bf.model, bf.vae, bf.clip), bf.train_params)
+    rb = p26_steps(bf, batches, draws, totals, "bf16")
+    rb["params"] = {k: p.detach().cpu() for k, p in bf.train_params.items()}
+    del bf
+    torch.cuda.empty_cache()
+    agree = p26_agreement(r8, rb, lr, "int8 vs bf16 of the dequantized values")
+    del r8["params"], rb["params"]
+    log(f"  int8 + scales: frozen storage {frozen_q:,} bytes ({frozen_q / 1e9:.3f} GB) vs bf16 "
+        f"{frozen_b:,} bytes ({frozen_b / 1e9:.3f} GB), ratio {frozen_q / frozen_b:.4f}")
+    log(f"  int8 {p26_summary(r8)}")
+    log(f"  bf16 {p26_summary(rb)}")
+    log(f"  int8 vs bf16 holding the dequantized values: {agree}; launches per step "
+        f"{r8['launches'][0]} (phase 9's plan, every step)")
+    res["int8"] = dict(frozen_bytes_int8=frozen_q, frozen_bytes_bf16=frozen_b,
+                       int8_params=n_int8, int8=r8, bf16=rb, agreement=agree)
+
+    # 26b: the same start under "flash" and "xla"
+    f_cfg = p26_config(attention_impl="flash")
+    fplan = flash_launch_plan(f_cfg, f_cfg.image_size // 8, 2)
+    ftot = plan_totals(fplan)
+    fl = start(f_cfg)
+    rf = p26_steps(fl, batches, draws, ftot, "flash")
+    del fl
+    torch.cuda.empty_cache()
+    gaps = p26_gaps(rf, rb, "flash vs auto")
+    log(f"  26b flash {p26_summary(rf)}; launches per step {rf['launches'][0]} "
+        f"(flash_launch_plan, every step)")
+    log(f"  flash vs auto (the bf16 run above): {p26_gap_line(gaps)}")
+    ctx = f_cfg.model.clip.max_length
+    with p26_fault("attention_dq", 0.0, lambda q, k: k.shape[1] == ctx):
+        ctl = p26_control(p26_steps(start(f_cfg), batches[:2], draws[:2], None, "control"), rb,
+                          "stage 2, cross-attention dQ zero", must_catch=False)
+    torch.cuda.empty_cache()
+    xl = start(p26_config(attention_impl="xla"))
+    rx = p26_steps(xl, batches[:1], draws[:1], {}, "xla")
+    del xl
+    torch.cuda.empty_cache()
+    xgaps = p26_gaps(rx, rb, "xla vs auto")
+    log(f"  26b xla one step: {p26_summary(rx)}; attention-kernel launches "
+        f"{rx['launches'][0] or 0} (none); to auto: {p26_gap_line(xgaps)}")
+    res["flash"] = dict(r=rf, gaps=gaps, control=ctl, plan={" ".join(map(str, k)): n
+                                                            for k, n in fplan.items()},
+                        totals=ftot)
+    res["xla"] = dict(r=rx, gaps=xgaps)
+
+    # two stage-3 steps under "auto", then the same two from the same state
+    # under "flash": the temporal sites through A/C/D
+    cfg3, tr3, make_batch = stage3_trainer()
+    b3 = [make_batch() for _ in range(2)]
+    d3 = [tr3.draw(b) for b in b3]
+    snap = p26_snapshot(tr3)
+    clips = cfg3.batch_size_per_device
+    ra3 = p26_steps(tr3, b3, d3, stage3_launch_plan(cfg3, cfg3.image_size, clips), "stage-3 auto")
+    p26_restore(tr3, snap)
+    tr3.cfg = dataclasses.replace(cfg3, attention_impl="flash")
+    s3plan = flash_launch_plan(tr3.cfg, cfg3.image_size // 8, clips)
+    r3 = p26_steps(tr3, b3, d3, plan_totals(s3plan), "stage-3 flash")
+    gaps3 = p26_gaps(r3, ra3, "stage-3 flash vs auto")
+    log(f"  26b stage-3 steps (one 16-frame clip each), auto {p26_summary(ra3)}")
+    log(f"  stage-3 flash {p26_summary(r3)}; launches per step {r3['launches'][0]} "
+        f"(no grouped kernel); to auto from the same state: {p26_gap_line(gaps3)}")
+    p26_restore(tr3, snap)
+    frames = cfg3.video_frames
+    with p26_fault("attention_dkv", 1.01, lambda q, k: q.shape[1] == k.shape[1] == frames):
+        ctl3 = p26_control(p26_steps(tr3, b3, d3, None, "control"), ra3,
+                           "stage 3, temporal dK/dV 1% too large", must_catch=True)
+    del tr3, b3, snap
+    torch.cuda.empty_cache()
+    res["stage3_flash"] = dict(r=r3, auto=ra3, gaps=gaps3, control=ctl3,
+                               plan={" ".join(map(str, k)): n for k, n in s3plan.items()})
+    res["launches"] = {
+        "int8": sum_counts(r8["launches"]), "bf16": sum_counts(rb["launches"]),
+        "flash": sum_counts(rf["launches"]), "xla": sum_counts(rx["launches"]),
+        "stage3_flash": sum_counts(r3["launches"])}
+    return res
+
+
+def p26_rel_gaps(got, want) -> dict:
+    """Relative loss and grad-norm gaps of `got` to `want`, step by step."""
+    return {key: [abs(a - b) / abs(b) for a, b in zip(got[key], want[key])]
+            for key in ("loss", "grad_norm")}
+
+
+def p26_within(gaps) -> bool:
+    return max(gaps["loss"]) <= P26_LOSS_GAP and max(gaps["grad_norm"]) <= P26_GRAD_GAP
+
+
+def p26_gaps(got, want, label) -> dict:
+    """`p26_rel_gaps`; raises beyond P26_LOSS_GAP / P26_GRAD_GAP."""
+    gaps = p26_rel_gaps(got, want)
+    if not p26_within(gaps):
+        raise AssertionError(f"{label}: relative gaps {gaps} beyond {P26_LOSS_GAP:g} (loss) / "
+                             f"{P26_GRAD_GAP:g} (grad norm)")
+    return gaps
+
+
+def p26_gap_line(gaps) -> str:
+    return (f"relative gaps loss {[f'{g:.2e}' for g in gaps['loss']]} (bound "
+            f"{P26_LOSS_GAP:g}), grad norm {[f'{g:.2e}' for g in gaps['grad_norm']]} "
+            f"(bound {P26_GRAD_GAP:g})")
+
+
+@contextlib.contextmanager
+def p26_fault(name: str, factor: float, where):
+    """Within the block, flash_vjp.<name> (attention_dq or attention_dkv)
+    returns its real output times `factor` wherever `where(q, k)` holds: a
+    deliberately wrong kernel for `p26_control`, the real one again after."""
+    from magicdance_tpu_torch.ops.kernels import flash_vjp as V
+
+    real = getattr(V, name)
+
+    def wrong(*args, **kw):
+        out = real(*args, **kw)
+        q, k = (args[0], args[1]) if name == "attention_dq" else (args[2], args[0])
+        if not where(q, k):
+            return out
+        return tuple(t * factor for t in out) if isinstance(out, tuple) else out * factor
+
+    setattr(V, name, wrong)
+    try:
+        yield
+    finally:
+        setattr(V, name, real)
+
+
+def p26_control(r, want, label: str, must_catch: bool) -> dict:
+    """The gaps of steps `r`, run under a `p26_fault`, to the sound "auto"
+    steps `want` from the same state: how far the P26 bounds see that fault.
+    Raises when `must_catch` and the gaps stay within the bounds."""
+    gaps = p26_rel_gaps(r, want)
+    caught = not p26_within(gaps)
+    log(f"  control, {label}: {p26_gap_line(gaps)}: "
+        f"{'beyond the bounds' if caught else 'within the bounds'}")
+    if must_catch and not caught:
+        raise AssertionError(f"the bounds do not see {label}: {gaps}")
+    return dict(label=label, loss=r["loss"], grad_norm=r["grad_norm"], gaps=gaps,
+                caught=caught)
+
+
+def p26_snapshot(tr) -> dict:
+    """Copies of what a train step changes: the trainable weights, the
+    optimizer's moments, the EMA and the step."""
+    def clone(x):
+        if isinstance(x, dict):
+            return {k: clone(t) for k, t in x.items()}
+        return x.detach().clone() if hasattr(x, "detach") else x
+
+    return dict(params=clone(dict(tr.train_params)), opt=clone(tr.opt.state_dict()),
+                ema=clone(tr.full_ema()), step=tr.step)
+
+
+def p26_restore(tr, snap) -> None:
+    import torch
+
+    with torch.no_grad():
+        for k, p in tr.train_params.items():
+            p.copy_(snap["params"][k])
+    tr.opt.load_state_dict(snap["opt"])
+    if tr.ema_params is not None:
+        tr.set_ema(snap["ema"])
+    tr.step = snap["step"]
+
+
+P26_KIND = {"self_attention": "fwd", "two_source_attention": "fwd",
+            "self_attention_lse": "lse", "two_source_attention_lse": "lse",
+            "attention_dq": "dq", "attention_dq_two_source": "dq", "attention_dkv": "dkv"}
+
+
+def p26_checked_before(frames: int, stage2_plan, stage3_sites, frames3: int = 16) -> set:
+    """The kernel shapes phases 3 and 7 hold against their plain versions,
+    as (mode, B, S_q, S_kv, D, bank batch) (S_kv: a bank read's self and bank
+    keys together; bank batch None for one source): phase 3's A at B = 1 and
+    `frames` and its bank reads (a batch-1 and a per-image bank, 16 frames
+    over a batch-1 bank); phase 7's LSE forward, C and D at every (S, D) of
+    the stage-2 plan at B = `frames` (a per-image bank) and at the stage-3
+    bank reads over a batch-1 bank."""
+    out = set()
+    for name, b, s, d, bb, _ in main_path_shapes(frames):
+        out.add((name, b, s, 2 * s if bb else s, d, bb))
+    for s, d in ((4096, 40), (1024, 80), (256, 160)):
+        out.add(("two_source_attention", frames, s, 2 * s, d, frames))
+        out.add(("two_source_attention", frames3, s, 2 * s, d, 1))
+    for _, s, d in stage2_plan:
+        out |= {("self_attention_lse", frames, s, s, d, None),
+                ("attention_dq", frames, s, s, d, None),
+                ("attention_dkv", frames, s, s, d, None),
+                ("two_source_attention_lse", frames, s, 2 * s, d, frames),
+                ("attention_dq_two_source", frames, s, 2 * s, d, frames)}
+    for s, d in stage3_sites:
+        out |= {("two_source_attention_lse", frames3, s, 2 * s, d, 1),
+                ("attention_dq_two_source", frames3, s, 2 * s, d, 1),
+                ("attention_dkv", frames3, s, s, d, None)}
+    return out
+
+
+def p26_cases(plans, checked: set) -> dict:
+    """The sites of the "flash" plans at shapes not in `checked`, {(path, B,
+    S_q, K/V lengths, D, bank batch): {kind: (mode, launches per step)}};
+    plans: (path, plan, bank batch of a B-row bank read). A dK/dV launch goes
+    to the one-source site of its shape (the kernel sees one source)."""
+    cases = {}
+    for path, plan, bank in plans:
+        for (mode, b, sq, skv, d), n in plan.items():
+            two = mode in ("two_source_attention", "two_source_attention_lse",
+                           "attention_dq_two_source")
+            bb = bank(b) if two else None
+            if (mode, b, sq, skv, d, bb) in checked:
+                continue
+            kv = (sq, skv - sq) if two else (skv,)
+            cases.setdefault((path, b, sq, kv, d, bb), {})[P26_KIND[mode]] = (mode, n)
+    return cases
+
+
+def by_rows(fn, ts, tail=(), n=None):
+    """fn(*ts, *tail) over chunks of n rows of the batched tensors `ts`
+    (`tail` whole, e.g. a batch-1 bank), the outputs concatenated; one call
+    when n is None."""
+    import torch
+
+    if n is None:
+        return fn(*ts, *tail)
+    outs = [fn(*(t[i:i + n] for t in ts), *tail) for i in range(0, ts[0].shape[0], n)]
+    return (tuple(map(torch.cat, zip(*outs))) if isinstance(outs[0], tuple)
+            else torch.cat(outs))
+
+
+def p26_flash_shapes(cases, heads: int = 8):
+    """26b (kernels): every site of `cases` (`p26_cases`: the shapes the
+    "flash" override adds to a stage-2 or stage-3 step) against the plain
+    versions by phases 3 and 7's rules, bf16 (timed) and fp32 -- A or B
+    without the LSE where the plan launches them, else the LSE forward, C
+    and D (every source whose batch is the queries') -- each launched mode
+    with its ms, plain ms, SDPA library ms and bound. A plain call whose
+    fp32 logits pass 2 GiB runs by row chunks (rows are independent)."""
+    import torch
+    import torch.nn.functional as F
+
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.ops.kernels import flash_vjp as V
+    from magicdance_tpu_torch.utils.timing import device_time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    errs = {name: 0.0 for name in KERNELS}
+    checked = {name: 0 for name in KERNELS}
+    rows = []
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def check(name, got, want, label, grad):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rms = want.float().pow(2).mean().sqrt().item()
+        if want.dtype == torch.bfloat16:
+            tol = min(GRAD_BF16_TOL if grad else BF16_TOL, BF16_REL_TOL * rms)
+        elif grad:
+            tol = FP32_TOL * max(1.0, want.float().abs().max().item())
+        else:
+            tol = FP32_TOL
+        if not (err <= tol and got.shape == want.shape and got.dtype == want.dtype):
+            raise AssertionError(f"{name} {label}: max|kernel - plain| = {err:.3e} > "
+                                 f"{tol:.3e} (plain rms {rms:.3e}), shapes "
+                                 f"{tuple(got.shape)} {tuple(want.shape)}")
+        errs[name] = max(errs[name], err)
+        checked[name] += 1
+        log(f"  ok  {name:22s} {label:58s} max_abs_err={err:.3e} rms={rms:.3e} "
+            f"(tol {tol:.3e})")
+
+    def dq_ref(q, k, v, dout, lse, delta, kb=None, vb=None):
+        return V.attention_dq_ref(q, k, v, dout, lse, delta, None, kb, vb)
+
+    for (path, b, sq, kv, d, bb), kinds in sorted(
+            cases.items(), key=lambda c: (c[0][0], -c[0][2], -c[0][1], c[0][3])):
+        two = len(kv) == 2
+        fname = "two_source_attention" if two else "self_attention"
+        chunk = heads * sq * sum(kv) * 4
+        chunk = max(1, (2 << 30) // chunk) if b * chunk > (2 << 30) else None
+        grads = bool(kinds.keys() & {"lse", "dq", "dkv"})
+        what = ("cross-attention" if kv == (77,) else "temporal" if sq <= 32 else
+                f"bank read (bank batch {bb})" if two else "self-attention")
+        label = f"{path} {what} B={b} S={sq} S_k={'+'.join(map(str, kv))} D={d}"
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{str(dtype)[6:]} {label}"
+            q, dout = (rnd(b, sq, heads, d, dtype=dtype) for _ in range(2))
+            k, v = (rnd(b, kv[0], heads, d, dtype=dtype) for _ in range(2))
+            kb = vb = None
+            if two:
+                kb, vb = (rnd(bb, kv[1], heads, d, dtype=dtype) for _ in range(2))
+            # a per-image bank is cut into rows with the queries, a batch-1 bank goes whole
+            src, tail = (((q, k, v, kb, vb), ()) if two and bb == b
+                         else ((q, k, v), (kb, vb) if two else ()))
+            kern = {}
+            if "fwd" in kinds:
+                fwd = K.two_source_attention if two else K.self_attention
+                fwd_ref = K.two_source_attention_ref if two else K.self_attention_ref
+                kern["fwd"] = (lambda: fwd(*src, *tail),
+                               lambda: by_rows(fwd_ref, src, tail, chunk))
+                check(fname, kern["fwd"][0](), kern["fwd"][1](), f"{tag} o (no LSE)",
+                      grad=False)
+            if grads:
+                lfwd = V.two_source_attention_lse if two else V.self_attention_lse
+                lref = V.two_source_attention_lse_ref if two else V.self_attention_lse_ref
+                got_o, got_lse = lfwd(*src, *tail)
+                out, lse = by_rows(lref, src, tail, chunk)
+                check(fname, got_o, out, f"{tag} o", grad=False)
+                check(fname, got_lse, lse, f"{tag} lse", grad=False)
+                delta = V.attention_delta(dout, out)
+                del got_o, got_lse, out
+                qside = (q, k, v, dout, lse, delta) + ((kb, vb) if two and bb == b else ())
+                kern["lse"] = (lambda: lfwd(*src, *tail), lambda: by_rows(lref, src, tail, chunk))
+                kern["dq"] = (lambda: V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb),
+                              lambda: by_rows(dq_ref, qside, tail, chunk))
+                kern["dkv"] = (lambda: V.attention_dkv(k, v, q, dout, lse, delta),
+                               lambda: by_rows(V.attention_dkv_ref, (k, v, q, dout, lse, delta),
+                                               (), chunk))
+                check("attention_dq", kern["dq"][0](), kern["dq"][1](), f"{tag} dQ", grad=True)
+                sources = [("self", k, v)] + ([("bank", kb, vb)] if two and bb == b else [])
+                for name_, kk, vv in sources:
+                    dkv_args = (kk, vv, q, dout, lse, delta)
+                    for g_, w_, nm in zip(V.attention_dkv(*dkv_args),
+                                          by_rows(V.attention_dkv_ref, dkv_args, (), chunk),
+                                          ("dK", "dV")):
+                        check("attention_dkv", g_, w_, f"{tag} {nm} ({name_} source)", grad=True)
+            if dtype != torch.bfloat16:
+                del q, k, v, dout, kb, vb, src, tail, kern
+                if grads:
+                    del lse, delta, qside
+                torch.cuda.empty_cache()
+                continue
+            kh = torch.cat([k, kb.expand(b, -1, -1, -1)], 1) if two else k
+            vh = torch.cat([v, vb.expand(b, -1, -1, -1)], 1) if two else v
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(grads) for t in (q, kh, vh))
+            g = dout.transpose(1, 2)
+            lib = {"fwd": device_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))}
+            lib["lse"] = lib["fwd"]
+            if grads:
+                lib_out = F.scaled_dot_product_attention(qs, ks, vs)
+                lib["dq"] = device_time_ms(lambda: torch.autograd.grad(lib_out, [qs], g,
+                                                                       retain_graph=True))
+                lib["dkv"] = device_time_ms(lambda: torch.autograd.grad(lib_out, [ks, vs], g,
+                                                                        retain_graph=True))
+                del lib_out
+            kvs = [(b, kv[0])] + ([(bb, kv[1])] if two else [])
+            for kind, (mode, n) in sorted(kinds.items()):
+                run, plain = kern[kind]
+                ms = device_time_ms(run)
+                plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
+                if kind == "fwd":
+                    bound, bound_by = attention_bound_ms(b, sq, heads, d, kvs)
+                else:
+                    bound, bound_by = training_bound_ms(kind, b, sq, heads, d,
+                                                        kvs[:1] if kind == "dkv" else kvs)
+                rows.append(dict(mode=mode, kind=kind, case=label, B=b, S=sq,
+                                 S_kv=kv[0] if kind == "dkv" else sum(kv), D=d, H=heads,
+                                 bank_batch=bb, path=path, launches_per_step=n, kernel_ms=ms,
+                                 plain_ms=plain_ms, library_ms=lib[kind], bound_ms=bound,
+                                 bound_by=bound_by))
+                log(f"      {mode:25s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={lib[kind]:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                    f"x{n}/{path} flash step")
+            del q, k, v, dout, kb, vb, src, tail, kern, qs, ks, vs, kh, vh, g
+            if grads:
+                del lse, delta, qside
+            torch.cuda.empty_cache()
+    return rows, errs, checked
+
+
+def p26_tree(root: str, videos: int = 2, frames: int = 4, size: int = 512, seed: int = 26):
+    """A seeded TikTok-layout training tree at size^2: JPEG frames and PNG
+    pose maps (each under its frame's file name, as the dataset looks them
+    up; both decoders read the format from the file's bytes)."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    for v in range(videos):
+        for split in ("train_set", "pose_map_train_set"):
+            os.makedirs(os.path.join(root, split, f"vid{v}"))
+        for i in range(frames):
+            name = f"{i:04d}.jpg"
+            img = rs.randint(0, 256, (size, size, 3)).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, "train_set", f"vid{v}", name),
+                                      format="JPEG", quality=90)
+            pose = rs.randint(0, 256, (size, size, 3)).astype(np.uint8)
+            Image.fromarray(pose).save(os.path.join(root, "pose_map_train_set", f"vid{v}", name),
+                                       format="PNG")
+
+
+def p26_cli(card: str) -> dict:
+    """26c: `cli.train` at full SD1.5 width, frozen int8, no checkpoint (the
+    Flax-style init), POSE_ONLY (the ControlNet trains: a smaller checkpoint
+    to write), 2 steps at B = 2 with the sample grid at step 2, on a seeded
+    512x512 tree decoded by the native loader; then the loader alone, native
+    vs PIL."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from magicdance_tpu_torch import config as C
+    from magicdance_tpu_torch.cli import train as T
+    from magicdance_tpu_torch.data import native
+    from magicdance_tpu_torch.data.tiktok import TikTokPairDataset
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    work = os.path.join(ROOT, "chiprun_out", "phase26")
+    shutil.rmtree(work, ignore_errors=True)
+    data, run = os.path.join(work, "data"), os.path.join(work, "run")
+    res = {}
+    try:
+        p26_tree(data)
+        have_tools = native.toolchain_present()
+        st = native.status()
+        if have_tools and st["path"] != "native":
+            raise AssertionError(f"g++ and the jpeg/png headers are here, yet the native loader "
+                                 f"did not build: {st['reason']}")
+        log(f"  native loader: {native.describe()}; toolchain present: {have_tools}"
+            + ("" if have_tools else " (so the PIL path runs, as the JAX package's would)"))
+        res["native"] = dict(st, toolchain=have_tools)
+
+        cfg = C.stage2_pose_control()
+        cfg = dataclasses.replace(cfg, freeze=C.FreezeRegime.POSE_ONLY, logging_steps=1,
+                                  logging_gen_steps=2, vis_steps=2, save_steps=1000,
+                                  optim=dataclasses.replace(cfg.optim, frozen_dtype="int8",
+                                                            warmup_steps=1))
+        C.save_json(cfg, os.path.join(work, "cfg.json"))
+        checked = {}
+        orig = Trainer.init_flax
+
+        def init_and_check(self, seed=0):
+            orig(self, seed)
+            zero = ones = 0
+            for m in (self.model, self.vae, self.clip):
+                for name, mod in m.named_modules():
+                    if getattr(mod, "zero_init", False):
+                        if bool(mod.weight.any()):
+                            raise AssertionError(f"zero-init {name}.weight is not zero")
+                        zero += 1
+                    if isinstance(mod, (torch.nn.GroupNorm, torch.nn.LayerNorm)):
+                        if not bool((mod.weight == 1).all()):
+                            raise AssertionError(f"{name}.weight is not ones")
+                        ones += 1
+            checked.update(zero=zero, ones=ones, int8=sum(
+                p.dtype == torch.int8 for m in (self.model, self.vae, self.clip)
+                for p in m.parameters()))
+
+        Trainer.init_flax = init_and_check
+        out = io.StringIO()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                T.main(["--config", os.path.join(work, "cfg.json"), "--data", data,
+                        "--output", run, "--steps", "2", "--batch", "2", "--image_size", "512"])
+        finally:
+            Trainer.init_flax = orig
+        secs = time.perf_counter() - t0
+        launches = {k: n for k, n in K.LAUNCHES.items() if n}
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"    | {line}")
+        if not checked or checked["zero"] < 60 or not checked["int8"]:
+            raise AssertionError(f"the CLI's init was not checked: {checked}")
+        grid = os.path.join(run, "samples", "step_00000002.png")
+        if "visualize failed" in text or not os.path.exists(grid):
+            raise AssertionError("the int8 run's sample grid was not written")
+        lines = [json.loads(x) for x in open(os.path.join(run, "tb", "metrics.jsonl"))]
+        if [r["step"] for r in lines] != [1, 2] or not all(math.isfinite(r["loss"])
+                                                           for r in lines):
+            raise AssertionError(f"metrics {lines}")
+        want_decode = "native" if have_tools else "pil"
+        if f"image decode: {want_decode}" not in text:
+            raise AssertionError(f"the CLI did not report the {want_decode} decode path")
+        log(f"  cli.train, 2 steps at full width, frozen int8, Flax-style init: {secs:.1f} s "
+            f"(build, init, 2 steps, the sample grid, a checkpoint); at step 0 "
+            f"{checked['zero']} zero-init kernels exactly zero, {checked['ones']} norm scales "
+            f"one, {checked['int8']} int8 tensors; losses "
+            f"{[round(r['loss'], 5) for r in lines]}; launches {launches}")
+        res["cli"] = dict(seconds=secs, init=checked, losses=[r["loss"] for r in lines],
+                          launches=launches)
+
+        # the loader alone: native vs PIL on the same tree, and the crops
+        ds = TikTokPairDataset(root=data, image_size=512, seed=3)
+        rates = {}
+        for path, use in (("native", True), ("pil", False)):
+            if use and not native.native_rrc_available():
+                continue
+            it = ds.batches(2, use_native=use)
+            next(it)
+            t = time.perf_counter()
+            for _ in range(4):
+                next(it)
+            rates[path] = 4 * 2 * 3 / (time.perf_counter() - t)  # target, reference, pose
+        log(f"  decoded images/s (512x512, B = 2, target + reference + pose): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+        if native.native_rrc_available():
+            paths = sorted(os.path.join(data, "train_set", "vid0", f)
+                           for f in os.listdir(os.path.join(data, "train_set", "vid0")))
+            seeds = [1, 22, 333, 4444]
+            nv = native.batch_load_images_rrc(paths, 512, seeds)
+            lib = native._LIB
+            native._LIB = None
+            try:
+                fb = native.batch_load_images_rrc(paths, 512, seeds)
+            finally:
+                native._LIB = lib
+            mean_abs = float(np.abs(nv - fb).mean())
+            if not mean_abs < 0.05:
+                raise AssertionError(f"native vs rrc_params crops: mean abs {mean_abs:.4f}")
+            log(f"  native crops vs the port's rrc_params-driven PIL crops: mean abs "
+                f"{mean_abs:.4f} (< 0.05, the JAX test's bound)")
+            res["crop_mean_abs"] = mean_abs
+        res["images_per_s"] = rates
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+def p26_narrow_checks() -> dict:
+    """26d: narrow fp32 card vs CPU (phase 8's config at 128x128): one
+    stage-2 step frozen in int8, one under "flash", one under "xla"
+    (loss and gradients within 2e-4), each held to its launch plan; and a
+    narrow image request with dropout 0.1 (phase 4's check), equal to
+    dropout 0 on the card."""
+    import torch
+
+    from magicdance_tpu_torch.config import SampleConfig
+    from magicdance_tpu_torch.ops import kernels as K
+    from magicdance_tpu_torch.pipeline import MagicPosePipeline
+    from magicdance_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    base = narrow_train_config()
+    g = torch.Generator().manual_seed(8)
+    batch = {"image": torch.rand(2, 128, 128, 3, generator=g) * 2 - 1,
+             "reference": torch.rand(2, 128, 128, 3, generator=g) * 2 - 1,
+             "pose": torch.rand(2, 128, 128, 3, generator=g),
+             "input_ids": torch.zeros(2, 77, dtype=torch.long)}
+    _, auto_totals, _ = training_launch_plan(base.model, 16)
+    for label, cfg, totals in (
+            ("int8", dataclasses.replace(base, optim=dataclasses.replace(
+                base.optim, frozen_dtype="int8")), auto_totals),
+            ("flash", dataclasses.replace(base, attention_impl="flash"),
+             plan_totals(flash_launch_plan(dataclasses.replace(
+                 base, attention_impl="flash"), 16, 2))),
+            ("xla", dataclasses.replace(base, attention_impl="xla"), {})):
+        cpu = Trainer(cfg, device="cpu")
+        cpu.init_random(seed=3, scale=0.1)
+        gpu = Trainer(cfg, device="cuda")
+        for name in ("model", "vae", "clip"):
+            getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+        draws = cpu.draw(batch)
+        loss_c, _, grads_c = cpu.loss_and_grads(batch, draws)
+        K.reset_launches()
+        loss_g, _, grads_g = gpu.loss_and_grads(gpu.to_device(batch), draws)
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in K.LAUNCHES.items() if n}
+        # the narrow VAE's 64-wide mid attention at S = 256 runs kernel A
+        # without gradients, once per encode: the encoders stay on "auto"
+        expect = {**{k: n for k, n in totals.items() if n}, "self_attention": 2 +
+                  totals.get("self_attention", 0)}
+        if launches != expect:
+            raise AssertionError(f"narrow {label} step launches {launches}, plan {expect}")
+        loss_err = abs(float(loss_g) - float(loss_c))
+        gmax = max(t.abs().max().item() for t in grads_c.values())
+        gerr = max((grads_g[k].cpu() - grads_c[k]).abs().max().item() for k in grads_c)
+        if not (loss_err <= 2e-4 * max(1.0, abs(float(loss_c))) and gerr <= 2e-4 * gmax):
+            raise AssertionError(f"narrow {label} card vs CPU: loss err {loss_err:.3e}, max grad "
+                                 f"err {gerr:.3e} (max |grad| {gmax:.3e})")
+        log(f"  ok  narrow stage-2 step, {label}, card vs CPU (fp32): loss "
+            f"{float(loss_c):.6f} err {loss_err:.3e}; max grad err {gerr:.3e} (max |grad| "
+            f"{gmax:.3e}); launches {launches}")
+        out[label] = dict(loss_err=loss_err, grad_err=gerr, grad_max=gmax, launches=launches)
+        del cpu, gpu
+    mc = narrow_model_config()
+    mc_d = dataclasses.replace(mc, unet=dataclasses.replace(mc.unet, dropout=0.1))
+    g = torch.Generator().manual_seed(7)
+    pose = torch.rand(2, 128, 128, 3, generator=g)
+    ref = torch.rand(1, 128, 128, 3, generator=g) * 2 - 1
+    x_T = torch.randn(1, 16, 16, 4, generator=g).expand(2, -1, -1, -1)
+    scfg = SampleConfig(steps=4)
+    cpu = MagicPosePipeline(mc_d, device="cpu")
+    cpu.init_params(seed=3, scale=0.1)
+    outs = {}
+    for label, cfg in (("dropout 0.1", mc_d), ("dropout 0", mc)):
+        gpu = MagicPosePipeline(cfg, device="cuda")
+        for name in ("model", "vae", "clip"):
+            getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+        outs[label] = gpu.sample_frames(pose, ref, scfg, x_T=x_T).cpu()
+        del gpu
+    want = cpu.sample_frames(pose, ref, scfg, x_T=x_T)
+    err = (outs["dropout 0.1"] - want).abs().max().item()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    same = torch.equal(outs["dropout 0.1"], outs["dropout 0"])
+    if not (err <= tol and same):
+        raise AssertionError(f"dropout serving: card vs CPU {err:.3e} (tol {tol:.1e}), equal to "
+                             f"dropout 0 on the card: {same}")
+    log(f"  ok  narrow 4-step CFG-7 sample with dropout 0.1, card vs CPU: max_abs_err "
+        f"{err:.3e} (tol {tol:.1e}); on the card bit for bit equal to dropout 0")
+    out["dropout"] = dict(err=err, equal_to_dropout_0=same)
+    return out
+
+
+def p26_new_cases(frames: int) -> dict:
+    """`p26_cases` of the stage-2 (B = 2, a per-image bank) and stage-3 (one
+    16-frame clip, a batch-1 bank) "flash" plans, less what phases 3 and 7
+    (run with `frames`) held."""
+    from magicdance_tpu_torch.config import stage3_motion
+
+    f_cfg = p26_config(attention_impl="flash")
+    s3 = dataclasses.replace(stage3_motion(), attention_impl="flash")
+    latent = f_cfg.image_size // 8
+    checked = p26_checked_before(
+        frames, training_launch_plan(f_cfg.model, latent)[0],
+        stage3_grad_sites(s3.model, s3.image_size // 8), s3.video_frames)
+    return p26_cases(
+        [("stage 2", flash_launch_plan(f_cfg, latent, 2), lambda b: b),
+         ("stage 3", flash_launch_plan(s3, s3.image_size // 8, s3.batch_size_per_device),
+          lambda b: s3.batch_size_per_device)], checked)
+
+
+def training_leftovers_on_card(card: str, frames: int) -> dict:
+    """Phase 26 (see the module docstring); cuDNN deterministic for the
+    phase, as in phase 25, so that equal inputs give equal bits."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _training_leftovers(card, frames)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _training_leftovers(card: str, frames: int) -> dict:
+    import torch
+
+    log("  26d: narrow fp32, card vs CPU")
+    narrow = p26_narrow_checks()
+    torch.cuda.empty_cache()
+    log("  26a / 26b: full-width stage-2 steps (int8, bf16, flash, a control, xla), stage-3 "
+        "steps under auto and flash")
+    steps = p26_int8_and_impls(card)
+    log("  26b: kernels at the shapes the flash override adds (every site of both flash "
+        "plans that phases 3 and 7 did not hold)")
+    rows, errs, checked = p26_flash_shapes(p26_new_cases(frames))
+    torch.cuda.empty_cache()
+    log("  26c: the training CLI end to end (int8, Flax-style init, native loader)")
+    cli = p26_cli(card)
+    return dict(narrow=narrow, steps=steps, shapes=rows, errs=errs, checked=checked, cli=cli,
+                launches={**steps["launches"], "cli": cli["cli"]["launches"]})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
@@ -3971,6 +4879,13 @@ def main(argv=None) -> int:
     distribution = distribution_on_card(card)
     dl = distribution["launches"]
 
+    log("== phase 26: training leftovers (frozen int8, attention_impl flash / xla, the native "
+        "batch loader, the Flax-style init, dropout), full SD1.5 width")
+    t26 = time.perf_counter()
+    leftovers = training_leftovers_on_card(card, frames)
+    ll = leftovers["launches"]
+    log(f"  phase 26 in {time.perf_counter() - t26:.1f} s")
+
     def per_step(rows_, key):
         return sum(r[key] * r["launches_per_step"] for r in rows_)
 
@@ -4008,7 +4923,16 @@ def main(argv=None) -> int:
              "frame-parallel image serving, 2 ranks over gloo (1 request x 50 DDIM steps, "
              "both ranks)": dl["b_image"],
              "window-parallel video serving, 2 ranks over gloo (1 request x 10 DDIM steps, "
-             "both ranks)": dl["b_video"]}
+             "both ranks)": dl["b_video"],
+             f"image training, frozen int8 (stage 2, {P25_TRAIN_STEPS} steps)": ll["int8"],
+             f"image training, bf16 holding int8's dequantized values (stage 2, "
+             f"{P25_TRAIN_STEPS} steps)": ll["bf16"],
+             f"image training, attention_impl=flash (stage 2, {P25_TRAIN_STEPS} steps)":
+                ll["flash"],
+             "image training, attention_impl=xla (stage 2, 1 step)": ll["xla"],
+             "video training, attention_impl=flash (stage 3, 2 steps)": ll["stage3_flash"],
+             "training CLI, frozen int8, Flax-style init (stage 2 POSE_ONLY, 2 steps)":
+                ll["cli"]}
     kernels = []
     for name, meta in KERNELS.items():
         by_path = {p: sum(launches.get(m, 0) for m in meta["modes"])
@@ -4061,9 +4985,10 @@ def main(argv=None) -> int:
             stage3_rows = [r for r in train_rows if r["mode"] in meta["modes"] and "path" in r]
             main_rows = serving if serving else training
             err = max(errs.get(name, 0.0), train_errs[name], fused_errs.get(name, 0.0),
-                      packed_errs.get(name, 0.0))
+                      packed_errs.get(name, 0.0), leftovers["errs"][name])
             n_checked = (checked.get(name, 0) + train_checked[name]
-                         + fused_checked.get(name, 0) + packed_checked.get(name, 0))
+                         + fused_checked.get(name, 0) + packed_checked.get(name, 0)
+                         + leftovers["checked"][name])
         entry = dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             body=meta["body"],
@@ -4096,6 +5021,21 @@ def main(argv=None) -> int:
                 library_ms=per_step(stage3_rows, "library_ms"), bound_by=bound_by(stage3_rows),
                 per="one stage-3 training step (a 16-frame clip, a batch-1 bank; sum over its "
                     "launches)")
+        flash_rows = [r for r in leftovers["shapes"] if r["mode"] in meta["modes"]]
+        if flash_rows:
+            entry["flash_shapes"] = [
+                {k: r[k] for k in ("mode", "case", "B", "S", "S_kv", "D", "path",
+                                   "launches_per_step", "kernel_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")} for r in flash_rows]
+            for path in ("stage 2", "stage 3"):
+                sub = [r for r in flash_rows if r["path"] == path]
+                if sub:
+                    entry[f"flash_{path.replace(' ', '')}_new_shapes"] = dict(
+                        ms=per_step(sub, "kernel_ms"), plain_ms=per_step(sub, "plain_ms"),
+                        bound_ms=per_step(sub, "bound_ms"),
+                        library_ms=per_step(sub, "library_ms"), bound_by=bound_by(sub),
+                        per=f"one {path} training step under attention_impl=flash, the "
+                            "launches at the shapes the override adds (sum)")
         if serving and training:
             entry["training_step"] = dict(
                 ms=per_step(training, "kernel_ms"), plain_ms=per_step(training, "plain_ms"),
@@ -4117,7 +5057,8 @@ def main(argv=None) -> int:
                            samplers=samplers, profile=profile, sample_cli=cli,
                            openpose=openpose, evaluation=evaluation,
                            distribution={k: v for k, v in distribution.items()
-                                         if k != "launches"}, kernels=kernels), f,
+                                         if k != "launches"},
+                           training_leftovers=leftovers, kernels=kernels), f,
                       indent=1)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

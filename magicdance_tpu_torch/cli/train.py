@@ -19,7 +19,16 @@ saves the checkpoints; every rank resumes from the newest one.
 `convert.torch_convert`; `--motion_module_checkpoint` overlays AnimateDiff
 motion modules on the UNet (stage 3, ref train_tiktok.py:146-192). A resumed
 run restores its own checkpoint over either. Without a checkpoint the
-weights are seeded random (every leaf), which is for smoke runs.
+weights start where the JAX CLI's Flax `init` starts them
+(`Trainer.init_flax`: lecun-normal kernels, zero output convs and zero
+convs, so the UNet output and the ControlNet's residuals are zero at step 0),
+drawn from `--seed`.
+
+The data loader decodes through the native C++ batch loader
+(`data/native.py`, built from `native/image_core.cpp` at first use) when it
+builds, else through PIL, as the JAX package does; the first line of the run
+says which. Under `frozen_dtype="int8"` the sample grid's pipeline gets the
+dequantized (bf16) frozen weights.
 
 Usage:
   python -m magicdance_tpu_torch.cli.train --stage 2 --data TikTok-v4 \\
@@ -124,8 +133,8 @@ def main(argv=None) -> None:
             raise ValueError("checkpoint lacks VAE/CLIP weights; supply a full "
                              "model_state/.ckpt file")
     else:
-        say("[train] random init (no --init_checkpoint)")
-        trainer.init_random(seed=cfg.seed)
+        say("[train] Flax-style init (no --init_checkpoint)")
+        trainer.init_flax(seed=cfg.seed)
     if args.motion_module_checkpoint:
         # stage-3 surgery: AnimateDiff motion weights over the UNet's
         # (merge_state_dict_mm, ref train_tiktok.py:146-192)
@@ -152,6 +161,10 @@ def main(argv=None) -> None:
     # into the batch axis (ref train_tiktok.py:1189-1200); empty prompts ----
     F = trainer.num_frames
     ids = empty_prompt_ids(global_batch * F, cfg.model.clip.max_length)
+    if not cfg.model.has_temporal:
+        from magicdance_tpu_torch.data import native
+
+        say(f"[train] image decode: {native.describe()}")
 
     def it_factory(worker: int):
         if cfg.model.has_temporal:
@@ -182,12 +195,15 @@ def main(argv=None) -> None:
         from magicdance_tpu_torch.config import SampleConfig
         from magicdance_tpu_torch.data.transforms import from_model_range
         from magicdance_tpu_torch.pipeline import MagicPosePipeline
+        from magicdance_tpu_torch.models.quant import dequantize_state_dict
         from magicdance_tpu_torch.utils.video import save_image_grid
 
         if pipe is None:
             pipe = MagicPosePipeline(cfg.model, device=device)
         for name in ("model", "vae", "clip"):
-            getattr(pipe, name).load_state_dict(getattr(trainer, name).state_dict())
+            # int8 frozen leaves go in as their bf16 values (models.quant)
+            getattr(pipe, name).load_state_dict(
+                dequantize_state_dict(getattr(trainer, name).state_dict()))
         n = min(2, batch["image"].shape[0])
         pose = batch["pose"][:n] if "pose" in batch else None
         ref = batch["reference"][:1]

@@ -304,14 +304,15 @@ class OptimConfig:
     grad_clip: float = 0.5
     warmup_steps: int = 1000
     grad_accum: int = 1
-    # ZeRO-1 analog: shard optimizer moments across the data axis (the
-    # port's one-GPU trainer keeps them whole; sharding comes with the
-    # distribution slice)
+    # ZeRO-1 analog: shard optimizer moments across the data axis (a
+    # process group's 'data' ranks each keep their slices; one process keeps
+    # them whole)
     shard_opt_state: bool = True
     ema_rate: float = 0.0  # reference default: EMA off (train_tiktok.py:586)
     # storage dtype for FROZEN params (VAE/CLIP/locked UNet): bf16 halves
-    # their memory; trainable params/moments stay f32. The port's trainer
-    # takes "bfloat16" and "float32"; "int8" is not ported yet and raises.
+    # their memory, "int8" (models/quant.py: per-output-channel scales,
+    # dequantized to bf16 at use) quarters it; trainable params/moments stay
+    # f32. One of "bfloat16", "float32", "int8".
     frozen_dtype: str = "bfloat16"
 
 
@@ -345,9 +346,10 @@ class TrainConfig:
     output_dir: str = "runs/default"
     resume: bool = True
     mesh_axes: tuple[str, ...] = ("data",)
-    # attention implementation inside the train step. "auto" trains the
-    # kernel sites through the backward kernels (ops.kernels.flash_vjp); the
-    # port's trainer takes no other value yet and raises on one.
+    # attention implementation inside the train step's denoiser forward and
+    # backward (ops/attention.py::attention_impl): "auto" trains the kernel
+    # sites through the backward kernels (ops.kernels.flash_vjp), "flash"
+    # every site, "xla" none (the plain math). The VAE and CLIP stay "auto".
     attention_impl: str = "auto"
     # frozen-VAE encode runs in chunks of this many images when the batch
     # exceeds it (and divides by it), bounding the full-resolution fp32

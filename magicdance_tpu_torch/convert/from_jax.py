@@ -12,7 +12,10 @@ a walk over the Flax tree with one rule per leaf name:
   * anything else (`bias`, `position_embedding`) keeps its name and layout.
 
 The motion modules (`enc_motion_*`, `dec_motion_*`) are Dense, LayerNorm
-and GroupNorm leaves too, so they cross by the same rules.
+and GroupNorm leaves too, so they cross by the same rules. A JAX int8 leaf
+(`QuantizedLeaf(q, scale)` of `frozen_dtype="int8"`, `models.quant`) crosses
+as the int8 `<name>` and the fp32 `<name>_scale`, the leaf's rule applied to
+both (the scale keeps the reduced dims as 1, so it transposes alike).
 
 Input: the JAX pipeline's {"model", "vae", "clip"} variables, each
 {"params": {...}} (or the bare param tree), with numpy arrays as leaves; or a
@@ -47,9 +50,38 @@ def flax_key(path: tuple) -> str:
     return ".".join(mods + [name])
 
 
-def convert_leaf(path: tuple, leaf) -> tuple[str, torch.Tensor]:
-    """One Flax leaf at `path` -> (state-dict key, fp32 tensor)."""
-    a = np.asarray(leaf, dtype=np.float32)
+KERNEL_MODULES = (nn.Linear, nn.Conv2d, nn.Conv3d)
+
+
+def flax_last_dim(module: nn.Module, name: str, ndim: int) -> int:
+    """The dim of the port's tensor `module.<name>` that holds its Flax
+    leaf's last axis (the output features of a kernel): dim 0 of a Linear or
+    ConvNd `weight`, whose kernel `convert_leaf` transposes; the last dim of
+    every other leaf, which keeps the Flax layout (embeddings,
+    `position_embedding`)."""
+    if name == "weight" and isinstance(module, KERNEL_MODULES):
+        return 0
+    return ndim - 1
+
+
+def _is_quantized_leaf(leaf) -> bool:
+    return hasattr(leaf, "q") and hasattr(leaf, "scale")
+
+
+def _leaf_entries(path: tuple, leaf):
+    """The state-dict entries of one Flax leaf: one, or an int8 leaf's two."""
+    if _is_quantized_leaf(leaf):
+        key, q = convert_leaf(path, leaf.q, np.int8)
+        yield key, q
+        yield key + "_scale", convert_leaf(path, leaf.scale)[1]
+    else:
+        yield convert_leaf(path, leaf)
+
+
+def convert_leaf(path: tuple, leaf, dtype=np.float32) -> tuple[str, torch.Tensor]:
+    """One Flax leaf at `path` -> (state-dict key, tensor of `dtype`, fp32
+    by default)."""
+    a = np.asarray(leaf, dtype=dtype)
     if str(path[-1]) == "kernel":
         if a.ndim == 5:
             a = a.transpose(4, 3, 0, 1, 2)
@@ -65,19 +97,20 @@ def convert_leaf(path: tuple, leaf) -> tuple[str, torch.Tensor]:
 def flax_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A Flax variables tree -> a state dict for the matching port module."""
     tree = variables["params"] if "params" in variables else variables
-    return dict(convert_leaf(path, leaf) for path, leaf in _flatten(tree))
+    return dict(e for path, leaf in _flatten(tree) for e in _leaf_entries(path, leaf))
 
 
 def flat_to_state_dict(flat: Mapping[tuple, Any]) -> dict[str, torch.Tensor]:
     """A flat {path tuple: array} dict (the JAX trainer's partition of the
     denoiser params) -> state-dict entries."""
-    return dict(convert_leaf(path, leaf) for path, leaf in flat.items())
+    return dict(e for path, leaf in flat.items() for e in _leaf_entries(path, leaf))
 
 
 def load_train_state(trainer, state) -> None:
     """Carry a JAX `TrainState` into a port `Trainer`: its trainable and
-    frozen denoiser params, the frozen VAE and CLIP, the EMA params when
-    present, and the step. (The optimizer moments are not carried: a
+    frozen denoiser params, the frozen VAE and CLIP (int8 leaves of a
+    `frozen_dtype="int8"` state as int8 values and scales), the EMA params
+    when present, and the step. (The optimizer moments are not carried: a
     carried state restarts AdamW from zero moments.)"""
     model = {**flat_to_state_dict(state.train_params),
              **flat_to_state_dict(state.frozen_params["model"])}

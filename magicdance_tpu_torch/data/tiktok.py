@@ -14,9 +14,10 @@ by step count) instead of an infinite IterableDataset; sharding by
 (rank, world) args — the reference's local-FS dataset never actually sharded
 by rank (SURVEY.md §2.3).
 
-The PyTorch port's own copy of `magicdance_tpu.data.tiktok` (numpy and PIL
-only): `TikTokPairDataset` with the Python decode path, and
-`TikTokEvalDataset`. The native C++ loader is not ported yet.
+The PyTorch port's own copy of `magicdance_tpu.data.tiktok` (numpy, PIL
+and the port's native C++ batch loader, `data.native`): `TikTokPairDataset`
+with the Python decode path and the native batch path, and
+`TikTokEvalDataset`.
 """
 
 from __future__ import annotations
@@ -121,10 +122,44 @@ class TikTokPairDataset:
             out["pose"] = to_hint_range(pose_c)
         return out
 
-    def batches(self, batch_size: int, seed: Optional[int] = None) -> Iterator[dict]:
-        """Infinite batch stream of stacked numpy samples (the Python decode
-        path; the JAX package's native C++ batch loader is not ported)."""
+    def batches(
+        self,
+        batch_size: int,
+        seed: Optional[int] = None,
+        use_native: Optional[bool] = None,
+    ) -> Iterator[dict]:
+        """Infinite batch stream. When the native C++ decode core is
+        available (default auto-detect), the whole batch is decoded, cropped
+        and normalized by `md_batch_load_rrc` — multi-threaded, GIL-free —
+        with the same shared-crop-per-sample semantics as the Python path
+        (target and pose map share a crop seed).
+
+        Known semantic difference: the native path applies the monochrome
+        filter to the decoded CROP (the core returns only the crop), while
+        the Python path (and the reference, tiktok_video_arnold_copy.py:
+        158-171) checks the full frame before cropping. At the default
+        crop_scale (0.9, 1.0) the crop covers ≥90 % of the frame, so the
+        filters agree except on frames whose uniform region dominates a
+        near-full crop — a stricter, not looser, filter."""
+        from magicdance_tpu_torch.data.native import native_rrc_available
+
+        if use_native is None:
+            use_native = native_rrc_available()
         rng = np.random.RandomState(self.seed if seed is None else seed)
+        if use_native and self.use_pose and not self._pose_dims_match():
+            # the native path aligns the pose crop with the target crop by
+            # sharing the seed, which only holds when both images have the
+            # same dimensions — otherwise use the Python path's explicit
+            # shared crop params
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "pose maps are not frame-sized; native batch path would "
+                "misalign crops — falling back to the Python loader")
+            use_native = False
+        if use_native:
+            yield from self._native_batches(batch_size, rng)
+            return
         while True:
             items = []
             while len(items) < batch_size:
@@ -134,6 +169,83 @@ class TikTokPairDataset:
             yield {
                 k: np.stack([it[k] for it in items]) for k in items[0]
             }
+
+    def _pose_dims_match(self) -> bool:
+        """The shared-seed crop trick requires pose map dims == frame dims
+        (rrc_params derives the crop from the image dims). Probe ONE pair
+        per video — PIL reads only the header, so this is a one-time
+        O(#videos) header scan, and it catches datasets where only SOME
+        videos have off-sized pose maps (a single random probe would not)."""
+        for video in self.videos:
+            frames = self.frames[video]
+            if not frames:
+                continue
+            fp = os.path.join(self.root, self.split, video, frames[0])
+            pp = os.path.join(self.root, self.pose_split, video, frames[0])
+            try:
+                with Image.open(fp) as a, Image.open(pp) as b:
+                    if a.size != b.size:
+                        return False
+            except Exception:
+                continue  # missing files surface later with a clearer error
+        return True
+
+    def _native_batches(
+        self, batch_size: int, rng: np.random.RandomState
+    ) -> Iterator[dict]:
+        from magicdance_tpu_torch.data.native import batch_load_images_rrc
+
+        def to_u8(x):
+            return np.clip((x + 1.0) * 127.5, 0, 255).astype(np.uint8)
+
+        B = batch_size
+        while True:
+            picks = [self._draw_pair(rng) for _ in range(B)]
+            seeds_t = [int(rng.randint(1 << 31)) for _ in range(B)]
+            seeds_r = [int(rng.randint(1 << 31)) for _ in range(B)]
+            targets = np.empty((B, self.image_size, self.image_size, 3),
+                               np.float32)
+            refs = np.empty_like(targets)
+            redo = list(range(B))
+            for _ in range(10):  # resample degenerate (monochrome) picks
+                tp = [os.path.join(self.root, self.split, picks[k][0],
+                                   picks[k][1]) for k in redo]
+                rp = [os.path.join(self.root, self.split, picks[k][0],
+                                   picks[k][2]) for k in redo]
+                targets[redo] = batch_load_images_rrc(
+                    tp, self.image_size, [seeds_t[k] for k in redo],
+                    self.crop_scale)
+                refs[redo] = batch_load_images_rrc(
+                    rp, self.image_size, [seeds_r[k] for k in redo],
+                    self.crop_scale)
+                redo = [k for k in redo
+                        if is_monochrome(to_u8(targets[k]))
+                        or is_monochrome(to_u8(refs[k]))]
+                if not redo:
+                    break
+                for k in redo:
+                    picks[k] = self._draw_pair(rng)
+                    seeds_t[k] = int(rng.randint(1 << 31))
+                    seeds_r[k] = int(rng.randint(1 << 31))
+            if redo:
+                # the Python path never yields monochrome frames; if 10
+                # resample rounds could not clear the batch, say so rather
+                # than silently training on degenerate pairs
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "native loader: %d monochrome frame(s) survived 10 "
+                    "resample rounds and were yielded", len(redo))
+            out = {"image": targets, "reference": refs}
+            if self.use_pose:
+                pp = [os.path.join(self.root, self.pose_split, v, fi)
+                      for v, fi, _ in picks]
+                # pose maps share their target frame's crop seed (same dims
+                # -> identical crop), in hint range [0, 1]
+                out["pose"] = batch_load_images_rrc(
+                    pp, self.image_size, seeds_t, self.crop_scale,
+                    scale=1.0 / 255.0, offset=0.0)
+            yield out
 
 
 @dataclass

@@ -6,7 +6,7 @@ learned position embeddings over 77 tokens, final LayerNorm; returns
 last_hidden_state (B, 77, 768) in fp32. Its 77-token causal attention is
 plain PyTorch math (fp32 logits and softmax), as it was plain XLA in JAX.
 It computes in fp32 whatever dtype its weights are stored in (a trainer
-keeps the frozen CLIP in bf16 storage). `encode_long_prompt` encodes prompts
+keeps the frozen CLIP in bf16 or int8 storage). `encode_long_prompt` encodes prompts
 longer than one window in windows.
 """
 
@@ -18,6 +18,7 @@ from torch import nn
 
 from magicdance_tpu_torch.config import CLIPTextConfig
 from magicdance_tpu_torch.models.layers import Linear, layer_norm_f32
+from magicdance_tpu_torch.models.quant import dequantize, param_at
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -65,11 +66,22 @@ class CLIPLayer(nn.Module):
         return x + h
 
 
+class Embedding(nn.Embedding):
+    """nn.Embedding whose table may be held in int8 (`models.quant`): the rows
+    are gathered, then dequantized with the per-channel scale (the values of
+    dequantizing the whole table first, as JAX does)."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype != torch.int8:
+            return super().forward(ids)
+        return dequantize(F.embedding(ids, self.weight), self.weight_scale)
+
+
 class CLIPTextEncoder(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.cfg = cfg
-        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.token_embedding = Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embedding = nn.Parameter(torch.zeros(cfg.max_length, cfg.hidden_size))
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", CLIPLayer(cfg))
@@ -79,7 +91,7 @@ class CLIPTextEncoder(nn.Module):
         """input_ids: (B, S <= 77) int -> last_hidden_state (B, S, hidden) fp32."""
         s = input_ids.shape[1]
         x = self.token_embedding(input_ids.long()).float()
-        x = x + self.position_embedding[None, :s].float()
+        x = x + param_at(self, "position_embedding", torch.float32)[None, :s]
         causal = torch.triu(torch.full((s, s), float("-inf"), device=x.device), diagonal=1)
         for i in range(self.cfg.num_layers):
             x = getattr(self, f"layer_{i}")(x, causal[None, None])

@@ -44,7 +44,7 @@ class HintEncoder(nn.Module):
         for i, (w, s) in enumerate(HINT_WIDTHS):
             self.add_module(f"conv_{i}", conv3x3(cin, w, stride=s))
             cin = w
-        self.conv_out = conv3x3(cin, model_channels)
+        self.conv_out = conv3x3(cin, model_channels, zero_init=True)
 
     def forward(self, hint: torch.Tensor) -> torch.Tensor:
         h = hint
@@ -78,7 +78,7 @@ class PoseControlNet(nn.Module):
         self.time_embed = TimestepEmbedMLP(mc)
         self.hint_encoder = HintEncoder(cfg.hint_channels, mc)
         self.conv_in = conv3x3(in_channels, mc)
-        self.zero_conv_0 = conv1x1(mc, mc)
+        self.zero_conv_0 = conv1x1(mc, mc, zero_init=True)
         ch = mc
         res_i = down_i = attn_i = 0
         for zc, u in enumerate(unet_plan(self.ucfg)[0], start=1):
@@ -93,12 +93,12 @@ class PoseControlNet(nn.Module):
             else:
                 self.add_module(f"enc_down_{down_i}", Downsample(ch))
                 down_i += 1
-            self.add_module(f"zero_conv_{zc}", conv1x1(ch, ch))
+            self.add_module(f"zero_conv_{zc}", conv1x1(ch, ch, zero_init=True))
         mid_ch = mc * cfg.channel_mult[-1]
         self.mid_res_0 = ResBlock(ch, mid_ch, emb_dim)
         self.mid_attn = SpatialTransformer(mid_ch, heads, mid_ch // heads, depth, ctx_dim)
         self.mid_res_1 = ResBlock(mid_ch, mid_ch, emb_dim)
-        self.zero_conv_mid = conv1x1(mid_ch, mid_ch)
+        self.zero_conv_mid = conv1x1(mid_ch, mid_ch, zero_init=True)
 
     def forward(self, x: torch.Tensor, hint: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor], self_kv_pool: int = 1,

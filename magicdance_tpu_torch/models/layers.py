@@ -17,7 +17,13 @@ Precision: every product runs in the dtype of the activations it is given.
 module with `dtype=bf16` casts its fp32 params: a bf16 denoiser may hold fp32
 trainable master weights, whose gradients then come back in fp32 through the
 cast, beside frozen weights stored in bf16. When the weights already have the
-activations' dtype the cast is free.
+activations' dtype the cast is free. A frozen weight held in int8
+(`models.quant`, `frozen_dtype="int8"`) is dequantized at use instead, to bf16
+and then to the activations' dtype, as JAX dequantizes its frozen tree.
+
+`zero_init=True` marks the layers the JAX package creates with zero kernels
+(`conv_out` of a ResBlock and of the UNet, `proj_out` of the transformers,
+the ControlNet's zero convs and hint output); `models.init` reads the mark.
 
 `remat` runs a block under `torch.utils.checkpoint` (non-reentrant) when
 grad mode is on: its activations are recomputed in the backward pass, as the
@@ -38,35 +44,58 @@ from torch import nn
 
 
 class Linear(nn.Linear):
-    """nn.Linear computing in its input's dtype (weights cast at use)."""
+    """nn.Linear computing in its input's dtype (weights cast, or an int8
+    weight dequantized, at use)."""
+
+    def __init__(self, *args, zero_init: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.to(x.dtype), bias)
+        return F.linear(x, param_at(self, "weight", x.dtype), bias)
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in its input's dtype (weights cast at use)."""
+    """nn.Conv2d computing in its input's dtype (weights cast, or an int8
+    weight dequantized, at use)."""
+
+    def __init__(self, *args, zero_init: bool = False, **kw):
+        super().__init__(*args, **kw)
+        self.zero_init = zero_init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        return self._conv_forward(x, param_at(self, "weight", x.dtype), bias)
 
 
 def remat(enabled: bool, fn, *args):
     """fn(*args), recomputed in the backward pass when `enabled` and grad
-    mode is on. The blocks draw no random numbers (dropout is not ported), so
-    the RNG state is not stashed."""
+    mode is on. The RNG state is not stashed: the blocks draw no random
+    numbers in any path the JAX package can run (its dropout is the identity
+    when serving and cannot train, see `train.trainer`). The recompute runs
+    under the forward's `attention_impl`: on a GPU the backward, and so the
+    recompute, runs on autograd's device thread, which does not see the
+    caller's context."""
     if enabled and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+        impl = current_impl()
+
+        def run(*a):
+            with attention_impl(impl):
+                return fn(*a)
+
+        return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
                                                  preserve_rng_state=False)
     return fn(*args)
 
 from magicdance_tpu_torch.ops.attention import (
+    attention_impl,
     attention_packed,
     bank_read_attention_packed,
+    current_impl,
 )
 from magicdance_tpu_torch.ops.kernels.groupnorm import groupnorm_silu
+from magicdance_tpu_torch.models.quant import param_at
 
 # devices on which `GroupNorm32` may take the fused GroupNorm+SiLU kernel
 FUSED_GN_DEVICES = ("cuda",)
@@ -136,12 +165,12 @@ class GroupNorm32(nn.Module):
         return F.silu(h) if self.act else h
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1) -> Conv2d:
-    return Conv2d(cin, cout, 3, stride=stride, padding=1)
+def conv3x3(cin: int, cout: int, stride: int = 1, zero_init: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, zero_init=zero_init)
 
 
-def conv1x1(cin: int, cout: int) -> Conv2d:
-    return Conv2d(cin, cout, 1)
+def conv1x1(cin: int, cout: int, zero_init: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, 1, zero_init=zero_init)
 
 
 class TimestepEmbedMLP(nn.Module):
@@ -168,7 +197,7 @@ class ResBlock(nn.Module):
         self.conv_in = conv3x3(in_channels, out_channels)
         self.emb_proj = Linear(emb_dim, out_channels)
         self.norm_out = GroupNorm32(out_channels, act=True)
-        self.conv_out = conv3x3(out_channels, out_channels)
+        self.conv_out = conv3x3(out_channels, out_channels, zero_init=True)
         self.skip = conv1x1(in_channels, out_channels) if in_channels != out_channels else None
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -316,7 +345,7 @@ class SpatialTransformer(nn.Module):
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(inner, context_dim,
                                                                 num_heads, head_dim))
-        self.proj_out = conv1x1(inner, channels)
+        self.proj_out = conv1x1(inner, channels, zero_init=True)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 bank_entries: Optional[Sequence[torch.Tensor]] = None,
@@ -385,7 +414,7 @@ class TemporalTransformer(nn.Module):
                     channels, None, num_heads, channels // num_heads))
             self.add_module(f"norm_ff_{i}", nn.LayerNorm(channels, eps=1e-5))
             self.add_module(f"ff_{i}", GEGLUFeedForward(channels))
-        self.proj_out = Linear(channels, channels)
+        self.proj_out = Linear(channels, channels, zero_init=True)
 
     def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
         bf, c, hh, ww = x.shape

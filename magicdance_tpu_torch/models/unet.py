@@ -194,7 +194,7 @@ class UNet(nn.Module):
             if u["upsample"]:
                 self.add_module(u["name_up"], Upsample(ch))
         self.norm_out = GroupNorm32(ch, act=True)
-        self.conv_out = conv3x3(ch, cfg.out_channels)
+        self.conv_out = conv3x3(ch, cfg.out_channels, zero_init=True)
 
     def forward(
         self,

@@ -35,10 +35,28 @@ differentiable by autograd. So on a card
 the plain math runs only at the sites JAX left to XLA, never at a kernel
 site. The thresholds are the JAX package's; H100-specific ones come from
 measurements on the card.
+
+That is the "auto" dispatch. The `attention_impl` context (JAX
+`ops.attention.attention_impl`, `TrainConfig.attention_impl`) overrides it
+for the code run inside it, as JAX's `_pick_impl` / `_pick_impl_packed` do:
+  * "xla": every site takes the plain version (the JAX package's XLA path);
+    no attention kernel launches.
+  * "flash": every site is a kernel site in BSNH layout (JAX routes it to
+    `flash_attention` / `flash_attention_two_source`): with a gradient the
+    autograd Functions `mha` / `mha_two_source`, without one kernel A / B,
+    whatever S, S_kv or the sequence count -- cross-attention over the
+    context tokens, the S = 64 middle block and the temporal S = F sites
+    included; the grouped kernel G is not used. A gated bank read stays
+    forward-only.
+`MD_DISABLE_GROUPED_ATTN=1` (JAX's switch) turns off the grouped rule
+under "auto": those sites then fall to the thresholds above.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import os
 from typing import Optional
 
 import torch
@@ -49,16 +67,53 @@ from magicdance_tpu_torch.ops.kernels import (
 from magicdance_tpu_torch.ops.kernels.flash_vjp import mha, mha_grouped, mha_two_source
 
 
+IMPLS = ("auto", "xla", "flash")
+
+_IMPL_OVERRIDE: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "attention_impl", default="auto")
+
+
+@contextlib.contextmanager
+def attention_impl(impl: str):
+    """Force the attention dispatch ("auto" | "xla" | "flash") for the code
+    run within this context (see the module docstring)."""
+    if impl not in IMPLS:
+        raise ValueError(f"attention_impl {impl!r} is not one of {IMPLS}")
+    token = _IMPL_OVERRIDE.set(impl)
+    try:
+        yield
+    finally:
+        _IMPL_OVERRIDE.reset(token)
+
+
+def current_impl() -> str:
+    return _IMPL_OVERRIDE.get()
+
+
 def _kernel_site(sq: int, sk_total: int, d: int) -> bool:
+    impl = _IMPL_OVERRIDE.get()
+    if impl != "auto":
+        return impl == "flash"
     return sq >= 256 and sk_total >= 256 and d <= 256
 
 
 def _grouped_site(sq: int, sk: int, d: int, batch: int) -> bool:
     """A packed self-attention (never a bank read) over `batch` sequences
     that the grouped kernel takes: `_pick_impl_packed`'s `flash_grouped`
-    rule without its TPU-backend term."""
-    return (sq == sk and sq <= 32 and 128 % sq == 0 and batch > 0
-            and batch * sq % 128 == 0 and d <= 256)
+    rule without its TPU-backend term (never under an override)."""
+    return (_IMPL_OVERRIDE.get() == "auto" and sq == sk and sq <= 32 and 128 % sq == 0
+            and batch > 0 and batch * sq % 128 == 0 and d <= 256
+            and os.environ.get("MD_DISABLE_GROUPED_ATTN") != "1")
+
+
+def route(sq: int, sk_total: int, d: int, *, bank: bool = False, batch: int = 0) -> str:
+    """Where a site goes under the current `attention_impl`: "grouped" (kernel
+    G), "kernel" (A / B, or the autograd Functions with a gradient) or
+    "plain" -- the counterpart of JAX's `_pick_impl_packed` answers
+    "flash_grouped", "flash_fused" / "flash" and "xla" on a TPU."""
+    if not bank and _grouped_site(sq, sk_total, d, batch):
+        return "grouped"
+    return "kernel" if _kernel_site(sq, sk_total, d) else "plain"
 
 
 def _wants_grad(*ts: torch.Tensor) -> bool:
@@ -85,7 +140,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """Multi-head attention on packed (B, S, H*D) projection outputs."""
-    if _grouped_site(q.shape[1], k.shape[1], q.shape[-1] // num_heads, q.shape[0]):
+    if route(q.shape[1], k.shape[1], q.shape[-1] // num_heads, batch=q.shape[0]) == "grouped":
         if _wants_grad(q, k, v):
             return mha_grouped(q, k, v, scale, num_heads)
         return grouped_attention(q, k, v, scale, num_heads)
@@ -107,7 +162,8 @@ def bank_read_attention(q: torch.Tensor, k_self: torch.Tensor,
     (exactly plain self-attention). Forward-only."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    site = _kernel_site(q.shape[1], k_self.shape[1] + k_bank.shape[1], q.shape[-1])
+    site = route(q.shape[1], k_self.shape[1] + k_bank.shape[1], q.shape[-1],
+                 bank=True) == "kernel"
     if bank_mask is not None:
         if _wants_grad(q, k_self, v_self, k_bank, v_bank):
             raise NotImplementedError("the gated bank read (fused CFG) is forward-only, "

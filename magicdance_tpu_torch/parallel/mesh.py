@@ -253,6 +253,9 @@ def _pair_geglu_rows(proj_in: nn.Linear, n: int) -> None:
     proj_in.weight.copy_(proj_in.weight[order])
     if proj_in.bias is not None:
         proj_in.bias.copy_(proj_in.bias[order])
+    scale = getattr(proj_in, "weight_scale", None)  # an int8 weight's (models.quant)
+    if scale is not None:
+        scale.copy_(scale[order])
 
 
 def tensor_parallel_plan(module: nn.Module, mesh) -> dict:
@@ -263,7 +266,9 @@ def tensor_parallel_plan(module: nn.Module, mesh) -> dict:
     wrapper, and an attention sees its rank's heads. A GEGLU pair is sharded
     only when its inner width divides by the axis (its rows are paired
     first); the module then computes the same function only under this
-    plan. Returns the plan ({module name: style})."""
+    plan. An int8 weight (`models.quant`) shards like a float one; its
+    per-output-channel scale goes with the column split and stays whole on
+    every rank under the row split. Returns the plan ({module name: style})."""
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
         RowwiseParallel,

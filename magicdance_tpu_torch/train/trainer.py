@@ -23,12 +23,30 @@ Counterpart of `magicdance_tpu.train.trainer`:
 
 Precision, by explicit cast at use (not torch.autocast): trainable master
 weights, their gradients and the AdamW moments are fp32; frozen parameters
-are stored in `optim.frozen_dtype` ("bfloat16" or "float32"); the
+are stored in `optim.frozen_dtype` ("bfloat16", "float32" or "int8"); the
 denoiser's products run in `cfg.model.dtype`, each `Linear`/`Conv2d` casting
 its weight to the activations' dtype as a Flax module with `dtype=bf16` casts
 its fp32 params, so the gradient of an fp32 master comes back through that
 cast in fp32. The frozen VAE and CLIP compute in fp32, and the whole step
 runs with TF32 off (`pipeline.full_fp32`), so fp32 means full fp32.
+
+`frozen_dtype="int8"` (JAX `train/quant.py`): the frozen leaves of the
+denoiser, the VAE and CLIP that `train.quant.should_quantize` takes are
+quantized from their fp32 values (int8 and one fp32 scale per output
+channel, `models/quant.py`); the others keep fp32 storage, as in JAX. Each layer dequantizes
+its own weight at use to bf16, then to the compute dtype -- JAX's values,
+without a dequantized copy of the whole frozen set. Checkpoints hold q and
+scale.
+
+`attention_impl` (JAX `TrainConfig.attention_impl`, `ops.attention
+.attention_impl`) scopes the denoiser's forward and backward (remat's
+recompute runs in the backward, so the backward is inside it too); the VAE
+encode and CLIP run under "auto", as in JAX.
+
+Dropout (`UNetConfig.dropout` > 0) trains in neither package: JAX's step
+applies the model with `deterministic=False` and no "dropout" RNG, which
+Flax refuses (`InvalidRngError`), so the port's step raises where JAX's
+does. Serving with dropout > 0 is the identity in both.
 
 Random draws come from the trainer's `torch.Generator` (`draw`), separately
 from the loss, and a caller may hand its own `Draws` to `train_step`; the
@@ -62,9 +80,6 @@ all-gathered into every rank's full parameter. The clip uses the global
 norm of the full averaged gradient (with a sharded `acc`, its squared slices
 are summed over the ranks). Checkpoints (`state_dict`) gather the slices:
 their layout does not depend on the world size.
-
-Not ported yet (each raises NotImplementedError): `frozen_dtype="int8"`
-(train/quant.py), `attention_impl` other than "auto", and dropout > 0.
 """
 
 from __future__ import annotations
@@ -76,10 +91,13 @@ import torch
 import torch.distributed as dist
 
 from magicdance_tpu_torch.config import FreezeRegime, OptimConfig, TrainConfig
+from magicdance_tpu_torch.convert.from_jax import flax_last_dim
 from magicdance_tpu_torch.device import resolve_device
-from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPoseModel
+from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPoseModel, quant
 from magicdance_tpu_torch.models.diffusion import diffusion_loss, draw_timesteps_and_noise
+from magicdance_tpu_torch.models.init import flax_init_
 from magicdance_tpu_torch.models.vae import encode_sample_chunked, encode_to_latent
+from magicdance_tpu_torch.ops.attention import IMPLS, attention_impl
 from magicdance_tpu_torch.ops.schedules import make_schedule
 from magicdance_tpu_torch.parallel.mesh import (
     MeshAxis,
@@ -89,6 +107,7 @@ from magicdance_tpu_torch.parallel.mesh import (
     zero1_sharding,
 )
 from magicdance_tpu_torch.pipeline import full_fp32
+from magicdance_tpu_torch.train.quant import should_quantize
 
 # elements per bucket of the gradient all-reduce and the parameter all-gather
 BUCKET_ELEMS = 1 << 26
@@ -346,7 +365,10 @@ class Draws:
     vae_reference: Optional[torch.Tensor] = None
 
 
-_FROZEN_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# storage of the frozen leaves; under "int8" the leaves it does not quantize
+# keep fp32, as JAX's quantize_tree leaves them
+_FROZEN_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                  "int8": torch.float32}
 
 
 class Trainer:
@@ -361,19 +383,13 @@ class Trainer:
         else none (one process). Under a group, "cuda" is the rank's card
         (`parallel.multihost.initialize_distributed` sets it)."""
         ocfg = cfg.optim
-        if ocfg.frozen_dtype == "int8":
-            raise NotImplementedError("frozen_dtype='int8' (train/quant.py) is not "
-                                      "ported yet")
         if ocfg.frozen_dtype not in _FROZEN_DTYPES:
             raise ValueError(f"unknown frozen_dtype {ocfg.frozen_dtype!r}")
         if "data" not in tuple(cfg.mesh_axes):
             raise ValueError(f"mesh axes {cfg.mesh_axes} lack the 'data' axis the batch "
                              "is split over")
-        if cfg.attention_impl != "auto":
-            raise NotImplementedError(f"attention_impl={cfg.attention_impl!r}: the "
-                                      "port's trainer takes only 'auto'")
-        if cfg.model.unet.dropout > 0:
-            raise NotImplementedError("dropout is not ported")
+        if cfg.attention_impl not in IMPLS:
+            raise ValueError(f"attention_impl {cfg.attention_impl!r} is not one of {IMPLS}")
         self.cfg = cfg
         # video clips arrive frame-folded into the batch: (B_clips * F, ...)
         self.num_frames = cfg.video_frames if cfg.model.has_temporal else 1
@@ -401,19 +417,29 @@ class Trainer:
     @torch.no_grad()
     def _partition(self) -> None:
         """Trainable denoiser params: fp32, requires_grad. Everything else:
-        `frozen_dtype`, no grad. Resets the optimizer state and the EMA."""
+        `frozen_dtype` storage, no grad (under "int8" each leaf
+        `should_quantize` takes is quantized from its fp32 values;
+        leaves already held in int8 stay so). Resets the optimizer state and
+        the EMA."""
         frozen = _FROZEN_DTYPES[self.cfg.optim.frozen_dtype]
+        int8 = self.cfg.optim.frozen_dtype == "int8"
         self.train_params = {}
-        for key, p in self.model.named_parameters():
-            train = self.pred(param_path(key))
-            p.data = p.data.to(torch.float32 if train else frozen)
-            p.requires_grad_(train)
-            if train:
-                self.train_params[key] = p
-        for m in (self.vae, self.clip):
-            for p in m.parameters():
-                p.data = p.data.to(frozen)
-                p.requires_grad_(False)
+        for net in (self.model, self.vae, self.clip):
+            for owner, sub in net.named_modules():
+                for name, p in list(sub.named_parameters(recurse=False)):
+                    if quant.is_quantized(sub, name) or quant.is_scale(sub, name):
+                        continue
+                    key = f"{owner}.{name}" if owner else name
+                    train = net is self.model and self.pred(param_path(key))
+                    if train:
+                        p.data = p.data.float()
+                        self.train_params[key] = p
+                    elif int8 and should_quantize(p):
+                        quant.quantize_param_(sub, name, flax_last_dim(sub, name, p.dim()))
+                        continue
+                    else:
+                        p.data = p.data.to(frozen)
+                    p.requires_grad_(train)
         keys = list(self.train_params)
         zero1 = (zero1_sharding(self.model, keys, self.data.size)
                  if self.data.group is not None else replicated(keys))
@@ -426,14 +452,37 @@ class Trainer:
                            if self.cfg.optim.ema_rate > 0 else None)
 
     @torch.no_grad()
+    def _float_storage(self) -> None:
+        """Every parameter back to fp32 storage (int8 leaves dequantized),
+        before new weights are written."""
+        for m in (self.model, self.vae, self.clip):
+            quant.unquantize_(m)
+            for p in m.parameters():
+                p.data = p.data.float()
+
+    @torch.no_grad()
     def init_random(self, seed: int = 0, scale: float = 0.02) -> None:
         """Seeded random weights for tests and smoke runs: every leaf (the
         zero-initialised output convs and zero convs included) from
         N(0, scale^2), then partitioned as `_partition` says."""
+        self._float_storage()
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for m in (self.model, self.vae, self.clip):
             for p in m.parameters():
                 p.data = torch.randn(p.shape, generator=gen, device=self.device) * scale
+        self._partition()
+
+    @torch.no_grad()
+    def init_flax(self, seed: int = 0) -> None:
+        """The JAX package's initialisation (`models.init.flax_init_`: lecun
+        normal kernels, zeros where JAX zero-inits, ones and zeros for the
+        norms, Flax's embedding inits), drawn on the device from a generator
+        seeded `seed`, then partitioned: the training CLI's start without a
+        checkpoint."""
+        self._float_storage()
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        for m in (self.model, self.vae, self.clip):
+            flax_init_(m, gen)
         self._partition()
 
     def load_state_dicts(self, model: Mapping[str, torch.Tensor],
@@ -442,14 +491,14 @@ class Trainer:
         """Weights for the three networks (strict: a missing or unexpected
         key raises), loaded at full precision, then the partition; e.g. from
         `convert.from_jax.flax_to_state_dict` or a reference checkpoint
-        through `convert.torch_convert.convert_magicpose_state`."""
+        through `convert.torch_convert.convert_magicpose_state`. An int8
+        entry with its `<key>_scale` is loaded as int8 storage."""
         from magicdance_tpu_torch.convert.torch_convert import load_strict
 
+        self._float_storage()
         for name, m, sd in (("model", self.model, model), ("vae", self.vae, vae),
                             ("clip", self.clip, clip)):
-            with torch.no_grad():
-                for p in m.parameters():
-                    p.data = p.data.float()
+            quant.match_(m, sd)  # int8 leaves (a JAX int8 TrainState) load as such
             load_strict(m, sd, name)
         self._partition()
 
@@ -531,8 +580,17 @@ class Trainer:
     def loss_from_latents(self, x0: torch.Tensor, ref: Optional[torch.Tensor],
                           context: torch.Tensor, batch: Mapping[str, torch.Tensor],
                           draws: Draws):
-        """The denoiser's loss on encoded inputs (graph kept for backward)."""
+        """The denoiser's loss on encoded inputs (graph kept for backward).
+        Call it, and run its backward, under `attention_impl(cfg.attention_impl)`
+        as `loss_and_grads` does."""
         cfg = self.cfg
+        if cfg.model.unet.dropout > 0:
+            raise RuntimeError(
+                f"UNetConfig.dropout={cfg.model.unet.dropout} cannot train: the JAX "
+                "package's train step applies the model with deterministic=False and no "
+                "'dropout' RNG, which Flax refuses (flax.errors.InvalidRngError), and "
+                "the port raises where JAX does. Serving with dropout > 0 works (the "
+                "identity); train with dropout=0.")
         pose = batch.get("pose") if cfg.model.has_pose else None
         return diffusion_loss(self.model, self.sched, cfg.model.diffusion, x0, context,
                               draws.t.to(self.device), draws.noise.to(self.device),
@@ -565,8 +623,10 @@ class Trainer:
             p.grad = None
         draws = self.local_draws(draws, batch)
         with full_fp32():
-            loss, metrics = self.loss_from_latents(*self.encode(batch, draws), batch, draws)
-            loss.backward()
+            encoded = self.encode(batch, draws)  # VAE and CLIP under "auto"
+            with attention_impl(self.cfg.attention_impl):
+                loss, metrics = self.loss_from_latents(*encoded, batch, draws)
+                loss.backward()
         grads = self.grads()
         metrics = self.average(grads, metrics)
         return metrics["loss"], metrics, grads
@@ -602,10 +662,10 @@ class Trainer:
 
     # -- state ----------------------------------------------------------------
     def state_dict(self) -> dict:
-        """Everything a resumed run needs: step, weights, optimizer state,
-        EMA and the generator's state, in a layout that does not depend on
-        the world size (the ZeRO-1 slices are gathered: every rank must
-        call it)."""
+        """Everything a resumed run needs: step, weights (int8 leaves as
+        `<key>` and `<key>_scale`), optimizer state, EMA and the generator's
+        state, in a layout that does not depend on the world size (the
+        ZeRO-1 slices are gathered: every rank must call it)."""
         return {
             "step": self.step,
             "model": self.model.state_dict(),

@@ -36,6 +36,17 @@ class MetricLogger:
             for k, v in metrics.items():
                 self._tb.add_scalar(k, float(v), step)
 
+    def log_image(self, step: int, tag: str, image) -> None:
+        """An (H, W, C) or (C, H, W) image to TensorBoard (nothing without
+        it): HWC with 1 or 3 channels is transposed to CHW."""
+        if self._tb is not None:
+            import numpy as np
+
+            arr = np.asarray(image)
+            if arr.ndim == 3 and arr.shape[-1] in (1, 3):
+                arr = arr.transpose(2, 0, 1)
+            self._tb.add_image(tag, arr, step)
+
     def close(self) -> None:
         self._jsonl.close()
         if self._tb is not None:

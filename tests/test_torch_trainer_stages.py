@@ -6,8 +6,9 @@ Setup, draws and tolerances as in tests/test_torch_trainer.py: loss 1e-5
 relative; gradients 2e-4 absolute and relative; parameter updates to 2% of
 the learning rate. bf16 storage changes the weights both sides compute with
 (bf16-rounded, then computed in fp32), not the arithmetic, so it keeps the
-fp32 tolerances. Also: the loss variants and the refusals of the trainer,
-bf16 compute with fp32 masters, and chip_smoke.py's launch plan.
+fp32 tolerances. Also: the loss variants, dropout refused in training as
+JAX refuses it, bf16 compute with fp32 masters, and chip_smoke.py's launch
+plan.
 """
 
 import dataclasses
@@ -170,21 +171,33 @@ def test_diffusion_loss_variants_match_jax(param, loss_type, elbo, wonoise):
         np.asarray(j_get_v(j_sched(dj), jnp.asarray(x0), noise, t)), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("field,value", [("frozen_dtype", "int8"), ("attention_impl", "xla"),
-                                         ("dropout", 0.1)])
+@pytest.mark.parametrize("field,value", [("dropout", 0.1)])
 def test_trainer_refuses_what_is_not_ported(field, value):
-    from magicdance_tpu_torch.train.trainer import Trainer
+    """The one TrainConfig value neither package trains: dropout > 0. JAX's
+    train step applies the model with deterministic=False and no "dropout"
+    RNG, which Flax refuses (InvalidRngError); the port's step raises there
+    too. (frozen_dtype="int8" and attention_impl "xla" / "flash" are ported:
+    tests/test_torch_quant.py, tests/test_torch_attention_impl.py.)"""
+    import flax
 
-    cfg = port_train_cfg(jax_train_cfg())
-    if field == "frozen_dtype":
-        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, frozen_dtype=value))
-    elif field == "dropout":
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-            cfg.model, unet=dataclasses.replace(cfg.model.unet, dropout=value)))
-    else:
-        cfg = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError):
-        Trainer(cfg, device="cpu")
+    from magicdance_tpu.train.trainer import Trainer as JTrainer
+    from magicdance_tpu_torch.train.trainer import Trainer
+    from torch_port_util import jax_params
+
+    jc = jax_train_cfg()
+    jc = dataclasses.replace(jc, model=dataclasses.replace(
+        jc.model, unet=dataclasses.replace(jc.model.unet, **{field: value})))
+    (m, v, c), (mp, vp, cp) = jax_params(jc)
+    jt = JTrainer(jc, m, v, c)
+    state = jt.create_state(mp, vp, cp)
+    batch = jax.tree.map(jnp.asarray, make_train_batch(3))
+    with pytest.raises(flax.errors.InvalidRngError):
+        jax.eval_shape(jt._loss, state.train_params, state.frozen_params, batch,
+                       jax.random.PRNGKey(0))
+    tr = Trainer(port_train_cfg(jc), device="cpu")  # builds, as JAX's does
+    tr.init_random(seed=0, scale=0.1)
+    with pytest.raises(RuntimeError, match="InvalidRngError"):
+        tr.train_step(port_batch(make_train_batch(3)))
 
 
 def test_bf16_denoiser_trains_fp32_masters():

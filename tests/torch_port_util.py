@@ -331,10 +331,11 @@ def jax_draws(jc: jcfg.TrainConfig, rng, n_image: int = B, n_ref: int = B,
 class JaxReference:
     """The JAX trainer's state and step (see the module docstring)."""
 
-    def __init__(self, jc: jcfg.TrainConfig, seed: int = 0, loss_from=None):
+    def __init__(self, jc: jcfg.TrainConfig, seed: int = 0, loss_from=None, params=None):
         """`loss_from`: a reference whose compiled loss this one reuses (its
-        config must differ from `jc` in `optim` other than frozen_dtype)."""
-        (m, v, c), (mp, vp, cp) = jax_params(jc, seed)
+        config must differ from `jc` in `optim` other than frozen_dtype).
+        `params`: `jax_params(jc, seed)` when the caller has it already."""
+        (m, v, c), (mp, vp, cp) = params if params is not None else jax_params(jc, seed)
         self.cfg = jc
         self.trainer = JTrainer(jc, m, v, c)
         self.state = self.trainer.create_state(mp, vp, cp)
