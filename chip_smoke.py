@@ -11,13 +11,16 @@ Phases, in order; every check raises, so any failure exits non-zero:
   2. build the CUDA kernels from ops/kernels/csrc (one nvcc per source, all
      at once) and print the build time and the ptxas resource report, with
      the registers and spill bytes of each tensor-core instantiation (the
-     bf16 bodies of kernels A, B, B gated and K9: `md::tc::attention_tc`;
-     of C: `attention_dq_tc`; of D: `attention_dkv_tc`; of G's forward:
-     `grouped_tc`; of G's backward: `grouped_bwd_tc`), of K8's two kernels
-     (`md::gn::gn_stats`, `gn_apply`) and the CUDA-core instantiations by
-     type (none in bf16 for A, B, C, D and G, forward and backward); G's
-     backward must not spill at the full-width motion widths (D = 40, 80,
-     160 at BN = 16).
+     bf16 bodies of kernels A, B, B gated and K9 above G*D = 128:
+     `md::tc::attention_tc`; of C: `attention_dq_tc`; of D:
+     `attention_dkv_tc`; of G's forward: `grouped_tc`; of G's backward:
+     `grouped_bwd_tc`), of K8's two kernels (`md::gn::gn_stats`, `gn_apply`)
+     and the CUDA-core instantiations by type (none in bf16 for A, B, C, D
+     and G, forward and backward); G's backward must not spill at the
+     full-width motion widths (D = 40, 80, 160 at BN = 16). K9's Hopper body
+     (`md::wg::attention_wgmma`, bf16 up to G*D = 128) must not spill, ptxas
+     must not drop its setmaxnreg split, and `cuobjdump -sass` of its
+     library must show wgmma (HGMMA) and TMA loads (UTMALDG).
   2b. the kernel gate (`ops/kernel_gate.py::run_gate`, before any timed
      phase): every case of the JAX gate and the main path's shapes at H = 8
      (D = 40, 80, 160, batch-1 banks, the gated read, G at (4096, 16, 40)),
@@ -128,14 +131,20 @@ Phases, in order; every check raises, so any failure exits non-zero:
      beside phase 12's exact video requests.
   18. the head-packing probe and kernel K9: K9 against its plain version at
      the probe's shape (BG 64, S 4096, G 3, D 40, block-diagonal K/V from
-     random heads) and a small ragged shape (random K/V), bf16 and fp32,
-     timed against its bound, the plain version and the library call (SDPA
-     on the unpacked per-head tensors); kernel A against its plain version
-     on the same unpacked tensors (BSNH 32, 4096, 6, 40, bf16 and fp32),
-     the shape P3 gives it; then the probe itself
-     (`magicdance_tpu_torch.scripts.bench_head_packing`, P1-P4) as the
-     slice's path, with the counts at 0 before it: P3 runs K9 and kernel A
-     at (32, 4096, 6, 40) BSNH and their outputs must agree.
+     random heads) and a small ragged shape (random K/V), bf16 and fp32; at
+     G = 1, D = 40 (BG 192, S 4096) and at G*D = 8 and 256, bf16, each on
+     the body `packed.packed_body` routes it to (the Hopper body up to G*D =
+     128, attention_tc above); timed in bf16 at the probe's shape against
+     its bound, the earlier body (attention_tc) on the same inputs, the
+     plain version and two library calls (SDPA on the unpacked per-head
+     tensors, a third of K9's operations; SDPA at equal work, q repeated
+     over the G segments), and at G = 1 beside kernel A on the same heads;
+     kernel A against its plain version on the probe's unpacked tensors
+     (BSNH 32, 4096, 6, 40, bf16 and fp32), the shape P3 gives it; then the
+     probe itself (`magicdance_tpu_torch.scripts.bench_head_packing`,
+     P1-P4) as the slice's path, with the counts at 0 before it: P3 runs K9
+     at G = 3 and at G = 1 and kernel A at (32, 4096, 6, 40) BSNH, and both
+     K9 outputs must agree with A's.
   19. DUAL_CONTROL image serving (the pose and an image ControlNet, no
      appearance branch): a narrow model at 128x128 sampled on the card and
      the CPU from the same weights (fp32, held to its launch plan); then at
@@ -340,8 +349,9 @@ KERNELS = {
     "packed_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/packed_attention.cu",
         replaces="scripts/bench_head_packing.py:97 (_packed_kernel)",
-        body="bf16: md::tc::attention_tc PACKED (tensor cores, mma.sync); fp32: its own CUDA-core "
-             "body",
+        body="bf16, G*D <= 128: md::wg::attention_wgmma (wgmma, TMA, mbarrier ring, warp "
+             "specialised); bf16, G*D > 128: md::tc::attention_tc PACKED (mma.sync); fp32: its "
+             "own CUDA-core body",
         modes=("packed_attention",)),
 }
 TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
@@ -449,6 +459,53 @@ def gn_instantiations(log_text: str) -> list[tuple[str, int, int]]:
             dtype = "fp32" if m.group(2) == "f" else "bf16"
             out.append((f"{m.group(1)}<{dtype}, VEC={m.group(3)}> (K8)", regs, spill))
     return out
+
+
+def wgmma_instantiations(log_text: str) -> list[tuple[str, int, int]]:
+    """(attention_wgmma<KS> (K9's Hopper body; KS: k16 steps of the QK^T
+    contraction), registers at launch, spill bytes) of each entry function
+    of md::wg in a ptxas -v report."""
+    out = []
+    for name, regs, spill in _entry_chunks(log_text):
+        m = re.match(r"_ZN2md2wg\d+attention_wgmmaILi(\d+)E", name)
+        if m:
+            out.append((f"attention_wgmma<KS={m.group(1)}> (K9 Hopper body)", regs, spill))
+    return out
+
+
+def sass_opcodes(lib_path, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How many instructions of each SASS opcode `cuobjdump -sass` finds in
+    a built library."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
+
+
+def check_hopper_body(lib_path, log_text: str) -> dict:
+    """Phase 2, K9's library: the Hopper body's instantiations must not
+    spill, ptxas must keep its register split (no C7508 "setmaxnreg
+    ignored"), and the SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG).
+    Returns what it read."""
+    insts = wgmma_instantiations(log_text)
+    for inst, nreg, spill in insts:
+        log(f"    {inst}: {nreg} registers at launch, {spill} spill bytes")
+    warnings = sorted({line.strip() for line in log_text.splitlines()
+                       if "setmaxnreg" in line or "serialized" in line})
+    for line in warnings:
+        log(f"    ptxas: {line}")
+    ops = sass_opcodes(lib_path)
+    log(f"    SASS: {ops}")
+    spilled = {inst: spill for inst, _, spill in insts if spill}
+    if (not insts or spilled or not all(ops.values())
+            or any("setmaxnreg" in w and "ignored" in w for w in warnings)):
+        raise AssertionError(f"packed_attention: Hopper body instantiations {insts}, "
+                             f"spills {spilled}, SASS {ops}, ptxas {warnings}")
+    return dict(instantiations=insts, sass=ops, ptxas_warnings=warnings)
 
 
 # the CUDA-core bodies of kernels A/B (attention_fwd), C, D and G
@@ -3775,11 +3832,17 @@ def check_packed_kernel():
     """Phase 18a: K9 against its plain version at the probe's shape (K/V
     packed block-diagonally from random heads, as the probe packs them) and
     at a small ragged shape (random kbd/vbd, S = 300, Sq = 200), bf16 and
-    fp32; kernel A against its plain version on the same unpacked q, k, v
-    (BSNH, the shape P3 gives it); the probe's shape timed in bf16 against its bound, the plain
-    version and the library call (SDPA on the unpacked per-head tensors,
-    which computes the same result for block-diagonal K/V; a yardstick
-    only)."""
+    fp32; at G = 1, D = 40 (BG 192, S 4096: the probe's heads one by one);
+    at the ends of the packed width, G*D = 8 and 256 (bf16, on the body that
+    `packed_body` routes them to). Kernel A against its plain version on the
+    probe's unpacked q, k, v (BSNH, the shape P3 gives it). Timed in bf16 at
+    the probe's shape: the kernel (on its Hopper body), the same launch on
+    the earlier body (attention_tc, mma.sync), the bound, the plain version,
+    SDPA on the unpacked per-head tensors (the same result for block-diagonal
+    K/V from a third of the operations) and SDPA at equal work (q repeated
+    over the G segments, (BG, G, Sq, G*D) against kbd / vbd viewed as (BG,
+    G, S, G*D): K9's operations); K9 at G = 1 beside kernel A on the same
+    heads. The library calls are yardsticks only."""
     import torch
     import torch.nn.functional as F
 
@@ -3790,7 +3853,7 @@ def check_packed_kernel():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5678)
-    errs, checked, rows = {}, {}, []
+    errs, checked, rows, extra = {}, {}, [], {}
 
     def rnd(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -3800,22 +3863,33 @@ def check_packed_kernel():
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
         q, k, v = (rnd(b, s, h, d, dtype=dtype) for _ in range(3))
         qp, kbd, vbd = P.pack_heads(q, g), P.blockdiag(k, g), P.blockdiag(v, g)
-        label = f"{str(dtype)[6:]} BG={bg} S={s} G={g} D={d} block-diagonal"
+        label = (f"{str(dtype)[6:]} BG={bg} S={s} G={g} D={d} block-diagonal "
+                 f"({P.packed_body(dtype, gd)})")
         check(errs, checked, "packed_attention", P.packed_attention(qp, kbd, vbd, g),
               P.packed_attention_ref(qp, kbd, vbd, g), tol, label)
         if dtype == torch.bfloat16:
             ms = device_time_ms(lambda: P.packed_attention(qp, kbd, vbd, g))
+            mma_ms = device_time_ms(lambda: P.packed_attention(qp, kbd, vbd, g, body="mma_sync"))
             plain_ms = device_time_ms(lambda: P.packed_attention_ref(qp, kbd, vbd, g),
                                       min_total_s=0.1, max_iters=3)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
             lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            qe = qp.unsqueeze(1).expand(bg, g, s, gd).contiguous()
+            ke, ve = kbd.view(bg, g, s, gd), vbd.view(bg, g, s, gd)
+            lib_eq_ms = device_time_ms(
+                lambda: F.scaled_dot_product_attention(qe, ke, ve, scale=d ** -0.5))
+            del qe
             bound, bound_by = packed_bound_ms(bg, s, s, g, gd)
             rows.append(dict(kernel="packed_attention", BG=bg, Sq=s, S=s, G=g, D=d,
-                             launches_per_step=1, kernel_ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound, bound_by=bound_by,
+                             body=P.packed_body(dtype, gd), launches_per_step=1, kernel_ms=ms,
+                             mma_sync_ms=mma_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             library_equal_work_ms=lib_eq_ms, bound_ms=bound,
+                             bound_by=bound_by,
                              exp_bound_ms=exp_bound_ms(bg, s, g, [(bg, s)])))
-            log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bound:.4f} ({bound_by}) exp_bound_ms={rows[-1]['exp_bound_ms']:.4f}")
+            log(f"      kernel_ms={ms:.4f} (attention_tc, mma.sync: {mma_ms:.4f}) "
+                f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (per head) "
+                f"library_equal_work_ms={lib_eq_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                f"exp_bound_ms={rows[-1]['exp_bound_ms']:.4f}")
         # P3's other side: kernel A per head on the same q, k, v (the plain
         # version over 8 batch rows at a time, to bound its fp32 logits)
         want = torch.cat([K.self_attention_ref(q[i:i + 8], k[i:i + 8], v[i:i + 8])
@@ -3829,8 +3903,36 @@ def check_packed_kernel():
         kbd, vbd = (rnd(3, g * 300, gd, dtype=dtype) for _ in range(2))
         check(errs, checked, "packed_attention", P.packed_attention(qp, kbd, vbd, g),
               P.packed_attention_ref(qp, kbd, vbd, g), tol,
-              f"{str(dtype)[6:]} ragged BG=3 Sq=200 S=300 G={g} D={d} random K/V")
-    return rows, errs, checked
+              f"{str(dtype)[6:]} ragged BG=3 Sq=200 S=300 G={g} D={d} random K/V "
+              f"({P.packed_body(dtype, gd)})")
+
+    # G = 1: the probe's heads one by one (BG = B * H), K9 beside kernel A
+    q, k, v = (rnd(b, s, h, d, dtype=torch.bfloat16) for _ in range(3))
+    q1, k1, v1 = (P.pack_heads(t, 1) for t in (q, k, v))
+    want = by_rows(lambda *ts: P.packed_attention_ref(*ts, 1), [q1, k1, v1], n=32)
+    check(errs, checked, "packed_attention", P.packed_attention(q1, k1, v1, 1), want,
+          BF16_TOL, f"bfloat16 BG={b * h} S={s} G=1 D={d} per head "
+                    f"({P.packed_body(torch.bfloat16, d)})")
+    g1_ms = device_time_ms(lambda: P.packed_attention(q1, k1, v1, 1))
+    a_ms = device_time_ms(lambda: K.self_attention(q, k, v))
+    g1_bound, g1_by = packed_bound_ms(b * h, s, s, 1, d)
+    extra["g1"] = dict(BG=b * h, S=s, G=1, D=d, body=P.packed_body(torch.bfloat16, d),
+                       kernel_ms=g1_ms, kernel_a_ms=a_ms, bound_ms=g1_bound, bound_by=g1_by,
+                       over_kernel_a=g1_ms / a_ms)
+    log(f"      G=1: kernel_ms={g1_ms:.4f} kernel A (same heads) {a_ms:.4f} "
+        f"({g1_ms / a_ms:.2f}x) bound_ms={g1_bound:.4f} ({g1_by})")
+    del q, k, v, q1, k1, v1, want
+    torch.cuda.empty_cache()
+
+    # the ends of the packed width, on the body each is routed to
+    for bg_, sq_, s_, g_, d_ in ((4, 1000, 1000, 1, 8), (4, 1000, 1000, 2, 128)):
+        qp = rnd(bg_, sq_, g_ * d_, dtype=torch.bfloat16)
+        kbd, vbd = (rnd(bg_, g_ * s_, g_ * d_, dtype=torch.bfloat16) for _ in range(2))
+        check(errs, checked, "packed_attention", P.packed_attention(qp, kbd, vbd, g_),
+              P.packed_attention_ref(qp, kbd, vbd, g_), BF16_TOL,
+              f"bfloat16 BG={bg_} Sq={sq_} S={s_} G={g_} D={d_} G*D={g_ * d_} random K/V "
+              f"({P.packed_body(torch.bfloat16, g_ * d_)})")
+    return rows, errs, checked, extra
 
 
 def head_packing_probe():
@@ -3848,9 +3950,10 @@ def head_packing_probe():
     launches = dict(K.LAUNCHES)
     p3 = result["P3"]
     tol = min(BF16_TOL, BF16_REL_TOL * p3["rms"])
-    if not p3["max_abs_err"] <= tol:
-        raise AssertionError(f"P3: K9 and kernel A differ by {p3['max_abs_err']:.3e} > "
-                             f"{tol:.3e}")
+    for key, what in (("max_abs_err", f"K9 (G={p3['shape']['G']})"),
+                      ("g1_max_abs_err", "K9 (G=1)")):
+        if not p3[key] <= tol:
+            raise AssertionError(f"P3: {what} and kernel A differ by {p3[key]:.3e} > {tol:.3e}")
     for mode in ("packed_attention", "self_attention"):
         if launches[mode] < 1:
             raise AssertionError(f"the probe launched no {mode} kernel: {launches}")
@@ -4694,6 +4797,8 @@ def main(argv=None) -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
         for inst, nreg, spill in tc_instantiations(text) + gn_instantiations(text):
             log(f"    {inst}: {nreg} registers, {spill} spill bytes")
+        if name == "packed_attention":
+            hopper = check_hopper_body(paths[name], text)
         body = CUDA_CORE_BODIES.get(name)
         if body is None:
             continue
@@ -4826,7 +4931,7 @@ def main(argv=None) -> int:
 
     log("== phase 18: kernel K9 (head-packed attention) vs plain versions, then the "
         "head-packing probe (P1-P4)")
-    packed_rows, packed_errs, packed_checked = check_packed_kernel()
+    packed_rows, packed_errs, packed_checked, packed_extra = check_packed_kernel()
     probe, probe_launches = head_packing_probe()
     torch.cuda.empty_cache()
 
@@ -4969,7 +5074,12 @@ def main(argv=None) -> int:
                 plain_ms=per_step(packed_rows, "plain_ms"),
                 bound_ms=per_step(packed_rows, "bound_ms"), bound_by=bound_by(packed_rows),
                 library_ms=per_step(packed_rows, "library_ms"),
-                per="one launch at the probe's shape (BG 64, S 4096, G 3, D 40, bf16)",
+                library_equal_work_ms=per_step(packed_rows, "library_equal_work_ms"),
+                mma_sync_ms=per_step(packed_rows, "mma_sync_ms"), g1=packed_extra["g1"],
+                hopper_body=hopper,
+                per="one launch at the probe's shape (BG 64, S 4096, G 3, D 40, bf16); "
+                    "library_ms: SDPA per head (a third of K9's operations); "
+                    "library_equal_work_ms: SDPA on q repeated over the G segments",
                 check=f"{packed_checked[name]} comparisons within tolerance",
                 probe_P3=probe["P3"]))
             continue

@@ -125,9 +125,9 @@ _SIGNATURES = {
     # dtype, x, gamma, beta, y, workspace, strides, B, HW, C, G, eps, stream
     "groupnorm_silu": ("md_groupnorm_silu",
                        [_I, _VP, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _F, _VP]),
-    # dtype, q, k, v, o, strides, BG, GD, Sq, S, G, scale, stream
+    # dtype, body, q, k, v, o, strides, BG, GD, Sq, S, G, scale, stream
     "packed_attention": ("md_packed_attention",
-                         [_I, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _I, _F, _VP]),
+                         [_I, _I, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _I, _F, _VP]),
 }
 
 

@@ -20,21 +20,30 @@
 // kernel held all G*S keys in VMEM (vmem_limit 100 MB); a block here has at
 // most 227 KB, so K/V stream through shared memory in 64-key tiles.
 //
-// What the design does. bf16 runs kernel A's tensor-core kernel
-// (attention_tc of attention_mma.cuh) at width G*D over G key segments:
-// the G*D = 120 contraction pads to 128 (8 k16 steps), the output is 15 n8
-// tiles, and K/V tiles arrive through cp.async into a two-stage ring. A key
-// tile never straddles a segment: each segment's tiles start at g*S and the
-// ragged edge is masked. Each segment keeps its own running (m, l) and fp32
-// accumulator; at its end acc / l is added into the output accumulator.
-// fp32 runs a CUDA-core body with the same segment loop (exact fp32
-// products, as fp32 kernel A).
+// What the design does. Three bodies, chosen by the wrapper (packed.py,
+// packed_body) and named by the C entry's `body` argument:
+//   2  bf16 at G*D <= 128: the Hopper body of attention_wgmma.cuh (wgmma,
+//      TMA into a three-stage mbarrier ring, one producer warp, two
+//      consumer warpgroups of 64 query rows). At G*D = 120 the QK^T
+//      contraction runs 8 k16 steps over two 64-column TMA boxes (the last
+//      8 columns zero-filled by TMA) and PV two m64n64 products per k16 step.
+//   1  bf16 at any width (the wrapper takes it above 128, where the Hopper
+//      body's two fp32 accumulators do not fit the registers): kernel A's
+//      tensor-core kernel (attention_tc of attention_mma.cuh, mma.sync) at
+//      width G*D over G key segments, K/V tiles through cp.async into a
+//      two-stage ring.
+//   0  fp32: a CUDA-core body with the same segment loop (exact fp32
+//      products, as fp32 kernel A).
+// In every body a key tile belongs to one segment (tiles start at g*S and
+// the ragged edge is masked), each segment keeps its own running (m, l) and
+// fp32 accumulator, and at its end acc / l is added into the output.
 //
 // Plain C interface, loaded with ctypes. Strides are in elements, unit over
 // the last dim: strides[0..7] = q (batch, row), k (...), v (...), o (...).
 // Returns cudaGetLastError() of the launch (0 on success).
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace md {
 namespace tc {
@@ -217,10 +226,12 @@ struct PackedLaunchF32 {
 
 }  // namespace md
 
-// dtype: 0 = float32, 1 = bfloat16.
-extern "C" int md_packed_attention(int dtype, const void* q, const void* k, const void* v,
-                                   void* o, const long long* strides, int BG, int GD, int Sq,
-                                   int S, int G, float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. body: 0 = CUDA cores (fp32), 1 =
+// attention_tc (bf16), 2 = attention_wgmma (bf16, G*D <= 128); any other
+// pairing is refused with cudaErrorInvalidValue.
+extern "C" int md_packed_attention(int dtype, int body, const void* q, const void* k,
+                                   const void* v, void* o, const long long* strides, int BG,
+                                   int GD, int Sq, int S, int G, float scale, void* stream) {
   md::Params p = {};  // H = 1: head strides stay 0
   p.q = q;
   p.o = o;
@@ -238,11 +249,15 @@ extern "C" int md_packed_attention(int dtype, const void* q, const void* k, cons
   if (!md::head_dim_ok(GD) || BG < 1 || Sq < 1 || S < 1 || G < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && body == 2) {
+    if (GD > md::wg::MAX_WIDTH) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(md::wg::launch_packed_width(p, G, BG, st));
+  }
+  if (dtype == 1 && body == 1) {
     md::tc::PackedLaunch f{p, G, BG, st};
     return static_cast<int>(md::tc::dispatch_no(GD, f));
   }
-  if (dtype == 0) {
+  if (dtype == 0 && body == 0) {
     md::PackedLaunchF32 f{p, G, BG, st};
     return static_cast<int>(md::dispatch_dj(GD, f));
   }

@@ -10,8 +10,10 @@ keys separately, and o = P vbd (BG, Sq, G*D) in qp's dtype, with P cast to
 that dtype before the PV product. It does so for any kbd/vbd; with the
 block-diagonal ones of `blockdiag` it is per-head attention of G heads at a
 time. It replaces `scripts/bench_head_packing.py::_packed_kernel`; source
-`csrc/packed_attention.cu` (bf16 on the tensor cores, fp32 on the CUDA
-cores).
+`csrc/packed_attention.cu`. Three bodies, chosen by `packed_body(dtype,
+G*D)`: "wgmma" (bf16, G*D <= 128: `csrc/attention_wgmma.cuh`, Hopper's
+wgmma fed by TMA through an mbarrier ring), "mma_sync" (bf16, wider:
+kernel A's `attention_tc`) and "cuda_core" (fp32).
 
 The wrapper rule of the other kernels: a CPU tensor takes the plain version;
 a CUDA tensor launches the kernel or raises. Each launch adds one to
@@ -68,6 +70,32 @@ def unpack_heads(xp: torch.Tensor, batch: int, G: int) -> torch.Tensor:
 # plain version and wrapper
 # --------------------------------------------------------------------------
 
+# the C entry's body codes; "wgmma" keeps two fp32 accumulators of G*D
+# columns a row in registers, which fit up to WGMMA_MAX_WIDTH
+BODIES = {"cuda_core": 0, "mma_sync": 1, "wgmma": 2}
+WGMMA_MAX_WIDTH = 128
+
+
+def packed_body(dtype: torch.dtype, width: int) -> str:
+    """The body that runs K9 on the card for this dtype and packed width
+    G*D: fp32 on the CUDA cores, bf16 on the Hopper body up to
+    WGMMA_MAX_WIDTH and on attention_tc above it."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    if dtype == torch.bfloat16:
+        return "wgmma" if width <= WGMMA_MAX_WIDTH else "mma_sync"
+    raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
+
+
+def _check_body(body: str, dtype: torch.dtype, width: int) -> None:
+    """Refuse a body that cannot take this dtype or width."""
+    ok = {"cuda_core": dtype == torch.float32,
+          "mma_sync": dtype == torch.bfloat16,
+          "wgmma": dtype == torch.bfloat16 and width <= WGMMA_MAX_WIDTH}
+    if not ok.get(body, False):
+        raise ValueError(f"body {body!r} cannot run K9 in {dtype} at packed width {width} "
+                         f"(bodies: {sorted(BODIES)})")
+
 
 def _check(qp: torch.Tensor, kbd: torch.Tensor, vbd: torch.Tensor, G: int) -> int:
     """Shape and type checks; returns the segment length S."""
@@ -113,12 +141,18 @@ def packed_attention_ref(qp: torch.Tensor, kbd: torch.Tensor, vbd: torch.Tensor,
 
 
 def packed_attention(qp: torch.Tensor, kbd: torch.Tensor, vbd: torch.Tensor, G: int,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, body: Optional[str] = None) -> torch.Tensor:
     """Kernel K9. qp: (BG, Sq, G*D); kbd, vbd: (BG, G*S, G*D) ->
-    (BG, Sq, G*D). `scale` defaults to D ** -0.5."""
+    (BG, Sq, G*D). `scale` defaults to D ** -0.5. On the card `body`
+    defaults to `packed_body(dtype, G*D)`; another body that can take the
+    dtype and width may be named (a body is never chosen because another
+    failed)."""
     s = _check(qp, kbd, vbd, G)
     if scale is None:
         scale = (qp.shape[2] // G) ** -0.5
+    if body is None:
+        body = packed_body(qp.dtype, qp.shape[2])
+    _check_body(body, qp.dtype, qp.shape[2])
     if qp.device.type == "cpu":
         return packed_attention_ref(qp, kbd, vbd, G, scale)
     if qp.device.type != "cuda":
@@ -132,6 +166,6 @@ def packed_attention(qp: torch.Tensor, kbd: torch.Tensor, vbd: torch.Tensor, G: 
     out = torch.empty((bg, sq, gd), dtype=qp.dtype, device=qp.device)
     strides = [qp.stride(0), qp.stride(1), kbd.stride(0), kbd.stride(1),
                vbd.stride(0), vbd.stride(1), out.stride(0), out.stride(1)]
-    launch("packed_attention", "packed_attention", qp, [], [qp, kbd, vbd, out], strides,
-           [bg, gd, sq, s, G], scale)
+    launch("packed_attention", "packed_attention", qp, [BODIES[body]], [qp, kbd, vbd, out],
+           strides, [bg, gd, sq, s, G], scale)
     return out

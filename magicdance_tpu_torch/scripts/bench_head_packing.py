@@ -25,7 +25,10 @@ the card does:
       block-diagonally beforehand, packing cost excluded) against kernel A
       (`ops.kernels.self_attention`, per head, BSNH) on the same workload:
       B = 32, H = 6, S = 4096, D = 40, G = 3, bf16; both times and the max
-      error between the two outputs.
+      error between the two outputs. Then K9 at G = 1 on the same heads
+      (the same function per head, D = 40): in bf16 K9 runs its Hopper body
+      (wgmma, TMA) at G*D = 120 and at 40 alike, so the two ratios to kernel
+      A (mma.sync) say what that body gains with and without packing.
   P4  int8 vs bf16 tensor-core rate at the hot shapes (M, K, N) =
       (256, 40, 4096), (256, 4096, 128), (4096, 320, 320), batch 64 folded
       into the rows: `torch._int_mm` on (64*M, K) x (K, N) int8 against
@@ -107,11 +110,19 @@ def probe_packed(dev: torch.device, log=print) -> dict:
     got = unpack_heads(packed_attention(qp, kbd, vbd, g, scale), b, g)
     err = (got.float() - ref.float()).abs().max().item()
     rms = ref.float().pow(2).mean().sqrt().item()
+    # G = 1: one head per packed row, the same function per head
+    q1, k1, v1 = pack_heads(q, 1), pack_heads(k, 1), pack_heads(v, 1)
+    g1_ms = device_time_ms(lambda: packed_attention(q1, k1, v1, 1, scale))
+    got1 = unpack_heads(packed_attention(q1, k1, v1, 1, scale), b, 1)
+    err1 = (got1.float() - ref.float()).abs().max().item()
     log(f"  per-head kernel A          : {per_head_ms:8.4f} ms")
     log(f"  block-diag packed K9 (G={g}) : {packed_ms:8.4f} ms  (packing cost excluded)  "
         f"{packed_ms / per_head_ms:4.2f}x  maxerr {err:.2e} (A's output rms {rms:.2e})")
+    log(f"  per-head K9 (G=1)          : {g1_ms:8.4f} ms  {g1_ms / per_head_ms:4.2f}x  "
+        f"maxerr {err1:.2e}")
     return dict(shape=sh, per_head_ms=per_head_ms, packed_ms=packed_ms,
-                packed_over_per_head=packed_ms / per_head_ms, max_abs_err=err, rms=rms)
+                packed_over_per_head=packed_ms / per_head_ms, max_abs_err=err, rms=rms,
+                g1_ms=g1_ms, g1_over_per_head=g1_ms / per_head_ms, g1_max_abs_err=err1)
 
 
 def probe_int8(dev: torch.device, log=print) -> list[dict]:

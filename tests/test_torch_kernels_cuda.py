@@ -4,7 +4,9 @@ kernels C (attention_dq) and D (attention_dkv), the grouped kernel G, the
 fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
 plain PyTorch versions, on the card. Kernels A, B, C, D and G (forward and
 backward) run their tensor-core body in bf16 and their CUDA-core body in
-fp32; K8 runs the same two kernels (statistics, then apply) in both types.
+fp32; K8 runs the same two kernels (statistics, then apply) in both types;
+K9 runs its Hopper body (wgmma, TMA) in bf16 up to G*D = 128, attention_tc
+above, and its CUDA-core body in fp32.
 K8 and G's backward are held to give the same bits on every run.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
@@ -614,6 +616,42 @@ def test_packed_attention_matches_plain(cuda, dtype, bg, sq, s, g, d, blockdiag_
     assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES}, "packed_attention": 1}
     assert got.shape == qp.shape and got.dtype == dtype
     _close(got, P.packed_attention_ref(qp, kbd, vbd, g), dtype)
+
+
+@pytest.mark.parametrize("bg,sq,s,g,d,blockdiag_heads", [
+    (4, 1024, 1024, 3, 40, True),    # the probe's width, G*D = 120: the Hopper body
+    (3, 200, 300, 3, 40, False),     # ragged: tiles reach into the next segment
+    (8, 1000, 1000, 1, 40, False),   # G = 1, D = 40
+    (4, 300, 100, 1, 8, False),      # G*D = 8
+    (3, 500, 333, 2, 64, False),     # G*D = 128, the Hopper body's widest
+    (4, 1000, 1000, 2, 128, False),  # G*D = 256: routed to attention_tc
+])
+def test_packed_attention_bodies_match_plain(cuda, bg, sq, s, g, d, blockdiag_heads):
+    """bf16 K9 on the body `packed_body` routes it to (the Hopper body of
+    attention_wgmma.cuh up to G*D = 128, attention_tc above), one launch
+    each, and on attention_tc named explicitly, both against the plain
+    version."""
+    from magicdance_tpu_torch.ops.kernels import packed as P
+
+    qp, kbd, vbd = _packed_inputs(cuda, bg, sq, s, g, d, torch.bfloat16, blockdiag_heads,
+                                  seed=150)
+    assert P.packed_body(torch.bfloat16, g * d) == ("wgmma" if g * d <= 128 else "mma_sync")
+    want = P.packed_attention_ref(qp, kbd, vbd, g)
+    K.reset_launches()
+    got = P.packed_attention(qp, kbd, vbd, g)
+    assert K.LAUNCHES["packed_attention"] == 1
+    _close(got, want, torch.bfloat16)
+    _close(P.packed_attention(qp, kbd, vbd, g, body="mma_sync"), want, torch.bfloat16)
+
+
+def test_packed_attention_hopper_body_refuses_wide_rows(cuda):
+    """The Hopper body holds two fp32 accumulators of G*D columns a row in
+    registers: named at G*D = 256 it raises, it never falls back."""
+    from magicdance_tpu_torch.ops.kernels import packed as P
+
+    qp, kbd, vbd = _packed_inputs(cuda, 2, 64, 64, 2, 128, torch.bfloat16, False, seed=160)
+    with pytest.raises(ValueError):
+        P.packed_attention(qp, kbd, vbd, 2, body="wgmma")
 
 
 def test_packed_attention_is_per_head_attention(cuda):
