@@ -11,16 +11,19 @@ Phases, in order; every check raises, so any failure exits non-zero:
   2. build the CUDA kernels from ops/kernels/csrc (one nvcc per source, all
      at once) and print the build time and the ptxas resource report, with
      the registers and spill bytes of each tensor-core instantiation (the
-     bf16 bodies of kernels A, B, B gated and K9 above G*D = 128:
-     `md::tc::attention_tc`; of C: `attention_dq_tc`; of D:
+     mma.sync body of kernels A, B, B gated above D = 192 and K9 above G*D
+     = 128: `md::tc::attention_tc`; of C: `attention_dq_tc`; of D:
      `attention_dkv_tc`; of G's forward: `grouped_tc`; of G's backward:
      `grouped_bwd_tc`), of K8's two kernels (`md::gn::gn_stats`, `gn_apply`)
      and the CUDA-core instantiations by type (none in bf16 for A, B, C, D
      and G, forward and backward); G's backward must not spill at the
-     full-width motion widths (D = 40, 80, 160 at BN = 16). K9's Hopper body
-     (`md::wg::attention_wgmma`, bf16 up to G*D = 128) must not spill, ptxas
-     must not drop its setmaxnreg split, and `cuobjdump -sass` of its
-     library must show wgmma (HGMMA) and TMA loads (UTMALDG).
+     full-width motion widths (D = 40, 80, 160 at BN = 16). The Hopper body
+     (`md::wg::attention_wgmma<KS, MODE>`: bf16 A (SELF) and B (TWO_SOURCE,
+     GATED) up to D = 192, K9 (PACKED) up to G*D = 128) must be compiled at
+     every KS and mode, must not spill, ptxas must not drop its setmaxnreg
+     split, and `cuobjdump -sass` of libself_attention,
+     libtwo_source_attention and libpacked_attention must show wgmma
+     (HGMMA) and TMA loads (UTMALDG).
   2b. the kernel gate (`ops/kernel_gate.py::run_gate`, before any timed
      phase): every case of the JAX gate and the main path's shapes at H = 8
      (D = 40, 80, 160, batch-1 banks, the gated read, G at (4096, 16, 40)),
@@ -28,8 +31,11 @@ Phases, in order; every check raises, so any failure exits non-zero:
      dispatch against fp32 reference math; each check's deviation, the
      gate's wall time and its launches (every kernel must be reached).
   3. hold each kernel against its plain PyTorch version at every shape the
-     main path gives it (kernels A and B run their tensor-core body in bf16
-     and their CUDA-core body in fp32) (bf16: max-abs <= min(5e-2, 0.1 x the
+     main path gives it (kernels A and B run the Hopper body in bf16, which
+     `attention_body` must pick at each of these shapes, and their
+     CUDA-core body in fp32; in bf16 also attention_tc named explicitly,
+     held and timed on the same inputs, and the host time per wrapper call
+     of both bodies) (bf16: max-abs <= min(5e-2, 0.1 x the
      RMS of the plain output), since these outputs are far below O(1); fp32:
      max-abs <= 2e-4), plus a
      BSNH-strided, a ragged and a separate-bank-batch case, and kernel B at
@@ -242,7 +248,8 @@ Phases, in order; every check raises, so any failure exits non-zero:
      B without the LSE where the plan launches them, else the LSE forward, C
      and D; cross-attention over 77 keys, the S = 64 sites, the temporal
      sites, B = 1 and 16) against its plain versions, bf16 timed with the
-     SDPA library time and the bound, and fp32. 26c: `cli.train` at full width, frozen int8, no checkpoint
+     SDPA library time and the bound (A and B on both bodies, the one
+     `attention_body` picks marked), and fp32. 26c: `cli.train` at full width, frozen int8, no checkpoint
      (the Flax-style init: every zero-init kernel exactly zero at step 0),
      on a seeded tree of 512x512 JPEG frames and PNG pose maps under
      chiprun_out/phase26 (deleted at the end) decoded by the native loader
@@ -252,6 +259,7 @@ Phases, in order; every check raises, so any failure exits non-zero:
      fp32 card vs CPU: a stage-2 step in int8, under "flash", under "xla"
      (2e-4), each held to its launch plan, and a request with dropout 0.1
      (phase 4's check), equal to dropout 0 on the card.
+  Each phase's wall time is logged at its end and listed after the last.
   Then the `kernels` JSON line (the six kernels of phases 3-13, kernel B's
   gated mode, K8 and K9, launches by path, and each kernel's `body`: the
   device functions that run it in bf16 and fp32; kernel B's entry also sums
@@ -297,16 +305,22 @@ KERNELS = {
         replaces="magicdance_tpu/ops/pallas/flash.py:286 (_attn_kernel_fused); "
                  "magicdance_tpu/ops/pallas/flash.py:76 (_attn_kernel); "
                  "magicdance_tpu/ops/pallas/flash_vjp.py:71 (_fwd_lse_kernel)",
-        body="bf16: md::tc::attention_tc (tensor cores, mma.sync); fp32: md::attention_fwd (CUDA "
-             "cores)",
+        body="bf16, D <= 192 where it is the faster body (every main-path shape; "
+             "attention.py::attention_body): md::wg::attention_wgmma SELF (wgmma, TMA, mbarrier "
+             "ring, warp specialised); other bf16 (D > 192, D <= 48 under 512 keys, 48 < D <= "
+             "80 at 64 rows or fewer, rows TMA cannot read): md::tc::attention_tc (mma.sync); "
+             "fp32: md::attention_fwd (CUDA cores)",
         modes=("self_attention", "self_attention_lse")),
     "two_source_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/two_source_attention.cu",
         replaces="magicdance_tpu/ops/pallas/flash.py:308 (_attn2_kernel_fused); "
                  "magicdance_tpu/ops/pallas/flash.py:97 (_attn2_kernel_nomask); "
                  "magicdance_tpu/ops/pallas/flash_vjp.py:89 (_fwd2_lse_kernel)",
-        body="bf16: md::tc::attention_tc (tensor cores, mma.sync); fp32: md::attention_fwd (CUDA "
-             "cores)",
+        body="bf16, D <= 192 where it is the faster body (every main-path shape; "
+             "attention.py::attention_body): md::wg::attention_wgmma TWO_SOURCE (wgmma, TMA, "
+             "mbarrier ring, warp specialised); other bf16 (D > 192, D <= 48 under 512 keys, "
+             "rows TMA cannot read): md::tc::attention_tc (mma.sync); fp32: md::attention_fwd "
+             "(CUDA cores)",
         modes=("two_source_attention", "two_source_attention_lse")),
     "attention_dq": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/attention_dq.cu",
@@ -337,8 +351,11 @@ KERNELS = {
     "two_source_attention_gated": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/two_source_attention.cu",
         replaces="magicdance_tpu/ops/pallas/flash.py:135 (_attn2_kernel)",
-        body="bf16: md::tc::attention_tc GATED (tensor cores, mma.sync); fp32: md::attention_fwd "
-             "(CUDA cores)",
+        body="bf16, D <= 192 where it is the faster body (every main-path shape; "
+             "attention.py::attention_body): md::wg::attention_wgmma GATED (wgmma, TMA, mbarrier "
+             "ring, warp specialised); other bf16 (D > 192, D <= 48 under 512 keys, rows TMA "
+             "cannot read): md::tc::attention_tc GATED (mma.sync); fp32: md::attention_fwd (CUDA "
+             "cores)",
         modes=("two_source_attention_gated",)),
     "groupnorm_silu": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/groupnorm_silu.cu",
@@ -349,9 +366,9 @@ KERNELS = {
     "packed_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/packed_attention.cu",
         replaces="scripts/bench_head_packing.py:97 (_packed_kernel)",
-        body="bf16, G*D <= 128: md::wg::attention_wgmma (wgmma, TMA, mbarrier ring, warp "
-             "specialised); bf16, G*D > 128: md::tc::attention_tc PACKED (mma.sync); fp32: its "
-             "own CUDA-core body",
+        body="bf16, G*D <= 128: md::wg::attention_wgmma PACKED (wgmma, TMA, mbarrier ring, "
+             "warp specialised; the body of bf16 A and B); bf16, G*D > 128: md::tc::attention_tc "
+             "PACKED (mma.sync); fp32: its own CUDA-core body",
         modes=("packed_attention",)),
 }
 TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
@@ -362,6 +379,38 @@ TWO_SOURCE_PER_STEP = 15
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# (phase, seconds) of each phase ended so far, and the current one's start
+PHASE_S: list = []
+_phase_open: list = []
+
+
+def phase(header: str) -> None:
+    """Log a phase's header ("== phase N: ..."), ending the phase before it
+    (its wall time goes to PHASE_S and the log)."""
+    end_phase()
+    _phase_open.append((header.split(":")[0].lstrip("= "), time.perf_counter()))
+    log(header)
+
+
+def end_phase() -> None:
+    if _phase_open:
+        name, t0 = _phase_open.pop()
+        PHASE_S.append((name, round(time.perf_counter() - t0, 1)))
+        log(f"  ({name}: {PHASE_S[-1][1]} s)")
+
+
+def body_times(call, d: int, rows: int, keys: tuple) -> tuple:
+    """bf16 kernel A or B (`call(body=...)`) on both of its bodies: the body
+    `attention_body` picks for (D, S_q, key counts) and {body: device ms}."""
+    import torch
+
+    from magicdance_tpu_torch.ops.kernels.attention import attention_body
+    from magicdance_tpu_torch.utils.timing import device_time_ms
+
+    chosen = attention_body(torch.bfloat16, d, rows=rows, keys=keys)
+    return chosen, {b: device_time_ms(lambda b=b: call(body=b)) for b in ("wgmma", "mma_sync")}
 
 
 def cpu_model() -> str:
@@ -461,15 +510,25 @@ def gn_instantiations(log_text: str) -> list[tuple[str, int, int]]:
     return out
 
 
-def wgmma_instantiations(log_text: str) -> list[tuple[str, int, int]]:
-    """(attention_wgmma<KS> (K9's Hopper body; KS: k16 steps of the QK^T
-    contraction), registers at launch, spill bytes) of each entry function
-    of md::wg in a ptxas -v report."""
+WG_MODES = {"0": "SELF", "1": "TWO_SOURCE", "2": "GATED", "3": "PACKED"}
+# the Hopper body's instantiations each library must hold: (KS, mode) for
+# KS = 1 .. 12 (D <= 192) in A and B, 1 .. 8 (G*D <= 128) in K9
+HOPPER_EXPECTED = {
+    "self_attention": {(ks, "SELF") for ks in range(1, 13)},
+    "two_source_attention": {(ks, m) for ks in range(1, 13) for m in ("TWO_SOURCE", "GATED")},
+    "packed_attention": {(ks, "PACKED") for ks in range(1, 9)},
+}
+
+
+def wgmma_instantiations(log_text: str) -> list[tuple[int, str, int, int]]:
+    """(KS, mode, registers at launch, spill bytes) of each entry function
+    attention_wgmma<KS, MODE> of md::wg (the Hopper body; KS: k16 steps of
+    the QK^T contraction; MODE: md::tc::Mode) in a ptxas -v report."""
     out = []
     for name, regs, spill in _entry_chunks(log_text):
-        m = re.match(r"_ZN2md2wg\d+attention_wgmmaILi(\d+)E", name)
+        m = re.match(r"_ZN2md2wg\d+attention_wgmmaILi(\d+)ELi(\d+)E", name)
         if m:
-            out.append((f"attention_wgmma<KS={m.group(1)}> (K9 Hopper body)", regs, spill))
+            out.append((int(m.group(1)), WG_MODES.get(m.group(2), m.group(2)), regs, spill))
     return out
 
 
@@ -486,26 +545,32 @@ def sass_opcodes(lib_path, opcodes=("HGMMA", "UTMALDG")) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
-def check_hopper_body(lib_path, log_text: str) -> dict:
-    """Phase 2, K9's library: the Hopper body's instantiations must not
-    spill, ptxas must keep its register split (no C7508 "setmaxnreg
+def check_hopper_body(name: str, lib_path, log_text: str) -> dict:
+    """Phase 2, the libraries of A, B and K9: the Hopper body must be
+    compiled at every (KS, mode) of HOPPER_EXPECTED[name], no instantiation
+    may spill, ptxas must keep its register split (no C7508 "setmaxnreg
     ignored"), and the SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG).
     Returns what it read."""
     insts = wgmma_instantiations(log_text)
-    for inst, nreg, spill in insts:
-        log(f"    {inst}: {nreg} registers at launch, {spill} spill bytes")
+    for ks, mode, nreg, spill in insts:
+        log(f"    attention_wgmma<KS={ks}, {mode}>: {nreg} registers at launch, "
+            f"{spill} spill bytes")
     warnings = sorted({line.strip() for line in log_text.splitlines()
                        if "setmaxnreg" in line or "serialized" in line})
     for line in warnings:
         log(f"    ptxas: {line}")
     ops = sass_opcodes(lib_path)
     log(f"    SASS: {ops}")
-    spilled = {inst: spill for inst, _, spill in insts if spill}
-    if (not insts or spilled or not all(ops.values())
+    spilled = {(ks, mode): spill for ks, mode, _, spill in insts if spill}
+    found = {(ks, mode) for ks, mode, _, _ in insts}
+    if (found != HOPPER_EXPECTED[name] or spilled or not all(ops.values())
             or any("setmaxnreg" in w and "ignored" in w for w in warnings)):
-        raise AssertionError(f"packed_attention: Hopper body instantiations {insts}, "
-                             f"spills {spilled}, SASS {ops}, ptxas {warnings}")
-    return dict(instantiations=insts, sass=ops, ptxas_warnings=warnings)
+        raise AssertionError(f"{name}: Hopper body instantiations {sorted(found)} (expected "
+                             f"{sorted(HOPPER_EXPECTED[name])}), spills {spilled}, SASS {ops}, "
+                             f"ptxas {warnings}")
+    return dict(instantiations=[dict(KS=ks, mode=mode, registers=nreg, spill_bytes=spill)
+                                for ks, mode, nreg, spill in insts],
+                sass=ops, ptxas_warnings=warnings)
 
 
 # the CUDA-core bodies of kernels A/B (attention_fwd), C, D and G
@@ -554,7 +619,8 @@ def check_kernels(frames: int, heads: int = 8):
     import torch.nn.functional as F
 
     from magicdance_tpu_torch.ops import kernels as K
-    from magicdance_tpu_torch.utils.timing import device_time_ms
+    from magicdance_tpu_torch.ops.kernels.attention import attention_body
+    from magicdance_tpu_torch.utils.timing import device_time_ms, host_call_us
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -601,7 +667,16 @@ def check_kernels(frames: int, heads: int = 8):
             check(name, got, want, tol, label)
             if dtype != torch.bfloat16:
                 continue
+            chosen = attention_body(dtype, d, rows=s, keys=tuple(n for _, n in kv))
+            if chosen != "wgmma":
+                raise AssertionError(f"{name} {label}: the main path's shape takes {chosen}, "
+                                     "not the Hopper body")
+            # the earlier body (attention_tc, mma.sync) on the same inputs
+            check(name, kern(*args, body="mma_sync"), want, tol, label + " mma_sync")
             ms = device_time_ms(lambda: kern(*args))
+            tc_ms = device_time_ms(lambda: kern(*args, body="mma_sync"))
+            host_us = {body: host_call_us(lambda: kern(*args, body=body))
+                       for body in ("wgmma", "mma_sync")}
             plain_ms = device_time_ms(lambda: plain(*args), min_total_s=0.1, max_iters=5)
             qh = q.transpose(1, 2)
             if name == "self_attention":
@@ -613,12 +688,14 @@ def check_kernels(frames: int, heads: int = 8):
             bound, bound_by = attention_bound_ms(b, s, heads, d, kv)
             exp_ms = exp_bound_ms(b, s, heads, kv)
             rows.append(dict(kernel=name, B=b, S=s, D=d, H=heads, bank_batch=bb,
-                             launches_per_step=per_step, kernel_ms=ms,
+                             launches_per_step=per_step, kernel_ms=ms, mma_sync_ms=tc_ms,
                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                             bound_by=bound_by, exp_bound_ms=exp_ms))
-            log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                             bound_by=bound_by, exp_bound_ms=exp_ms,
+                             host_us_per_call=host_us))
+            log(f"      kernel_ms={ms:.4f} mma_sync_ms={tc_ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
-                f"exp_bound_ms={exp_ms:.4f}")
+                f"exp_bound_ms={exp_ms:.4f}; host us per call wgmma "
+                f"{host_us['wgmma']:.1f} mma_sync {host_us['mma_sync']:.1f}")
             del q, k, v, args
             torch.cuda.empty_cache()
 
@@ -645,9 +722,14 @@ def check_kernels(frames: int, heads: int = 8):
                                                          v[i:i + chunk], kb, vb)
                               for i in range(0, vframes, chunk)])
 
-        check("two_source_attention", K.two_source_attention(*args), plain_by_frames(),
-              BF16_TOL, f"bfloat16 video B={vframes} S={s} D={d} bank_batch=1")
+        want = plain_by_frames()
+        label = f"bfloat16 video B={vframes} S={s} D={d} bank_batch=1"
+        check("two_source_attention", K.two_source_attention(*args), want, BF16_TOL, label)
+        check("two_source_attention", K.two_source_attention(*args, body="mma_sync"), want,
+              BF16_TOL, label + " mma_sync")
+        del want
         ms = device_time_ms(lambda: K.two_source_attention(*args))
+        tc_ms = device_time_ms(lambda: K.two_source_attention(*args, body="mma_sync"))
         plain_ms = device_time_ms(plain_by_frames, min_total_s=0.1, max_iters=3)
         qh = q.transpose(1, 2)
         kh = torch.cat([k, kb.expand(vframes, -1, -1, -1)], dim=1).transpose(1, 2)
@@ -658,9 +740,10 @@ def check_kernels(frames: int, heads: int = 8):
         exp_ms = exp_bound_ms(vframes, s, heads, kv)
         rows.append(dict(kernel="two_source_attention", path="video serving", B=vframes, S=s,
                          D=d, H=heads, bank_batch=1, launches_per_step=5, kernel_ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                         bound_by=bound_by, exp_bound_ms=exp_ms))
-        log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (by {chunk} frames) "
+                         mma_sync_ms=tc_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=bound_by, exp_bound_ms=exp_ms))
+        log(f"      kernel_ms={ms:.4f} mma_sync_ms={tc_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"(by {chunk} frames) "
             f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
             f"exp_bound_ms={exp_ms:.4f} x5/video step")
         del q, k, v, kb, vb, args, kh, vh
@@ -675,6 +758,7 @@ def check_kernels(frames: int, heads: int = 8):
               K.self_attention_ref(q, k, v), tol, f"{tag} BSNH-strided B=2 S=1024 D=80")
         if dtype == torch.bfloat16:  # flash.py::_attn_kernel's layout, off the main path
             ms = device_time_ms(lambda: K.self_attention(q, k, v))
+            tc_ms = device_time_ms(lambda: K.self_attention(q, k, v, body="mma_sync"))
             plain_ms = device_time_ms(lambda: K.self_attention_ref(q, k, v),
                                       min_total_s=0.1, max_iters=5)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
@@ -682,10 +766,12 @@ def check_kernels(frames: int, heads: int = 8):
             bound, bound_by = attention_bound_ms(2, 1024, heads, 80, [(2, 1024)])
             rows.append(dict(kernel="self_attention", B=2, S=1024, D=80, H=heads,
                              bank_batch=None, layout="BSNH-strided", launches_per_step=0,
-                             kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             kernel_ms=ms, mma_sync_ms=tc_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms,
                              bound_ms=bound, bound_by=bound_by,
                              exp_bound_ms=exp_bound_ms(2, 1024, heads, [(2, 1024)])))
-            log(f"      BSNH-strided: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            log(f"      BSNH-strided: kernel_ms={ms:.4f} mma_sync_ms={tc_ms:.4f} "
+                f"plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
         q, k, v = (rnd(3, 300, 4, 48, dtype=dtype) for _ in range(3))
         check("self_attention", K.self_attention(q, k, v),
@@ -1388,6 +1474,10 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
         out, lse = fwd_ref(*fargs)
         check(fname, got_o, out, f"{label} o", grad=False)
         check(fname, got_lse, lse, f"{label} lse", grad=False)
+        if timed:  # the earlier body (attention_tc) on the same inputs
+            got_o, got_lse = fwd(*fargs, body="mma_sync")
+            check(fname, got_o, out, f"{label} o mma_sync", grad=False)
+            check(fname, got_lse, lse, f"{label} lse mma_sync", grad=False)
         delta = V.attention_delta(dout, out)
         dq_args = (q, k, v, dout, lse, delta, None, kb, vb)
         check("attention_dq", V.attention_dq(*dq_args), V.attention_dq_ref(*dq_args),
@@ -1424,6 +1514,7 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
         }
         for kind, (kern, plain, kv_, mode) in cases.items():
             ms = device_time_ms(kern)
+            tc_ms = device_time_ms(lambda: fwd(*fargs, body="mma_sync")) if kind == "lse" else None
             plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
             bound, bound_by = training_bound_ms(kind, b, sq, h, d, kv_)
             # dK/dV of a bank source at bank batch B has the self source's
@@ -1433,8 +1524,11 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
                              bank_batch=kb.shape[0] if two else None,
                              launches_per_step=per_step, kernel_ms=ms, plain_ms=plain_ms,
                              library_ms=lib[kind], bound_ms=bound, bound_by=bound_by,
-                             exp_bound_ms=exp_bound_ms(b, sq, h, kv_)))
-            log(f"      {mode:25s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                             exp_bound_ms=exp_bound_ms(b, sq, h, kv_),
+                             **({"mma_sync_ms": tc_ms} if tc_ms is not None else {})))
+            log(f"      {mode:25s} kernel_ms={ms:.4f} "
+                + (f"mma_sync_ms={tc_ms:.4f} " if tc_ms is not None else "")
+                + f"plain_ms={plain_ms:.4f} "
                 f"library_ms={lib[kind]:.4f} bound_ms={bound:.4f} ({bound_by}) "
                 f"x{per_step}/step")
         del lib_out
@@ -2231,7 +2325,12 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
                   K.two_source_attention_ref(*args, bank_mask=mask), tol, label)
             if dtype != torch.bfloat16 or 0.5 in gates:
                 continue
+            check(errs, checked, "two_source_attention_gated",
+                  K.two_source_attention(*args, bank_mask=mask, body="mma_sync"),
+                  K.two_source_attention_ref(*args, bank_mask=mask), tol, label + " mma_sync")
             ms = device_time_ms(lambda: K.two_source_attention(*args, bank_mask=mask))
+            tc_ms = device_time_ms(lambda: K.two_source_attention(*args, bank_mask=mask,
+                                                                  body="mma_sync"))
             plain_ms = device_time_ms(lambda: K.two_source_attention_ref(*args, bank_mask=mask),
                                       min_total_s=0.1, max_iters=5)
             qh = q.transpose(1, 2)
@@ -2249,9 +2348,11 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
                       + exp_bound_ms(sum(1 for g in gates if g != 0), s, heads, [(1, s)]))
             rows.append(dict(kernel="two_source_attention_gated", B=b, S=s, D=d, H=heads,
                              gates=list(gates), launches_per_step=fused_plan.get((s, d), 0),
-                             kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound, bound_by=by, exp_bound_ms=exp_ms))
-            log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                             kernel_ms=ms, mma_sync_ms=tc_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                             exp_bound_ms=exp_ms))
+            log(f"      kernel_ms={ms:.4f} mma_sync_ms={tc_ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} "
                 f"bound_ms={bound:.4f} ({by}) exp_bound_ms={exp_ms:.4f} "
                 f"x{fused_plan.get((s, d), 0)}/step")
             del q, k, v, kb, vb, args, kh, vh
@@ -2276,23 +2377,28 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
                 continue
             qh = q.transpose(1, 2)
             for name, kern, plain, kv, kk, vv in (
-                    ("self_attention", lambda: K.self_attention(q, k, v),
+                    ("self_attention", lambda **kw: K.self_attention(q, k, v, **kw),
                      lambda: K.self_attention_ref(q, k, v), [(frames, sk)], k, v),
-                    ("two_source_attention", lambda: K.two_source_attention(q, k, v, kb, vb),
+                    ("two_source_attention",
+                     lambda **kw: K.two_source_attention(q, k, v, kb, vb, **kw),
                      lambda: K.two_source_attention_ref(q, k, v, kb, vb),
                      [(frames, sk), (1, sk)], torch.cat([k, kb.expand(frames, -1, -1, -1)], 1),
                      torch.cat([v, vb.expand(frames, -1, -1, -1)], 1))):
-                ms = device_time_ms(kern)
+                chosen, t = body_times(kern, 40, 4096, tuple(n for _, n in kv))
+                ms = t[chosen]
                 plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
                 kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
                 lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
                 bound, by = attention_bound_ms(frames, 4096, heads, 40, kv)
                 exp_ms = exp_bound_ms(frames, 4096, heads, kv)
                 rows.append(dict(kernel=name, B=frames, S=4096, S_k=sk, D=40, H=heads,
-                                 pooled=p, launches_per_step=0, kernel_ms=ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                                 exp_bound_ms=exp_ms))
-                log(f"      {name} pooled {p}x{p}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                                 pooled=p, launches_per_step=0, body=chosen, kernel_ms=ms,
+                                 wgmma_ms=t["wgmma"], mma_sync_ms=t["mma_sync"],
+                                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                                 bound_by=by, exp_bound_ms=exp_ms))
+                log(f"      {name} pooled {p}x{p}: kernel_ms={ms:.4f} ({chosen}) "
+                    f"wgmma_ms={t['wgmma']:.4f} mma_sync_ms={t['mma_sync']:.4f} "
+                    f"plain_ms={plain_ms:.4f} "
                     f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by}) "
                     f"exp_bound_ms={exp_ms:.4f}")
             del q, k, v, kb, vb
@@ -4377,7 +4483,7 @@ def p26_flash_shapes(cases, heads: int = 8):
             if "fwd" in kinds:
                 fwd = K.two_source_attention if two else K.self_attention
                 fwd_ref = K.two_source_attention_ref if two else K.self_attention_ref
-                kern["fwd"] = (lambda: fwd(*src, *tail),
+                kern["fwd"] = (lambda **kw: fwd(*src, *tail, **kw),
                                lambda: by_rows(fwd_ref, src, tail, chunk))
                 check(fname, kern["fwd"][0](), kern["fwd"][1](), f"{tag} o (no LSE)",
                       grad=False)
@@ -4391,7 +4497,8 @@ def p26_flash_shapes(cases, heads: int = 8):
                 delta = V.attention_delta(dout, out)
                 del got_o, got_lse, out
                 qside = (q, k, v, dout, lse, delta) + ((kb, vb) if two and bb == b else ())
-                kern["lse"] = (lambda: lfwd(*src, *tail), lambda: by_rows(lref, src, tail, chunk))
+                kern["lse"] = (lambda **kw: lfwd(*src, *tail, **kw),
+                               lambda: by_rows(lref, src, tail, chunk))
                 kern["dq"] = (lambda: V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb),
                               lambda: by_rows(dq_ref, qside, tail, chunk))
                 kern["dkv"] = (lambda: V.attention_dkv(k, v, q, dout, lse, delta),
@@ -4427,7 +4534,13 @@ def p26_flash_shapes(cases, heads: int = 8):
             kvs = [(b, kv[0])] + ([(bb, kv[1])] if two else [])
             for kind, (mode, n) in sorted(kinds.items()):
                 run, plain = kern[kind]
-                ms = device_time_ms(run)
+                bodies = {}
+                if kind in ("fwd", "lse"):  # A or B: both bodies
+                    chosen, t = body_times(run, d, sq, kv)
+                    ms = t[chosen]
+                    bodies = dict(body=chosen, wgmma_ms=t["wgmma"], mma_sync_ms=t["mma_sync"])
+                else:
+                    ms = device_time_ms(run)
                 plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
                 if kind == "fwd":
                     bound, bound_by = attention_bound_ms(b, sq, heads, d, kvs)
@@ -4438,8 +4551,11 @@ def p26_flash_shapes(cases, heads: int = 8):
                                  S_kv=kv[0] if kind == "dkv" else sum(kv), D=d, H=heads,
                                  bank_batch=bb, path=path, launches_per_step=n, kernel_ms=ms,
                                  plain_ms=plain_ms, library_ms=lib[kind], bound_ms=bound,
-                                 bound_by=bound_by))
-                log(f"      {mode:25s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                                 bound_by=bound_by, **bodies))
+                log(f"      {mode:25s} kernel_ms={ms:.4f} "
+                    + (f"({bodies['body']}) wgmma_ms={bodies['wgmma_ms']:.4f} "
+                       f"mma_sync_ms={bodies['mma_sync_ms']:.4f} " if bodies else "")
+                    + f"plain_ms={plain_ms:.4f} "
                     f"library_ms={lib[kind]:.4f} bound_ms={bound:.4f} ({bound_by}) "
                     f"x{n}/{path} flash step")
             del q, k, v, dout, kb, vb, src, tail, kern, qs, ks, vs, kh, vh, g
@@ -4769,7 +4885,7 @@ def main(argv=None) -> int:
         return p25_rank(args.p25_rank, args.p25_init, args.p25_work)
 
     frames, requests = 2, 2
-    log("== phase 1: card")
+    phase("== phase 1: card")
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4785,10 +4901,11 @@ def main(argv=None) -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
 
-    log("== phase 2: build")
+    phase("== phase 2: build")
     t0 = time.perf_counter()
     paths = build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    hopper = {}
     for name in paths:
         text = build.build_log(name) or ""
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
@@ -4797,8 +4914,8 @@ def main(argv=None) -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
         for inst, nreg, spill in tc_instantiations(text) + gn_instantiations(text):
             log(f"    {inst}: {nreg} registers, {spill} spill bytes")
-        if name == "packed_attention":
-            hopper = check_hopper_body(paths[name], text)
+        if name in HOPPER_EXPECTED:
+            hopper[name] = check_hopper_body(name, paths[name], text)
         body = CUDA_CORE_BODIES.get(name)
         if body is None:
             continue
@@ -4816,20 +4933,20 @@ def main(argv=None) -> int:
             if bad:
                 raise AssertionError(f"{name}: spill bytes at the full-width widths {bad}")
 
-    log("== phase 2b: kernel gate (ops/kernel_gate.py::run_gate, production cases)")
+    phase("== phase 2b: kernel gate (ops/kernel_gate.py::run_gate, production cases)")
     gate = kernel_gate()
 
-    log("== phase 3: kernels vs plain versions")
+    phase("== phase 3: kernels vs plain versions")
     rows, errs, ratios, checked = check_kernels(frames)
 
-    log("== phase 4: small-input reference")
+    phase("== phase 4: small-input reference")
     small_reference_check()
 
     steps = SampleConfig().steps
-    log(f"== phase 5: main path (full SD1.5 width, 512x512, DDIM-{steps})")
+    phase(f"== phase 5: main path (full SD1.5 width, 512x512, DDIM-{steps})")
     pipe, e2e = main_path(requests, frames, steps)
 
-    log("== phase 6: where one request's time goes (time per piece)")
+    phase("== phase 6: where one request's time goes (time per piece)")
     e2e["breakdown_ms"] = step_breakdown(pipe, frames)
     del pipe
     torch.cuda.empty_cache()
@@ -4842,34 +4959,34 @@ def main(argv=None) -> int:
     plan, _, _ = training_launch_plan(train_cfg.model, train_cfg.image_size // 8)
     s3_cfg = stage3_motion()
     s3_sites = Counter(stage3_grad_sites(s3_cfg.model, s3_cfg.image_size // 8))
-    log("== phase 7: training kernels vs plain versions (full-width stage-2 shapes, B = 2; "
+    phase("== phase 7: training kernels vs plain versions (full-width stage-2 shapes, B = 2; "
         "C and D at the stage-3 shapes, 16 frames)")
     train_rows, train_errs, train_checked = check_training_kernels(
         plan, s3_sites, batch=frames, frames=s3_cfg.video_frames)
 
-    log("== phase 8: small-input training reference")
+    phase("== phase 8: small-input training reference")
     small_train = small_training_check()
 
-    log("== phase 9: training path (full SD1.5 width, stage 2, B = 2, 512x512)")
+    phase("== phase 9: training path (full SD1.5 width, stage 2, B = 2, 512x512)")
     train = full_width_training(steps=4, batch=frames)
     torch.cuda.empty_cache()
 
-    log("== phase 10: grouped (temporal) kernel G vs plain versions (full-width motion shapes)")
+    phase("== phase 10: grouped (temporal) kernel G vs plain versions (full-width motion shapes)")
     grouped_rows, grouped_errs, grouped_checked = check_grouped_kernels()
 
-    log("== phase 11: small-input video references (narrow temporal model, card vs CPU)")
+    phase("== phase 11: small-input video references (narrow temporal model, card vs CPU)")
     small_video = small_video_check()
     small_stage3 = small_stage3_check()
 
-    log(f"== phase 12: video path (full SD1.5 width + motion modules, 16 frames at 512x512, "
+    phase(f"== phase 12: video path (full SD1.5 width + motion modules, 16 frames at 512x512, "
         f"DDIM-{steps})")
     vpipe, video = video_main_path(requests, 16, steps)
-    log("== phase 12b: where one video request's time goes (time per piece, 16 frames)")
+    phase("== phase 12b: where one video request's time goes (time per piece, 16 frames)")
     video["breakdown_ms"] = step_breakdown(vpipe, 16, num_frames=16)
     del vpipe
     torch.cuda.empty_cache()
 
-    log("== phase 13: stage-3 training path (full SD1.5 width, one 16-frame clip, 512x512)")
+    phase("== phase 13: stage-3 training path (full SD1.5 width, one 16-frame clip, 512x512)")
     stage3 = full_width_stage3(steps=3)
     torch.cuda.empty_cache()
 
@@ -4881,7 +4998,7 @@ def main(argv=None) -> int:
     for site in pass_sites(model_cfg.unet, 64):
         if site[0] == "spatial" and site[1] >= 256:
             fused_plan[site[1], site[2]] = fused_plan.get((site[1], site[2]), 0) + 1
-    log("== phase 14: kernel B gated (fused CFG) and pooled key lengths; K8 (fused "
+    phase("== phase 14: kernel B gated (fused CFG) and pooled key lengths; K8 (fused "
         "GroupNorm+SiLU) at every site of the model")
     fused_rows, fused_errs, fused_checked = check_fused_cfg_and_pooled_kernels(frames, fused_plan)
     pipe = MagicPosePipeline(model_cfg, device="cuda")
@@ -4893,11 +5010,11 @@ def main(argv=None) -> int:
                              f"from the launch plan's {sorted(gn_per_step)}")
     gn_rows, gn_errs, gn_checked = check_groupnorm_kernel(gn_sites, gn_per_step)
 
-    log("== phase 15: small-input references of fused CFG, the turbo stacks and the fused "
+    phase("== phase 15: small-input references of fused CFG, the turbo stacks and the fused "
         "GroupNorm (narrow models, card vs CPU)")
     small_turbo = small_turbo_checks()
 
-    log(f"== phase 16: fused CFG, turbo, turbo_max and fused GroupNorm requests (full SD1.5 "
+    phase(f"== phase 16: fused CFG, turbo, turbo_max and fused GroupNorm requests (full SD1.5 "
         f"width, {requests} x {frames} frames at 512x512), in turns with the exact recipe")
     served = {}
     for label, scfg, fused_gn in (
@@ -4916,7 +5033,7 @@ def main(argv=None) -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    log(f"== phase 17: video turbo (full SD1.5 width + motion modules, 16 frames at 512x512, "
+    phase(f"== phase 17: video turbo (full SD1.5 width + motion modules, 16 frames at 512x512, "
         f"DDIM-{steps}, bench.py's turbo stack)")
     vpipe = MagicPosePipeline(temporal_model_config(), device="cuda")
     vpipe.init_params(seed=0)
@@ -4929,13 +5046,13 @@ def main(argv=None) -> int:
     del vpipe
     torch.cuda.empty_cache()
 
-    log("== phase 18: kernel K9 (head-packed attention) vs plain versions, then the "
+    phase("== phase 18: kernel K9 (head-packed attention) vs plain versions, then the "
         "head-packing probe (P1-P4)")
     packed_rows, packed_errs, packed_checked, packed_extra = check_packed_kernel()
     probe, probe_launches = head_packing_probe()
     torch.cuda.empty_cache()
 
-    log(f"== phase 19: DUAL_CONTROL image serving (pose and image ControlNets, full SD1.5 "
+    phase(f"== phase 19: DUAL_CONTROL image serving (pose and image ControlNets, full SD1.5 "
         f"width, {requests} x {frames} frames at 512x512, DDIM-{steps}), exact then turbo")
     small_dual = small_dual_check()
     dual_cfg = dual_model_config()
@@ -4953,38 +5070,38 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     sampler_steps = 25
-    log(f"== phase 20: PLMS, DPM-Solver++ 2M and 3M (SDE, sde_eta=1) (full SD1.5 width, 1 "
+    phase(f"== phase 20: PLMS, DPM-Solver++ 2M and 3M (SDE, sde_eta=1) (full SD1.5 width, 1 "
         f"request x {frames} frames at 512x512 each, {sampler_steps} steps, CFG 7)")
     spipe = MagicPosePipeline(model_cfg, device="cuda")
     spipe.init_params(seed=0)
     samplers = sampler_requests(spipe, frames, sampler_steps)
 
-    log("== phase 21: profile of one exact image DDIM step (utils/profiling.trace, "
+    phase("== phase 21: profile of one exact image DDIM step (utils/profiling.trace, "
         "torch.profiler)")
     profile = profile_ddim_step(spipe, frames, os.path.join(ROOT, "chiprun_out", "profile"))
     del spipe
     torch.cuda.empty_cache()
 
-    log(f"== phase 22: a reference checkpoint through the sampling CLI (full SD1.5 width, "
+    phase(f"== phase 22: a reference checkpoint through the sampling CLI (full SD1.5 width, "
         f"fp16 reference-layout file, 1 request x {frames} frames at 512x512, DDIM-{steps}; "
         f"then --video, 16 frames, DDIM-10)")
     cli = sample_cli_checkpoint(card, frames=frames, steps=steps)
 
-    log("== phase 23: OpenPose on the card (body, hand and face nets, card vs CPU in fp32; "
+    phase("== phase 23: OpenPose on the card (body, hand and face nets, card vs CPU in fp32; "
         "the detector end to end)")
     openpose = openpose_on_card(card)
 
-    log(f"== phase 24: evaluation on the card (cli.eval at full SD1.5 width, 2 videos x 1 "
+    phase(f"== phase 24: evaluation on the card (cli.eval at full SD1.5 width, 2 videos x 1 "
         f"request of F = 8 at 512x512, DDIM-{steps}; every metric type through "
         f"get_all_eval_scores and the CLIP similarity; the metric nets card vs CPU in fp32)")
     evaluation = eval_on_card(card, steps=steps)
 
-    log("== phase 25: distribution on the card (25a: one rank over NCCL; 25b: two ranks "
+    phase("== phase 25: distribution on the card (25a: one rank over NCCL; 25b: two ranks "
         "sharing the card over gloo), full SD1.5 width")
     distribution = distribution_on_card(card)
     dl = distribution["launches"]
 
-    log("== phase 26: training leftovers (frozen int8, attention_impl flash / xla, the native "
+    phase("== phase 26: training leftovers (frozen int8, attention_impl flash / xla, the native "
         "batch loader, the Flax-style init, dropout), full SD1.5 width")
     t26 = time.perf_counter()
     leftovers = training_leftovers_on_card(card, frames)
@@ -5054,6 +5171,9 @@ def main(argv=None) -> int:
                 ms=per_step(main_rows, "kernel_ms"), plain_ms=per_step(main_rows, "plain_ms"),
                 bound_ms=per_step(main_rows, "bound_ms"), bound_by=bound_by(main_rows),
                 library_ms=per_step(main_rows, "library_ms"),
+                **({"mma_sync_ms": per_step(main_rows, "mma_sync_ms"),
+                    "hopper_body": hopper["two_source_attention"]}
+                   if name.startswith("two") else {}),
                 per="one DDIM step of the image serving path with "
                     + ("fused_cfg=True" if name.startswith("two") else "MAGICDANCE_FUSED_GN=1")
                     + " (sum over its launches)",
@@ -5076,7 +5196,7 @@ def main(argv=None) -> int:
                 library_ms=per_step(packed_rows, "library_ms"),
                 library_equal_work_ms=per_step(packed_rows, "library_equal_work_ms"),
                 mma_sync_ms=per_step(packed_rows, "mma_sync_ms"), g1=packed_extra["g1"],
-                hopper_body=hopper,
+                hopper_body=hopper[name],
                 per="one launch at the probe's shape (BG 64, S 4096, G 3, D 40, bf16); "
                     "library_ms: SDPA per head (a third of K9's operations); "
                     "library_equal_work_ms: SDPA on q repeated over the G segments",
@@ -5113,11 +5233,16 @@ def main(argv=None) -> int:
             check=f"{n_checked} comparisons within tolerance")
         if name in ratios:
             entry["max_err_over_rms"] = ratios[name]
+        if name in HOPPER_EXPECTED:
+            entry["hopper_body"] = hopper[name]
+        if main_rows and all("mma_sync_ms" in r for r in main_rows):
+            entry["mma_sync_ms"] = per_step(main_rows, "mma_sync_ms")
         if all("exp_bound_ms" in r for r in main_rows):
             entry["exp_bound_ms"] = per_step(main_rows, "exp_bound_ms")
         if video_rows:
             entry["video_step"] = dict(
                 ms=per_step(video_rows, "kernel_ms"), plain_ms=per_step(video_rows, "plain_ms"),
+                mma_sync_ms=per_step(video_rows, "mma_sync_ms"),
                 bound_ms=per_step(video_rows, "bound_ms"),
                 exp_bound_ms=per_step(video_rows, "exp_bound_ms"),
                 library_ms=per_step(video_rows, "library_ms"), bound_by=bound_by(video_rows),
@@ -5149,10 +5274,13 @@ def main(argv=None) -> int:
         if serving and training:
             entry["training_step"] = dict(
                 ms=per_step(training, "kernel_ms"), plain_ms=per_step(training, "plain_ms"),
+                mma_sync_ms=per_step([r for r in training if "mma_sync_ms" in r],
+                                     "mma_sync_ms"),
                 bound_ms=per_step(training, "bound_ms"),
                 library_ms=per_step(training, "library_ms"), bound_by=bound_by(training),
                 per="one training step, the LSE forward's launches")
         kernels.append(entry)
+    end_phase()
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
@@ -5168,9 +5296,11 @@ def main(argv=None) -> int:
                            openpose=openpose, evaluation=evaluation,
                            distribution={k: v for k, v in distribution.items()
                                          if k != "launches"},
-                           training_leftovers=leftovers, kernels=kernels), f,
+                           training_leftovers=leftovers, kernels=kernels,
+                           phase_s=dict(PHASE_S)), f,
                       indent=1)
-    log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s; by phase "
+        f"{json.dumps(dict(PHASE_S))}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

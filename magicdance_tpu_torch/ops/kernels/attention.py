@@ -22,6 +22,17 @@ Kernel B takes an optional `bank_mask`, a (B,) gate on the bank per batch row
 (fused classifier-free guidance: 1 for cond rows, 0 for uncond rows). It is
 forward-only, as in JAX; its launches count under
 `LAUNCHES["two_source_attention_gated"]`.
+
+Bodies. On the card A, B (every mode) and K9 (`ops.kernels.packed`) run one
+of three bodies, chosen by `attention_body` from the dtype, the head width
+and, for A and B, the query length and key counts, and passed to the C
+entry as its `body` argument: "wgmma" (bf16 up to WGMMA_MAX_HEAD, K9 up to
+WGMMA_MAX_PACKED, at the sizes where it is the faster body:
+`csrc/attention_wgmma.cuh`, Hopper's wgmma fed by TMA through an mbarrier
+ring), "mma_sync" (bf16 at any width: `attention_tc` of
+`csrc/attention_mma.cuh`) and "cuda_core" (fp32). A caller may name another
+body that can take the dtype and width; a body is never chosen because
+another failed to build or launch.
 """
 
 from __future__ import annotations
@@ -55,6 +66,90 @@ LAUNCHES = {
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the C entries' body codes. The Hopper body ("wgmma") holds Q and three
+# stages of K and V in shared memory as 64-column boxes (a fourth box a row
+# would need 256 KB, past the 227 KB a block may have) and one fp32
+# accumulator of the row in registers; K9 keeps two, which fit up to 128
+BODIES = {"cuda_core": 0, "mma_sync": 1, "wgmma": 2}
+WGMMA_MAX_HEAD = 192
+WGMMA_MAX_PACKED = 128
+# Where the Hopper body beats attention_tc at the widths it takes, timed
+# over query lengths 16-4096 and key counts 16-4096 at D = 40, 80 and 160
+# (scripts/bench_attention_hopper.py; PERF.md). One of its blocks
+# holds 128 query rows and fills an SM (384 threads at 168 registers), so it
+# needs enough key tiles to amortise its set-up (the barriers, the Q copy,
+# the ring's fill), where attention_tc runs several blocks an SM:
+# - D <= 48: at WGMMA_MIN_KEYS keys or more over all sources (fewer: 0.71-
+#   0.95x attention_tc's speed for A, 0.91-1.00x for B);
+# - 48 < D <= 80, kernel A: at more than WGMMA_MIN_ROWS query rows (at 64
+#   or fewer, 0.57-1.09x: attention_tc's blocks there are 64 rows, full
+#   where the Hopper body's 128 are half empty or less);
+# - otherwise always (B at D = 80 0.93-1.42x, D = 160 1.09-2.52x).
+WGMMA_MIN_KEYS = 512
+WGMMA_MIN_ROWS = 64
+
+
+def _wgmma_takes(width: int, packed: bool) -> bool:
+    return width <= (WGMMA_MAX_PACKED if packed else WGMMA_MAX_HEAD)
+
+
+def attention_body(dtype: torch.dtype, width: int, packed: bool = False,
+                   rows: Optional[int] = None, keys: tuple[int, ...] = ()) -> str:
+    """The body that runs kernel A or B (head width `width`), or K9
+    (`packed`: packed width G*D), on the card: fp32 on the CUDA cores, bf16
+    on the Hopper body up to its width and on attention_tc above it. Kernels
+    A and B name their query length `rows` and each source's key count
+    `keys`, and where the Hopper body would be the slower one (the rule
+    above WGMMA_MIN_KEYS) bf16 takes attention_tc."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
+    if not _wgmma_takes(width, packed):
+        return "mma_sync"
+    if rows is None:
+        return "wgmma"
+    if width <= 48:
+        return "wgmma" if sum(keys) >= WGMMA_MIN_KEYS else "mma_sync"
+    if width <= 80 and len(keys) == 1:
+        return "wgmma" if rows > WGMMA_MIN_ROWS else "mma_sync"
+    return "wgmma"
+
+
+def check_body(body: str, dtype: torch.dtype, width: int, packed: bool = False) -> None:
+    """Refuse a body that cannot take this dtype and width."""
+    ok = {"cuda_core": dtype == torch.float32,
+          "mma_sync": dtype == torch.bfloat16,
+          "wgmma": dtype == torch.bfloat16 and _wgmma_takes(width, packed)}
+    if not ok.get(body, False):
+        raise ValueError(f"body {body!r} cannot run {'K9' if packed else 'attention'} in "
+                         f"{dtype} at width {width} (bodies: {sorted(BODIES)})")
+
+
+def tma_readable(t: torch.Tensor) -> bool:
+    """Whether the Hopper body's TMA maps can read a (B, S, H, D) operand the
+    wrappers accept: every stride but one of 0 over more than one row (an
+    operand broadcast over its batch rows or heads is read at coordinate 0;
+    TMA takes no stride of 0, and rows cannot be read so)."""
+    return t.shape[1] <= 1 or t.stride(1) != 0
+
+
+def _pick_body(name: str, body: Optional[str], q: torch.Tensor, sources) -> str:
+    """`body`, or `attention_body`'s choice for q and the (K, V) pair of
+    each source; an operand TMA cannot read sends the default choice to
+    attention_tc and refuses a named "wgmma"."""
+    readable = all(tma_readable(t) for t in (q, *(t for kv in sources for t in kv)))
+    if body is None:
+        body = attention_body(q.dtype, q.shape[3], rows=q.shape[1],
+                              keys=tuple(k.shape[1] for k, _ in sources))
+        if body == "wgmma" and not readable:
+            body = "mma_sync"
+    check_body(body, q.dtype, q.shape[3])
+    if body == "wgmma" and not readable:
+        raise ValueError(f"{name}: an operand has row stride 0, which the wgmma body's "
+                         "TMA maps cannot read")
+    return body
 
 
 def reset_launches() -> None:
@@ -199,27 +294,31 @@ def _lse_buffer(q: torch.Tensor, with_lse: bool) -> Optional[torch.Tensor]:
 
 
 def self_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float, with_lse: bool):
-    """Launch kernel A on CUDA tensors; returns (out, lse or None)."""
+                        scale: float, with_lse: bool, body: Optional[str] = None):
+    """Launch kernel A on CUDA tensors on `body` (default: `attention_body`'s
+    choice); returns (out, lse or None)."""
     _check_q(q)
     b, sq, h, d = q.shape
     _check_operand("q", q, q, (b,), sq)
     _check_operand("k", k, q, (b,), None)
     _check_operand("v", v, q, (b,), k.shape[1])
+    body = _pick_body("self_attention", body, q, ((k, v),))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = _lse_buffer(q, with_lse)
     strides = (_strides(q) + _strides(k) + _strides(v) + _strides(out))
     launch("self_attention", "self_attention_lse" if with_lse else "self_attention",
-           q, [], [q, k, v, out, lse], strides, [b, h, d, sq, k.shape[1]], scale)
+           q, [BODIES[body]], [q, k, v, out, lse], strides, [b, h, d, sq, k.shape[1]], scale)
     return out, lse
 
 
 def two_source_attention_cuda(q: torch.Tensor, k_self: torch.Tensor,
                               v_self: torch.Tensor, k_bank: torch.Tensor,
                               v_bank: torch.Tensor, scale: float, with_lse: bool,
-                              bank_mask: Optional[torch.Tensor] = None):
-    """Launch kernel B on CUDA tensors; returns (out, lse or None). With
-    `bank_mask` it is the gated forward (never with the LSE)."""
+                              bank_mask: Optional[torch.Tensor] = None,
+                              body: Optional[str] = None):
+    """Launch kernel B on CUDA tensors on `body` (default: `attention_body`'s
+    choice); returns (out, lse or None). With `bank_mask` it is the gated
+    forward (never with the LSE)."""
     _check_q(q)
     b, sq, h, d = q.shape
     _check_operand("q", q, q, (b,), sq)
@@ -234,6 +333,8 @@ def two_source_attention_cuda(q: torch.Tensor, k_self: torch.Tensor,
             raise ValueError(f"bank_mask: expected ({b},) on {q.device}, got "
                              f"{tuple(bank_mask.shape)} on {bank_mask.device}")
         bank_mask = bank_mask.to(torch.float32).contiguous()
+    body = _pick_body("two_source_attention", body, q,
+                      ((k_self, v_self), (k_bank, v_bank)))
     bank_batched = k_bank.shape[0] == b and b > 1
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = _lse_buffer(q, with_lse)
@@ -242,36 +343,44 @@ def two_source_attention_cuda(q: torch.Tensor, k_self: torch.Tensor,
                + _strides(out))
     counter = ("two_source_attention_gated" if bank_mask is not None else
                "two_source_attention_lse" if with_lse else "two_source_attention")
-    launch("two_source_attention", counter, q, [],
+    launch("two_source_attention", counter, q, [BODIES[body]],
            [q, k_self, v_self, k_bank, v_bank, out, lse, bank_mask], strides,
            [b, h, d, sq, k_self.shape[1], k_bank.shape[1]], scale)
     return out, lse
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   scale: Optional[float] = None) -> torch.Tensor:
-    """Kernel A. q: (B, Sq, H, D); k, v: (B, Sk, H, D) -> (B, Sq, H, D)."""
+                   scale: Optional[float] = None, body: Optional[str] = None) -> torch.Tensor:
+    """Kernel A. q: (B, Sq, H, D); k, v: (B, Sk, H, D) -> (B, Sq, H, D). On
+    the card `body` defaults to `attention_body`'s choice for the dtype, D,
+    Sq and Sk; another body that can take the dtype and width may be named (checked on the CPU too, where
+    the plain version runs whichever is named)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if body is not None:
+        check_body(body, q.dtype, q.shape[-1])
     if q.device.type == "cpu":
         return self_attention_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"self_attention: unsupported device {q.device}")
     _check_no_grad("self_attention", q, k, v)
-    return self_attention_cuda(q, k, v, scale, with_lse=False)[0]
+    return self_attention_cuda(q, k, v, scale, with_lse=False, body=body)[0]
 
 
 def two_source_attention(q: torch.Tensor, k_self: torch.Tensor,
                          v_self: torch.Tensor, k_bank: torch.Tensor,
                          v_bank: torch.Tensor,
                          scale: Optional[float] = None,
-                         bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         bank_mask: Optional[torch.Tensor] = None,
+                         body: Optional[str] = None) -> torch.Tensor:
     """Kernel B. q, k_self, v_self: (B, S*, H, D); k_bank, v_bank:
     (Bb, Sb, H, D) with Bb in {1, B} (a batch-1 bank is read with batch
     stride 0) -> (B, Sq, H, D). `bank_mask`: optional (B,) gate on the bank
-    (the gated mode)."""
+    (the gated mode). `body` as for `self_attention`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if body is not None:
+        check_body(body, q.dtype, q.shape[-1])
     if q.device.type == "cpu":
         return two_source_attention_ref(q, k_self, v_self, k_bank, v_bank, scale,
                                         bank_mask)
@@ -279,4 +388,4 @@ def two_source_attention(q: torch.Tensor, k_self: torch.Tensor,
         raise ValueError(f"two_source_attention: unsupported device {q.device}")
     _check_no_grad("two_source_attention", q, k_self, v_self, k_bank, v_bank)
     return two_source_attention_cuda(q, k_self, v_self, k_bank, v_bank, scale,
-                                     with_lse=False, bank_mask=bank_mask)[0]
+                                     with_lse=False, bank_mask=bank_mask, body=body)[0]

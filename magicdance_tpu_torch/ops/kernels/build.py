@@ -96,14 +96,14 @@ def build_log(name: str) -> Optional[str]:
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    # dtype, q, k, v, o, lse, strides, B, H, D, Sq, Sk, scale, stream
+    # dtype, body, q, k, v, o, lse, strides, B, H, D, Sq, Sk, scale, stream
     "self_attention": ("md_self_attention",
-                       [_I, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+                       [_I, _I, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                         _I, _I, _I, _I, _I, _F, _VP]),
-    # dtype, q, k_self, v_self, k_bank, v_bank, o, lse, bank_mask, strides,
-    # B, H, D, Sq, Sk, Sb, scale, stream
+    # dtype, body, q, k_self, v_self, k_bank, v_bank, o, lse, bank_mask,
+    # strides, B, H, D, Sq, Sk, Sb, scale, stream
     "two_source_attention": ("md_two_source_attention",
-                             [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+                             [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                               _I, _I, _I, _I, _I, _I, _F, _VP]),
     # dtype, nsrc, q, k_self, v_self, k_bank, v_bank, dout, lse, delta, dq,
     # strides, B, H, D, Sq, Sk, Sb, scale, stream

@@ -1,11 +1,15 @@
-// Tensor-core tile routine and kernel (attention_tc, at the end) of the
-// bf16 attention kernels: kernel A's bf16 body (self_attention.cu), kernel
-// B's bf16 body in all its modes (two_source_attention.cu: two sources,
-// with the LSE output, gated) and kernel K9, head-packed attention
-// (packed_attention.cu), which is kernel A over G key segments. fp32 A and
-// B stay on the CUDA-core body of attention_common.cuh, fp32 K9 on its own.
-// The bf16 backward kernels C and D (attention_bwd_mma.cuh) are built from
-// the same tile routines (qk_tile, pv_tile, the loaders and the dispatch).
+// Tensor-core tile routines and kernel (attention_tc, at the end) of the
+// bf16 attention kernels on mma.sync: the bf16 body of kernels A
+// (self_attention.cu), B in all its modes (two_source_attention.cu: two
+// sources, with the LSE output, gated) and K9, head-packed attention
+// (packed_attention.cu, kernel A over G key segments), at the widths past
+// the Hopper body's (attention_wgmma.cuh: D > 192, K9's G*D > 128) and
+// whenever a caller names it (body 1 of the C entries). The Hopper body
+// runs the softmax routine below (softmax_rows) on its wgmma accumulators.
+// fp32 A and B stay on the CUDA-core body of attention_common.cuh, fp32 K9
+// on its own. The bf16 backward kernels C and D (attention_bwd_mma.cuh) are
+// built from the same tile routines (qk_tile, pv_tile, the loaders and the
+// dispatch).
 //
 // One block of 4 warps owns 64 * MR query rows; each warp owns MR row
 // tiles of 16 (MR = 2 lets two row tiles share every K and V fragment read

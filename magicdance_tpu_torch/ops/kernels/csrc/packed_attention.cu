@@ -22,9 +22,10 @@
 //
 // What the design does. Three bodies, chosen by the wrapper (packed.py,
 // packed_body) and named by the C entry's `body` argument:
-//   2  bf16 at G*D <= 128: the Hopper body of attention_wgmma.cuh (wgmma,
-//      TMA into a three-stage mbarrier ring, one producer warp, two
-//      consumer warpgroups of 64 query rows). At G*D = 120 the QK^T
+//   2  bf16 at G*D <= 128: the Hopper body of attention_wgmma.cuh in MODE
+//      PACKED, the body of bf16 kernels A and B too (wgmma, TMA into a
+//      three-stage mbarrier ring, one producer warp, two consumer
+//      warpgroups of 64 query rows). At G*D = 120 the QK^T
 //      contraction runs 8 k16 steps over two 64-column TMA boxes (the last
 //      8 columns zero-filled by TMA) and PV two m64n64 products per k16 step.
 //   1  bf16 at any width (the wrapper takes it above 128, where the Hopper
@@ -250,8 +251,7 @@ extern "C" int md_packed_attention(int dtype, int body, const void* q, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && body == 2) {
-    if (GD > md::wg::MAX_WIDTH) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(md::wg::launch_packed_width(p, G, BG, st));
+    return static_cast<int>(md::wg::launch_packed(p, G, BG, st));
   }
   if (dtype == 1 && body == 1) {
     md::tc::PackedLaunch f{p, G, BG, st};

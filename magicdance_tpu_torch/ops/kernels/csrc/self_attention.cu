@@ -8,10 +8,19 @@
 // serves both. With an `lse` pointer it is the training forward and replaces
 // magicdance_tpu/ops/pallas/flash_vjp.py::_fwd_lse_kernel.
 //
-// Two bodies. bf16 runs on the tensor cores (attention_tc of
-// attention_mma.cuh, with one key segment); fp32 runs the CUDA-core body of
-// attention_common.cuh, whose products are exact fp32 (TF32 is off on
-// purpose: the card-vs-CPU checks and the fp32 paths need them).
+// Three bodies, chosen by the wrapper (ops/kernels/attention.py,
+// attention_body) and named by the C entry's `body` argument:
+//   2  bf16 at D <= 192: the Hopper body (wg::attention_wgmma in MODE SELF,
+//      attention_wgmma.cuh): TMA into a three-stage mbarrier ring, one
+//      producer warp, two consumer warpgroups of 64 query rows running
+//      wgmma, 128-key tiles up to D = 80 and 64 above;
+//   1  bf16 at any width (the wrapper takes it above 192, where Q and three
+//      stages of K and V no longer fit in shared memory, at the short
+//      shapes where it is the faster body, and for operands TMA cannot
+//      read): attention_tc of attention_mma.cuh (mma.sync);
+//   0  fp32: the CUDA-core body of attention_common.cuh, whose products are
+//      exact fp32 (TF32 is off on purpose: the card-vs-CPU checks and the
+//      fp32 paths need them).
 //
 // What bounds the bf16 body on an H100. At the main path's shapes
 // (S = 4096/1024/256, D = 40/80/160) a (batch, head) does 4*Sq*Sk*D
@@ -19,23 +28,23 @@
 // operations per byte, so it is bound by operations; at D = 40 the
 // exponentials (Sq*Sk per head, 16 per SM per clock) outweigh the
 // tensor-core time (989 TFLOP/s). What the design does: both products on
-// the tensor cores (mma.sync m16n8k16, D padded to 48/80/160 for the
-// contraction, 5/10/20 n8 output tiles), the logits tile kept in registers
-// and re-packed as the PV product's A operand, one FMA and one ex2 per
-// logit, K/V tiles streamed by cp.async into a two-stage ring while the
-// previous tile is multiplied, one barrier per tile. At D <= 48 each warp
-// owns two 16-row tiles (128 rows a block), which halves the shared-memory
-// reads of K and V per row; tiles of 128 keys halve the barriers and the
-// softmax rescales per key (64 for heads wider than 160, whose two stages
-// of 128 keys would not fit in shared memory).
+// wgmma, the only way to the tensor cores' full rate, fed by TMA copies
+// that cost the consumers no instructions; the logits tile kept in
+// registers and re-packed as the PV product's A operand; one FMA and one
+// exponential per logit.
 //
 // Plain C interface, loaded with ctypes. Strides are in elements:
 // strides[0..11] = q (batch, row, head), k (...), v (...), o (...).
-// lse: nullptr, or a contiguous (B, H, Sq) fp32 output. Returns cudaGetLastError() of the launch (0 on success).
+// lse: nullptr, or a contiguous (B, H, Sq) fp32 output. dtype: 0 = float32,
+// 1 = bfloat16; body: 0 = CUDA cores (fp32), 1 = attention_tc (bf16), 2 =
+// attention_wgmma (bf16, D <= 192); any other pairing is refused with
+// cudaErrorInvalidValue. Returns cudaGetLastError() of the launch (0 on
+// success).
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
-extern "C" int md_self_attention(int dtype, const void* q, const void* k,
+extern "C" int md_self_attention(int dtype, int body, const void* q, const void* k,
                                  const void* v, void* o, float* lse,
                                  const long long* strides, int B, int H, int D,
                                  int Sq, int Sk, float scale, void* stream) {
@@ -57,10 +66,12 @@ extern "C" int md_self_attention(int dtype, const void* q, const void* k,
   if (!md::head_dim_ok(D) || Sq < 1 || Sk < 1 || B < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && body == 2)
+    return static_cast<int>(md::wg::launch_attention<md::tc::SELF>(p, B, st));
+  if (dtype == 1 && body == 1) {
     md::tc::AttentionLaunch<md::tc::SELF> f{p, B, st};
     return static_cast<int>(md::tc::dispatch_no(D, f));
   }
-  if (dtype == 0) return static_cast<int>(md::launch_d<float, 1>(p, B, st));
+  if (dtype == 0 && body == 0) return static_cast<int>(md::launch_d<float, 1>(p, B, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

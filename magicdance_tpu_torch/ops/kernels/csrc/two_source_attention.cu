@@ -17,36 +17,41 @@
 // joint max and denominator; a row whose gate is exactly 0 skips the bank
 // tiles and is plain self-attention.
 //
-// Two bodies. bf16 runs on the tensor cores: attention_tc of
-// attention_mma.cuh in MODE TWO_SOURCE (ungated, with or without the LSE) or
-// GATED, the kernel that bf16 kernel A and K9 run too. fp32 runs the
-// CUDA-core body of attention_common.cuh, whose products are exact fp32
-// (TF32 is off on purpose: the card-vs-CPU checks and the fp32 paths need
-// them).
+// Three bodies, chosen by the wrapper (ops/kernels/attention.py,
+// attention_body) and named by the C entry's `body` argument: 2, bf16 at
+// D <= 192, the Hopper body (wg::attention_wgmma in MODE TWO_SOURCE, with
+// or without the LSE, or GATED; attention_wgmma.cuh); 1, bf16 at any width,
+// attention_tc of attention_mma.cuh in the same modes (mma.sync; the
+// wrapper takes it above 192, at the short shapes where it is the faster
+// body, and for operands TMA cannot read); 0, fp32,
+// the CUDA-core body of attention_common.cuh, whose products are exact
+// fp32 (TF32 is off on purpose: the card-vs-CPU checks and the fp32 paths
+// need them).
 //
 // What bounds the bf16 body on an H100. A (batch, head) does
 // 4*Sq*(Sk + Sb)*D operations on 2*(Sq + Sk + Sb)*D*2 bytes, far above the
 // card's ~295 operations per byte, so the work is bound by operations; at
 // D = 40 the exponentials (Sq*(Sk + Sb) per head, 16 per SM per clock)
 // outweigh the tensor-core time. What the design does: the self tiles and
-// then the bank tiles go through one tile loop (tile t < ceil(Sk / BN) is
-// a self tile, the rest bank tiles; no tile straddles the two, each source's
-// ragged last tile is masked) with one running (m, l, acc) in registers, so
-// B costs what kernel A costs over Sk + Sb keys: both products on the
-// tensor cores, one FMA and one ex2 per logit (and one multiply by the gate
-// in the gated mode), K/V tiles streamed by cp.async into a two-stage ring
-// whose prefetch reads each tile's own source, and A's tile rule (two row
-// tiles per warp at D <= 80, 128-key tiles up to D = 160).
+// then the bank tiles go through one tile loop (tile t < ceil(Sk / 64) is
+// a self tile, the rest bank tiles; no tile straddles the two, each
+// source's ragged last tile is masked) with one running (m, l, acc) in
+// registers, so B costs what kernel A costs over Sk + Sb keys. In the
+// Hopper body each source has its own K and V TMA maps (a batch-1 bank is
+// encoded with batch extent 1 and read at batch coordinate 0: TMA takes no
+// stride of 0), and the producer walks the same tiles as the consumers.
 //
 // Plain C interface, loaded with ctypes. Strides are in elements:
 // strides[0..17] = q, k_self, v_self, k_bank, v_bank, o, each (batch, row,
 // head). lse: nullptr, or a contiguous (B, H, Sq) fp32 output. bank_mask:
-// nullptr, or a (B,) fp32 gate on the card. Returns cudaGetLastError() of
-// the launch (0 on success).
+// nullptr, or a (B,) fp32 gate on the card. dtype and body as in
+// self_attention.cu. Returns cudaGetLastError() of the launch (0 on
+// success).
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
-extern "C" int md_two_source_attention(int dtype, const void* q,
+extern "C" int md_two_source_attention(int dtype, int body, const void* q,
                                        const void* k_self, const void* v_self,
                                        const void* k_bank, const void* v_bank,
                                        void* o, float* lse,
@@ -79,7 +84,12 @@ extern "C" int md_two_source_attention(int dtype, const void* q,
   if (!md::head_dim_ok(D) || Sq < 1 || Sk < 1 || Sb < 1 || B < 1 || H < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 && body == 2) {
+    if (bank_mask != nullptr)
+      return static_cast<int>(md::wg::launch_attention<md::tc::GATED>(p, B, st));
+    return static_cast<int>(md::wg::launch_attention<md::tc::TWO_SOURCE>(p, B, st));
+  }
+  if (dtype == 1 && body == 1) {
     if (bank_mask != nullptr) {
       md::tc::AttentionLaunch<md::tc::GATED> f{p, B, st};
       return static_cast<int>(md::tc::dispatch_no(D, f));
@@ -87,6 +97,6 @@ extern "C" int md_two_source_attention(int dtype, const void* q,
     md::tc::AttentionLaunch<md::tc::TWO_SOURCE> f{p, B, st};
     return static_cast<int>(md::tc::dispatch_no(D, f));
   }
-  if (dtype == 0) return static_cast<int>(md::launch_d<float, 2>(p, B, st));
+  if (dtype == 0 && body == 0) return static_cast<int>(md::launch_d<float, 2>(p, B, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,6 +44,7 @@ from magicdance_tpu_torch.ops.kernels.attention import (
     _check_operand,
     _check_q,
     _strides,
+    check_body,
     launch,
     self_attention_cuda,
     two_source_attention_cuda,
@@ -164,29 +165,36 @@ def attention_dkv_ref(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
 
 
 def self_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       scale: Optional[float] = None):
-    """Kernel A with the LSE output. Returns (out (B, Sq, H, D), lse (B, H, Sq))."""
+                       scale: Optional[float] = None, body: Optional[str] = None):
+    """Kernel A with the LSE output. Returns (out (B, Sq, H, D), lse (B, H, Sq)).
+    `body` as for `attention.self_attention`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if body is not None:
+        check_body(body, q.dtype, q.shape[-1])
     if q.device.type == "cpu":
         return self_attention_lse_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"self_attention_lse: unsupported device {q.device}")
-    return self_attention_cuda(q, k, v, scale, with_lse=True)
+    return self_attention_cuda(q, k, v, scale, with_lse=True, body=body)
 
 
 def two_source_attention_lse(q: torch.Tensor, k_self: torch.Tensor,
                              v_self: torch.Tensor, k_bank: torch.Tensor,
-                             v_bank: torch.Tensor, scale: Optional[float] = None):
-    """Kernel B with the joint LSE output. Returns (out, lse (B, H, Sq))."""
+                             v_bank: torch.Tensor, scale: Optional[float] = None,
+                             body: Optional[str] = None):
+    """Kernel B with the joint LSE output. Returns (out, lse (B, H, Sq)).
+    `body` as for `attention.self_attention`."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if body is not None:
+        check_body(body, q.dtype, q.shape[-1])
     if q.device.type == "cpu":
         return two_source_attention_lse_ref(q, k_self, v_self, k_bank, v_bank, scale)
     if q.device.type != "cuda":
         raise ValueError(f"two_source_attention_lse: unsupported device {q.device}")
     return two_source_attention_cuda(q, k_self, v_self, k_bank, v_bank, scale,
-                                     with_lse=True)
+                                     with_lse=True, body=body)
 
 
 def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:

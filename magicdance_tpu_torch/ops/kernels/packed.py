@@ -11,9 +11,9 @@ that dtype before the PV product. It does so for any kbd/vbd; with the
 block-diagonal ones of `blockdiag` it is per-head attention of G heads at a
 time. It replaces `scripts/bench_head_packing.py::_packed_kernel`; source
 `csrc/packed_attention.cu`. Three bodies, chosen by `packed_body(dtype,
-G*D)`: "wgmma" (bf16, G*D <= 128: `csrc/attention_wgmma.cuh`, Hopper's
-wgmma fed by TMA through an mbarrier ring), "mma_sync" (bf16, wider:
-kernel A's `attention_tc`) and "cuda_core" (fp32).
+G*D)`: "wgmma" (bf16, G*D <= 128: `csrc/attention_wgmma.cuh`, the Hopper
+body of bf16 kernels A and B, wgmma fed by TMA through an mbarrier ring),
+"mma_sync" (bf16, wider: `attention_tc`) and "cuda_core" (fp32).
 
 The wrapper rule of the other kernels: a CPU tensor takes the plain version;
 a CUDA tensor launches the kernel or raises. Each launch adds one to
@@ -26,10 +26,14 @@ from typing import Optional
 
 import torch
 
-from magicdance_tpu_torch.ops.kernels.attention import (
+from magicdance_tpu_torch.ops.kernels.attention import (  # noqa: F401  (BODIES: the codes)
     _DTYPE_CODE,
+    BODIES,
+    WGMMA_MAX_PACKED,
     _check_no_grad,
     _check_operand,
+    attention_body,
+    check_body,
     launch,
 )
 
@@ -70,31 +74,11 @@ def unpack_heads(xp: torch.Tensor, batch: int, G: int) -> torch.Tensor:
 # plain version and wrapper
 # --------------------------------------------------------------------------
 
-# the C entry's body codes; "wgmma" keeps two fp32 accumulators of G*D
-# columns a row in registers, which fit up to WGMMA_MAX_WIDTH
-BODIES = {"cuda_core": 0, "mma_sync": 1, "wgmma": 2}
-WGMMA_MAX_WIDTH = 128
-
-
 def packed_body(dtype: torch.dtype, width: int) -> str:
     """The body that runs K9 on the card for this dtype and packed width
-    G*D: fp32 on the CUDA cores, bf16 on the Hopper body up to
-    WGMMA_MAX_WIDTH and on attention_tc above it."""
-    if dtype == torch.float32:
-        return "cuda_core"
-    if dtype == torch.bfloat16:
-        return "wgmma" if width <= WGMMA_MAX_WIDTH else "mma_sync"
-    raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
-
-
-def _check_body(body: str, dtype: torch.dtype, width: int) -> None:
-    """Refuse a body that cannot take this dtype or width."""
-    ok = {"cuda_core": dtype == torch.float32,
-          "mma_sync": dtype == torch.bfloat16,
-          "wgmma": dtype == torch.bfloat16 and width <= WGMMA_MAX_WIDTH}
-    if not ok.get(body, False):
-        raise ValueError(f"body {body!r} cannot run K9 in {dtype} at packed width {width} "
-                         f"(bodies: {sorted(BODIES)})")
+    G*D (`attention.attention_body` for K9): fp32 on the CUDA cores, bf16 on
+    the Hopper body up to WGMMA_MAX_PACKED and on attention_tc above it."""
+    return attention_body(dtype, width, packed=True)
 
 
 def _check(qp: torch.Tensor, kbd: torch.Tensor, vbd: torch.Tensor, G: int) -> int:
@@ -152,7 +136,7 @@ def packed_attention(qp: torch.Tensor, kbd: torch.Tensor, vbd: torch.Tensor, G: 
         scale = (qp.shape[2] // G) ** -0.5
     if body is None:
         body = packed_body(qp.dtype, qp.shape[2])
-    _check_body(body, qp.dtype, qp.shape[2])
+    check_body(body, qp.dtype, qp.shape[2], packed=True)
     if qp.device.type == "cpu":
         return packed_attention_ref(qp, kbd, vbd, G, scale)
     if qp.device.type != "cuda":

@@ -2,11 +2,12 @@
 without their LSE output and B in its gated (bank_mask) mode, the backward
 kernels C (attention_dq) and D (attention_dkv), the grouped kernel G, the
 fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
-plain PyTorch versions, on the card. Kernels A, B, C, D and G (forward and
-backward) run their tensor-core body in bf16 and their CUDA-core body in
-fp32; K8 runs the same two kernels (statistics, then apply) in both types;
-K9 runs its Hopper body (wgmma, TMA) in bf16 up to G*D = 128, attention_tc
-above, and its CUDA-core body in fp32.
+plain PyTorch versions, on the card. Kernels A, B and K9 run the Hopper
+body (wgmma, TMA; csrc/attention_wgmma.cuh) in bf16 up to D = 192 (K9: G*D
+= 128), attention_tc (mma.sync) above and when named, and their CUDA-core
+bodies in fp32; C, D and G (forward and backward) run their tensor-core body
+in bf16 and their CUDA-core body in fp32; K8 runs the same two kernels
+(statistics, then apply) in both types.
 K8 and G's backward are held to give the same bits on every run.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
@@ -586,6 +587,111 @@ def test_self_attention_lse_pooled_bsnh(cuda, dtype, d):
     _close(got[0], want[0], dtype)
     assert got[1].dtype == torch.float32 and got[1].shape == (2, 8, 1000)
     _close(got[1], want[1], torch.float32)
+
+
+# the Hopper body of A and B (csrc/attention_wgmma.cuh) in every mode, beside
+# attention_tc named explicitly: (b, sq, sk, sb, bank batch, d); D = 40 takes
+# one partial 64-column TMA box, 80 a full and a partial one, 160 three, 192
+# the body's widest; ragged lengths everywhere but the main-path widths
+HOPPER_CASES = [
+    (2, 1024, 1024, 1024, 1, 40), (2, 300, 200, 130, 1, 40), (2, 1024, 1024, 1024, 2, 80),
+    (3, 130, 390, 200, 1, 80), (2, 256, 256, 256, 1, 160), (2, 200, 70, 100, 2, 160),
+    (1, 150, 250, 64, 1, 192),
+]
+
+
+@pytest.mark.parametrize("mode", ["self", "self_lse", "two", "two_lse", "gated"])
+@pytest.mark.parametrize("b,sq,sk,sb,bb,d", HOPPER_CASES)
+def test_attention_bodies_match_plain(cuda, mode, b, sq, sk, sb, bb, d):
+    """bf16 A and B on the body `attention_body` picks for the shape, on the
+    Hopper body (which takes D up to 192) and on attention_tc named
+    explicitly, one launch each, all against the plain version; the LSE
+    within 2e-4."""
+    from magicdance_tpu_torch.ops.kernels.attention import attention_body
+
+    assert attention_body(torch.bfloat16, d) == "wgmma"
+    dt = torch.bfloat16
+    q = _rand(cuda, b, sq, 4, d, dtype=dt, seed=170)
+    k, v = (_rand(cuda, b, sk, 4, d, dtype=dt, seed=171 + i) for i in range(2))
+    kb, vb = (_rand(cuda, bb, sb, 4, d, dtype=dt, seed=173 + i) for i in range(2))
+    gates = torch.tensor([1.0, 0.0, 0.5][:b], device=cuda)
+    run = {
+        "self": (lambda body: (K.self_attention(q, k, v, body=body), None),
+                 lambda: (K.self_attention_ref(q, k, v), None), "self_attention"),
+        "self_lse": (lambda body: V.self_attention_lse(q, k, v, body=body),
+                     lambda: V.self_attention_lse_ref(q, k, v), "self_attention_lse"),
+        "two": (lambda body: (K.two_source_attention(q, k, v, kb, vb, body=body), None),
+                lambda: (K.two_source_attention_ref(q, k, v, kb, vb), None),
+                "two_source_attention"),
+        "two_lse": (lambda body: V.two_source_attention_lse(q, k, v, kb, vb, body=body),
+                    lambda: V.two_source_attention_lse_ref(q, k, v, kb, vb),
+                    "two_source_attention_lse"),
+        "gated": (lambda body: (K.two_source_attention(q, k, v, kb, vb, bank_mask=gates,
+                                                       body=body), None),
+                  lambda: (K.two_source_attention_ref(q, k, v, kb, vb, bank_mask=gates), None),
+                  "two_source_attention_gated"),
+    }
+    kern, plain, counter = run[mode]
+    want = plain()
+    for body in (None, "wgmma", "mma_sync"):
+        K.reset_launches()
+        got = kern(body)
+        assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES}, counter: 1}
+        _close(got[0], want[0], dt)
+        if want[1] is not None:
+            _close(got[1], want[1], torch.float32)
+
+
+def test_attention_bodies_refuse_what_they_cannot_take(cuda):
+    """A named body must take the dtype and width, and the C entry refuses
+    the Hopper body past D = 192 with cudaErrorInvalidValue: nothing falls
+    back to another body."""
+    import ctypes
+
+    from magicdance_tpu_torch.ops.kernels import build
+
+    q = _rand(cuda, 1, 128, 2, 256, dtype=torch.bfloat16, seed=180)
+    with pytest.raises(ValueError):
+        K.self_attention(q, q, q, body="wgmma")
+    with pytest.raises(ValueError):
+        K.two_source_attention(q, q, q, q, q, body="wgmma")
+    with pytest.raises(ValueError):
+        K.self_attention(q[..., :40], q[..., :40], q[..., :40], body="cuda_core")
+    with pytest.raises(ValueError):
+        K.self_attention(q.float(), q.float(), q.float(), body="wgmma")
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*([q.stride(0), q.stride(1), q.stride(2)] * 4))
+    lib = build.load("self_attention")
+    err = lib.md_self_attention(1, 2, q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+                                None, strides, 1, 2, 256, 128, 128, ctypes.c_float(0.0625),
+                                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err != 0 and b"invalid argument" in lib.md_error_string(err)
+
+
+def test_attention_broadcast_operands(cuda):
+    """Operands broadcast over batch rows or heads (stride 0) run on the
+    Hopper body, read at coordinate 0; keys broadcast over rows (row stride
+    0), which its TMA maps cannot read, go to attention_tc by default, and
+    naming the Hopper body for them raises."""
+    from magicdance_tpu_torch.ops.kernels.attention import tma_readable
+
+    dt = torch.bfloat16
+    q = _rand(cuda, 3, 200, 4, 80, dtype=dt, seed=190)
+    over_heads = [_rand(cuda, 3, 150, 1, 80, dtype=dt, seed=191 + i).expand(3, 150, 4, 80)
+                  for i in range(2)]
+    over_batch = [_rand(cuda, 1, 150, 4, 80, dtype=dt, seed=193 + i).expand(3, 150, 4, 80)
+                  for i in range(2)]
+    for k, v in (over_heads, over_batch):
+        assert tma_readable(k) and tma_readable(v)
+        _close(K.self_attention(q, k, v, body="wgmma"), K.self_attention_ref(q, k, v), dt)
+        _close(K.two_source_attention(q, q, q, k, v, body="wgmma"),
+               K.two_source_attention_ref(q, q, q, k, v), dt)
+    kbh = over_batch[1]
+    k_row = _rand(cuda, 3, 1, 4, 80, dtype=dt, seed=195).expand(3, 150, 4, 80)
+    assert not tma_readable(k_row)
+    _close(K.self_attention(q, k_row, kbh), K.self_attention_ref(q, k_row, kbh), dt)
+    with pytest.raises(ValueError):
+        K.self_attention(q, k_row, kbh, body="wgmma")
 
 
 def _packed_inputs(dev, bg, sq, s, g, d, dtype, blockdiag_heads, seed):

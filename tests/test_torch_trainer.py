@@ -49,8 +49,15 @@ from torch_port_util import (
 from torch_port_util import torch_single_thread  # noqa: F401  (autouse fixture)
 
 
-def test_trainable_sets_match_jax():
-    (m, _, _), (mp, _, _) = jax_params(jax_train_cfg())
+@pytest.fixture(scope="module")
+def stage2_params():
+    """`jax_params` of the stage-2 model (seed 0), built once: the trainable
+    sets and the stage-2 reference read the same tree."""
+    return jax_params(jax_train_cfg())
+
+
+def test_trainable_sets_match_jax(stage2_params):
+    (m, _, _), (mp, _, _) = stage2_params
     flat = jax.tree_util.tree_flatten_with_path(mp["params"])[0]
     paths = [tuple(p.key for p in path) for path, _ in flat]
     tr = Trainer(port_train_cfg(jax_train_cfg()), device="cpu")
@@ -73,12 +80,12 @@ def test_trainable_sets_match_jax():
 
 
 @pytest.fixture(scope="module")
-def stage2():
+def stage2(stage2_params):
     jc = jax_train_cfg(optim=J.OptimConfig(learning_rate=1e-3, warmup_steps=1, adam_eps=1e-4,
                                      frozen_dtype="float32", ema_rate=0.5,
                                      weight_decay=0.01),
                  vae_encode_chunk=1)
-    return JaxReference(jc)
+    return JaxReference(jc, params=stage2_params)  # the model of jax_train_cfg(), seed 0
 
 
 def test_loss_and_grads_match_jax(stage2):
