@@ -17,13 +17,16 @@ Phases, in order; every check raises, so any failure exits non-zero:
      `grouped_bwd_tc`), of K8's two kernels (`md::gn::gn_stats`, `gn_apply`)
      and the CUDA-core instantiations by type (none in bf16 for A, B, C, D
      and G, forward and backward); G's backward must not spill at the
-     full-width motion widths (D = 40, 80, 160 at BN = 16). The Hopper body
-     (`md::wg::attention_wgmma<KS, MODE>`: bf16 A (SELF) and B (TWO_SOURCE,
-     GATED) up to D = 192, K9 (PACKED) up to G*D = 128) must be compiled at
-     every KS and mode, must not spill, ptxas must not drop its setmaxnreg
-     split, and `cuobjdump -sass` of libself_attention,
-     libtwo_source_attention and libpacked_attention must show wgmma
-     (HGMMA) and TMA loads (UTMALDG).
+     full-width motion widths (D = 40, 80, 160 at BN = 16). The Hopper
+     bodies (`md::wg::attention_wgmma<KS, MODE>`: bf16 A (SELF) and B
+     (TWO_SOURCE, GATED) up to D = 192, K9 (PACKED) up to G*D = 128;
+     `attention_dq_wgmma<KS, MODE>`: C with one (SELF) or two (TWO_SOURCE)
+     sources up to D = 192; `attention_dkv_wgmma<KS>`: D up to D = 160) must
+     be compiled at every KS and mode, must not spill, ptxas must not drop
+     their setmaxnreg split, and `cuobjdump -sass` of libself_attention,
+     libtwo_source_attention, libpacked_attention, libattention_dq and
+     libattention_dkv must show wgmma (HGMMA) and TMA loads (UTMALDG); C's
+     and D's libraries, and their Hopper body's source, no atomic.
   2b. the kernel gate (`ops/kernel_gate.py::run_gate`, before any timed
      phase): every case of the JAX gate and the main path's shapes at H = 8
      (D = 40, 80, 160, batch-1 banks, the gated read, G at (4096, 16, 40)),
@@ -67,11 +70,16 @@ Phases, in order; every check raises, so any failure exits non-zero:
      4096 / 1024 / 256), bf16, the plain versions run two frames at a time.
      Gates: o and LSE as phase 3; gradients fp32 <= 2e-4 x max(1, max
      |plain|), bf16 <= min(1e-1, 0.1 x the RMS of the plain gradient).
-     Times kernel, plain version, library call (the backward of
-     F.scaled_dot_product_attention through torch.autograd.grad, K/V
-     concatenated for two sources; a yardstick only) and the bound, with the
-     operations each kernel does: 4, 6 and 8 x Sq x Skv x D per (batch, head,
-     source) for the forward, dQ and dK/dV.
+     bf16 C and D run on each body that takes the width (the Hopper body,
+     `attention_bwd_wgmma.cuh`, C up to D = 192 and D up to 160; the mma.sync
+     body, `attention_bwd_mma.cuh`), each held by the gradient rule, and on
+     their default body twice, which must give the same bits. Times kernel
+     (the body `attention_body` picks, both bodies beside it), plain
+     version, library call (the backward of F.scaled_dot_product_attention
+     through torch.autograd.grad, K/V concatenated for two sources; a
+     yardstick only) and the bound, with the operations each kernel does: 4,
+     6 and 8 x Sq x Skv x D per (batch, head, source) for the forward, dQ
+     and dK/dV.
   8. small-input training reference: one narrow stage-2 train step at
      128x128 (S = 256 reaches the kernels) on the card and on the CPU from
      the same weights, batch and draws (fp32): loss, every trainable
@@ -248,8 +256,9 @@ Phases, in order; every check raises, so any failure exits non-zero:
      B without the LSE where the plan launches them, else the LSE forward, C
      and D; cross-attention over 77 keys, the S = 64 sites, the temporal
      sites, B = 1 and 16) against its plain versions, bf16 timed with the
-     SDPA library time and the bound (A and B on both bodies, the one
-     `attention_body` picks marked), and fp32. 26c: `cli.train` at full width, frozen int8, no checkpoint
+     SDPA library time and the bound (A, B, C and D on each body that takes
+     the width, the one `attention_body` picks marked; C and D held on each
+     and twice with the same bits, as in phase 7), and fp32. 26c: `cli.train` at full width, frozen int8, no checkpoint
      (the Flax-style init: every zero-init kernel exactly zero at step 0),
      on a seeded tree of 512x512 JPEG frames and PNG pose maps under
      chiprun_out/phase26 (deleted at the end) decoded by the native loader
@@ -326,14 +335,23 @@ KERNELS = {
         source="magicdance_tpu_torch/ops/kernels/csrc/attention_dq.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:129 (_dq_kernel); "
                  "magicdance_tpu/ops/pallas/flash_vjp.py:153 (_dq2_kernel)",
-        body="bf16: md::tc::attention_dq_tc (tensor cores, mma.sync); fp32: md::attention_dq (CUDA "
+        body="bf16, D <= 192 where it is the faster body (every main-path shape; "
+             "attention.py::attention_body): md::wg::attention_dq_wgmma SELF / TWO_SOURCE "
+             "(attention_bwd_wgmma.cuh: wgmma, TMA, mbarrier ring, warp specialised); other bf16 "
+             "(D > 192, D <= 48 over 128 keys or fewer, 48 < D <= 80 over 64 or fewer, rows TMA "
+             "cannot read): md::tc::attention_dq_tc (mma.sync); fp32: md::attention_dq (CUDA "
              "cores)",
         modes=("attention_dq", "attention_dq_two_source")),
     "attention_dkv": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/attention_dkv.cu",
         replaces="magicdance_tpu/ops/pallas/flash_vjp.py:202 (_dkv_kernel)",
-        body="bf16: md::tc::attention_dkv_tc (tensor cores, mma.sync); fp32: md::attention_dkv "
-             "(CUDA cores)",
+        body="bf16, D <= 160 where it is the faster body (every main-path shape; "
+             "attention.py::attention_body): md::wg::attention_dkv_wgmma (attention_bwd_wgmma.cuh: "
+             "wgmma, TMA, mbarrier ring, warp specialised; the query walk split over blocks with "
+             "fp32 partials summed in order by md::wg::dkv_reduce where the grid would leave SMs "
+             "idle, flash_vjp.dkv_split); other bf16 (D > 160, under 256 query rows walked a "
+             "block, lse rows TMA cannot read): md::tc::attention_dkv_tc (mma.sync); fp32: "
+             "md::attention_dkv (CUDA cores)",
         modes=("attention_dkv",)),
     "grouped_attention": dict(
         source="magicdance_tpu_torch/ops/kernels/csrc/grouped_attention.cu",
@@ -401,16 +419,65 @@ def end_phase() -> None:
         log(f"  ({name}: {PHASE_S[-1][1]} s)")
 
 
-def body_times(call, d: int, rows: int, keys: tuple) -> tuple:
-    """bf16 kernel A or B (`call(body=...)`) on both of its bodies: the body
-    `attention_body` picks for (D, S_q, key counts) and {body: device ms}."""
+def bf16_bodies(d: int, kernel: str = "attention") -> list:
+    """The bf16 bodies that can run `kernel` (as `attention_body` names it)
+    at head width d."""
+    import torch
+
+    from magicdance_tpu_torch.ops.kernels.attention import check_body
+
+    out = []
+    for body in ("wgmma", "mma_sync"):
+        try:
+            check_body(body, torch.bfloat16, d, kernel=kernel)
+            out.append(body)
+        except ValueError:
+            pass
+    return out
+
+
+def body_times(call, d: int, rows: int, keys: tuple, kernel: str = "attention") -> tuple:
+    """bf16 kernel A, B, C or D (`kernel` as `attention_body` names it;
+    `call(body=...)`) on each body that can take width d: the body
+    `attention_body` picks for (D, S_q or the query rows D's blocks walk,
+    key counts) and {body: device ms}."""
     import torch
 
     from magicdance_tpu_torch.ops.kernels.attention import attention_body
     from magicdance_tpu_torch.utils.timing import device_time_ms
 
-    chosen = attention_body(torch.bfloat16, d, rows=rows, keys=keys)
-    return chosen, {b: device_time_ms(lambda b=b: call(body=b)) for b in ("wgmma", "mma_sync")}
+    chosen = attention_body(torch.bfloat16, d, rows=rows, keys=keys, kernel=kernel)
+    return chosen, {b: device_time_ms(lambda b=b: call(body=b)) for b in bf16_bodies(d, kernel)}
+
+
+def bodies_text(bodies: dict, mma_sync_ms=None) -> str:
+    """"(body) wgmma_ms=.. mma_sync_ms=.. " of a row's body times, for the log."""
+    if not bodies:
+        return f"mma_sync_ms={mma_sync_ms:.4f} " if mma_sync_ms is not None else ""
+    fmt = lambda x: "n/a" if x is None else f"{x:.4f}"  # noqa: E731
+    return (f"({bodies['body']}) wgmma_ms={fmt(bodies.get('wgmma_ms'))} "
+            f"mma_sync_ms={fmt(bodies.get('mma_sync_ms', mma_sync_ms))} ")
+
+
+def hold_bwd_bodies(check, name: str, call, want, label: str, d: int, kernel: str) -> None:
+    """bf16 kernel C (`kernel` "dq": `call(body=...)` -> dQ) or D ("dkv": ->
+    (dK, dV)) on each body that can take width d, against the plain
+    `want` by `check(name, got, want, label, grad=True)`; then the default
+    body twice, which must give the same bits (neither kernel uses
+    atomics)."""
+    import torch
+
+    names = ("dQ",) if kernel == "dq" else ("dK", "dV")
+    want = (want,) if kernel == "dq" else want
+    for body in bf16_bodies(d, kernel):
+        got = call(body=body)
+        for g_, w_, nm in zip((got,) if kernel == "dq" else got, want, names):
+            check(name, g_, w_, f"{label} {nm} {body}", grad=True)
+    first, again = call(), call()
+    first, again = ((first,), (again,)) if kernel == "dq" else (first, again)
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"{name} {label}: two launches on the same inputs differ")
+    log(f"  ok  {name:22s} {label}: two launches, the same bits")
 
 
 def cpu_model() -> str:
@@ -511,24 +578,33 @@ def gn_instantiations(log_text: str) -> list[tuple[str, int, int]]:
 
 
 WG_MODES = {"0": "SELF", "1": "TWO_SOURCE", "2": "GATED", "3": "PACKED"}
-# the Hopper body's instantiations each library must hold: (KS, mode) for
-# KS = 1 .. 12 (D <= 192) in A and B, 1 .. 8 (G*D <= 128) in K9
+# the Hopper bodies' instantiations each library must hold: (KS, mode) for
+# KS = 1 .. 12 (D <= 192) in A, B and C, 1 .. 8 (G*D <= 128) in K9, 1 .. 10
+# (D <= 160) in D ("DKV": D's kernel has no mode)
 HOPPER_EXPECTED = {
     "self_attention": {(ks, "SELF") for ks in range(1, 13)},
     "two_source_attention": {(ks, m) for ks in range(1, 13) for m in ("TWO_SOURCE", "GATED")},
     "packed_attention": {(ks, "PACKED") for ks in range(1, 9)},
+    "attention_dq": {(ks, m) for ks in range(1, 13) for m in ("SELF", "TWO_SOURCE")},
+    "attention_dkv": {(ks, "DKV") for ks in range(1, 11)},
 }
+# libraries whose Hopper body must hold no atomic (C and D: deterministic)
+NO_ATOMICS = ("attention_dq", "attention_dkv")
+ATOMIC_OPS = ("ATOM", "ATOMG", "ATOMS", "RED")
 
 
-def wgmma_instantiations(log_text: str) -> list[tuple[int, str, int, int]]:
-    """(KS, mode, registers at launch, spill bytes) of each entry function
-    attention_wgmma<KS, MODE> of md::wg (the Hopper body; KS: k16 steps of
-    the QK^T contraction; MODE: md::tc::Mode) in a ptxas -v report."""
+def wgmma_instantiations(log_text: str) -> list[tuple[str, int, str, int, int]]:
+    """(kernel, KS, mode, registers at launch, spill bytes) of each entry
+    function of md::wg's Hopper bodies in a ptxas -v report:
+    attention_wgmma<KS, MODE> (A, B, K9), attention_dq_wgmma<KS, MODE> (C)
+    and attention_dkv_wgmma<KS> (D, mode "DKV"); KS: k16 steps of the D
+    contraction; MODE: md::tc::Mode."""
     out = []
     for name, regs, spill in _entry_chunks(log_text):
-        m = re.match(r"_ZN2md2wg\d+attention_wgmmaILi(\d+)ELi(\d+)E", name)
+        m = re.match(r"_ZN2md2wg\d+(attention_(?:dq_|dkv_)?wgmma)ILi(\d+)E(?:Li(\d+)E)?", name)
         if m:
-            out.append((int(m.group(1)), WG_MODES.get(m.group(2), m.group(2)), regs, spill))
+            mode = WG_MODES.get(m.group(3), m.group(3)) if m.group(3) is not None else "DKV"
+            out.append((m.group(1), int(m.group(2)), mode, regs, spill))
     return out
 
 
@@ -545,31 +621,53 @@ def sass_opcodes(lib_path, opcodes=("HGMMA", "UTMALDG")) -> dict:
     return {op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}
 
 
-def check_hopper_body(name: str, lib_path, log_text: str) -> dict:
-    """Phase 2, the libraries of A, B and K9: the Hopper body must be
+def bwd_source_atomics() -> list:
+    """Atomic operations in the code (comments left out) of the backward
+    kernels' Hopper body, csrc/attention_bwd_wgmma.cuh."""
+    path = os.path.join(ROOT, "magicdance_tpu_torch", "ops", "kernels", "csrc",
+                        "attention_bwd_wgmma.cuh")
+    with open(path) as f:
+        code = re.sub(r"//[^\n]*", "", f.read())
+    return re.findall(r"\batomic\w*|\batom\.\w+|\bred\.\w+", code)
+
+
+def hopper_opcodes(name: str) -> tuple:
+    """The SASS opcodes phase 2 counts in a Hopper body's library."""
+    return ("HGMMA", "UTMALDG") + (ATOMIC_OPS if name in NO_ATOMICS else ())
+
+
+def check_hopper_body(name: str, lib_path, log_text: str, ops=None) -> dict:
+    """Phase 2, the libraries of A, B, K9, C and D: the Hopper body must be
     compiled at every (KS, mode) of HOPPER_EXPECTED[name], no instantiation
     may spill, ptxas must keep its register split (no C7508 "setmaxnreg
-    ignored"), and the SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG).
-    Returns what it read."""
+    ignored"), and the SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG);
+    in C's and D's libraries it must hold no atomic (ATOMIC_OPS), nor their
+    Hopper body's source. `ops`: the library's `sass_opcodes` of
+    `hopper_opcodes(name)`, read here when not given. Returns what it
+    read."""
     insts = wgmma_instantiations(log_text)
-    for ks, mode, nreg, spill in insts:
-        log(f"    attention_wgmma<KS={ks}, {mode}>: {nreg} registers at launch, "
-            f"{spill} spill bytes")
+    for kern, ks, mode, nreg, spill in insts:
+        log(f"    {kern}<KS={ks}, {mode}>: {nreg} registers at launch, {spill} spill bytes")
     warnings = sorted({line.strip() for line in log_text.splitlines()
                        if "setmaxnreg" in line or "serialized" in line})
     for line in warnings:
         log(f"    ptxas: {line}")
-    ops = sass_opcodes(lib_path)
+    if ops is None:
+        ops = sass_opcodes(lib_path, hopper_opcodes(name))
+    atomics = {op: ops[op] for op in ATOMIC_OPS if ops.get(op)}
+    if name in NO_ATOMICS:
+        atomics.update({w: 1 for w in bwd_source_atomics()})
     log(f"    SASS: {ops}")
-    spilled = {(ks, mode): spill for ks, mode, _, spill in insts if spill}
-    found = {(ks, mode) for ks, mode, _, _ in insts}
-    if (found != HOPPER_EXPECTED[name] or spilled or not all(ops.values())
-            or any("setmaxnreg" in w and "ignored" in w for w in warnings)):
+    spilled = {(ks, mode): spill for _, ks, mode, _, spill in insts if spill}
+    found = {(ks, mode) for _, ks, mode, _, _ in insts}
+    if (found != HOPPER_EXPECTED[name] or spilled or not (ops["HGMMA"] and ops["UTMALDG"])
+            or atomics or any("setmaxnreg" in w and "ignored" in w for w in warnings)):
         raise AssertionError(f"{name}: Hopper body instantiations {sorted(found)} (expected "
                              f"{sorted(HOPPER_EXPECTED[name])}), spills {spilled}, SASS {ops}, "
-                             f"ptxas {warnings}")
-    return dict(instantiations=[dict(KS=ks, mode=mode, registers=nreg, spill_bytes=spill)
-                                for ks, mode, nreg, spill in insts],
+                             f"atomics {atomics}, ptxas {warnings}")
+    return dict(instantiations=[dict(kernel=kern, KS=ks, mode=mode, registers=nreg,
+                                     spill_bytes=spill)
+                                for kern, ks, mode, nreg, spill in insts],
                 sass=ops, ptxas_warnings=warnings)
 
 
@@ -1480,16 +1578,27 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
             check(fname, got_lse, lse, f"{label} lse mma_sync", grad=False)
         delta = V.attention_delta(dout, out)
         dq_args = (q, k, v, dout, lse, delta, None, kb, vb)
-        check("attention_dq", V.attention_dq(*dq_args), V.attention_dq_ref(*dq_args),
-              f"{label} dQ", grad=True)
+        bf16 = q.dtype == torch.bfloat16
+        b, sq, h, d = q.shape
+        if bf16:  # C and D on both bodies, and the default one twice
+            hold_bwd_bodies(check, "attention_dq", lambda **kw: V.attention_dq(*dq_args, **kw),
+                            V.attention_dq_ref(*dq_args), label, d, "dq")
+        else:
+            check("attention_dq", V.attention_dq(*dq_args), V.attention_dq_ref(*dq_args),
+                  f"{label} dQ", grad=True)
         for src, (kk, vv) in (("self", (k, v)),) + ((("bank", (kb, vb)),) if two else ()):
             dkv_args = (kk, vv, q, dout, lse, delta)
+            if bf16:
+                hold_bwd_bodies(check, "attention_dkv",
+                                lambda kw_args=dkv_args, **kw: V.attention_dkv(*kw_args, **kw),
+                                V.attention_dkv_ref(*dkv_args), f"{label} ({src} source)", d,
+                                "dkv")
+                continue
             for g_, w_, nm in zip(V.attention_dkv(*dkv_args), V.attention_dkv_ref(*dkv_args),
                                   ("dK", "dV")):
                 check("attention_dkv", g_, w_, f"{label} {nm} ({src} source)", grad=True)
         if not timed:
             return
-        b, sq, h, d = q.shape
         kv = [(b, k.shape[1])] + ([(kb.shape[0], kb.shape[1])] if two else [])
         kh = torch.cat([k, kb.expand(b, -1, -1, -1)], 1) if two else k
         vh = torch.cat([v, vb.expand(b, -1, -1, -1)], 1) if two else v
@@ -1504,17 +1613,25 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
         }
         src_kv = (kb, vb) if two else (k, v)
         cases = {
-            "lse": (lambda: fwd(*fargs), lambda: fwd_ref(*fargs), kv,
+            "lse": (lambda **kw: fwd(*fargs, **kw), lambda: fwd_ref(*fargs), kv,
                     "two_source_attention_lse" if two else "self_attention_lse"),
-            "dq": (lambda: V.attention_dq(*dq_args), lambda: V.attention_dq_ref(*dq_args), kv,
+            "dq": (lambda **kw: V.attention_dq(*dq_args, **kw),
+                   lambda: V.attention_dq_ref(*dq_args), kv,
                    "attention_dq_two_source" if two else "attention_dq"),
-            "dkv": (lambda: V.attention_dkv(*src_kv, q, dout, lse, delta),
+            "dkv": (lambda **kw: V.attention_dkv(*src_kv, q, dout, lse, delta, **kw),
                     lambda: V.attention_dkv_ref(*src_kv, q, dout, lse, delta),
                     [(src_kv[0].shape[0], src_kv[0].shape[1])], "attention_dkv"),
         }
         for kind, (kern, plain, kv_, mode) in cases.items():
-            ms = device_time_ms(kern)
-            tc_ms = device_time_ms(lambda: fwd(*fargs, body="mma_sync")) if kind == "lse" else None
+            bodies = {}
+            if kind == "lse":
+                ms = device_time_ms(kern)
+                tc_ms = device_time_ms(lambda: fwd(*fargs, body="mma_sync"))
+            else:  # C or D: both bodies, the one attention_body picks is the kernel's time
+                walked = sq * (b if kind == "dkv" and kv_[0][0] == 1 and b > 1 else 1)
+                chosen, t = body_times(kern, d, walked, tuple(n for _, n in kv_), kind)
+                ms, tc_ms = t[chosen], t.get("mma_sync")
+                bodies = dict(body=chosen, wgmma_ms=t.get("wgmma"))
             plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
             bound, bound_by = training_bound_ms(kind, b, sq, h, d, kv_)
             # dK/dV of a bank source at bank batch B has the self source's
@@ -1524,10 +1641,9 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
                              bank_batch=kb.shape[0] if two else None,
                              launches_per_step=per_step, kernel_ms=ms, plain_ms=plain_ms,
                              library_ms=lib[kind], bound_ms=bound, bound_by=bound_by,
-                             exp_bound_ms=exp_bound_ms(b, sq, h, kv_),
+                             exp_bound_ms=exp_bound_ms(b, sq, h, kv_), **bodies,
                              **({"mma_sync_ms": tc_ms} if tc_ms is not None else {})))
-            log(f"      {mode:25s} kernel_ms={ms:.4f} "
-                + (f"mma_sync_ms={tc_ms:.4f} " if tc_ms is not None else "")
+            log(f"      {mode:25s} kernel_ms={ms:.4f} " + bodies_text(bodies, tc_ms)
                 + f"plain_ms={plain_ms:.4f} "
                 f"library_ms={lib[kind]:.4f} bound_ms={bound:.4f} ({bound_by}) "
                 f"x{per_step}/step")
@@ -1581,22 +1697,22 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
         delta = V.attention_delta(dout, out)
         del out, lse_ref
 
-        def dq_kern():
-            return V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb)
+        def dq_kern(**kw):
+            return V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb, **kw)
 
         def dq_plain():
             return by_frames(lambda q_, k_, v_, do_, l_, d_: V.attention_dq_ref(
                 q_, k_, v_, do_, l_, d_, None, kb, vb), q, k, v, dout, lse, delta)
 
-        def dkv_kern():
-            return V.attention_dkv(k, v, q, dout, lse, delta)
+        def dkv_kern(**kw):
+            return V.attention_dkv(k, v, q, dout, lse, delta, **kw)
 
         def dkv_plain():
             return by_frames(V.attention_dkv_ref, k, v, q, dout, lse, delta)
 
-        check("attention_dq", dq_kern(), dq_plain(), f"{label} dQ", grad=True)
-        for g_, w_, nm in zip(dkv_kern(), dkv_plain(), ("dK", "dV")):
-            check("attention_dkv", g_, w_, f"{label} {nm} (self source)", grad=True)
+        hold_bwd_bodies(check, "attention_dq", dq_kern, dq_plain(), label, d, "dq")
+        hold_bwd_bodies(check, "attention_dkv", dkv_kern, dkv_plain(), f"{label} (self source)",
+                        d, "dkv")
         kh = torch.cat([k, kb.expand(frames, -1, -1, -1)], 1)
         vh = torch.cat([v, vb.expand(frames, -1, -1, -1)], 1)
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, kh, vh))
@@ -1605,7 +1721,9 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
         for kind, mode, kern, plain, kv in (
                 ("dq", "attention_dq_two_source", dq_kern, dq_plain, [(frames, s), (1, s)]),
                 ("dkv", "attention_dkv", dkv_kern, dkv_plain, [(frames, s)])):
-            ms = device_time_ms(kern)
+            chosen, t = body_times(kern, d, s, tuple(n for _, n in kv), kind)
+            ms, bodies = t[chosen], dict(body=chosen, wgmma_ms=t.get("wgmma"),
+                                          mma_sync_ms=t.get("mma_sync"))
             plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=3)
             lib = device_time_ms(lambda: torch.autograd.grad(
                 lib_out, [qs] if kind == "dq" else [ks, vs], g, retain_graph=True))
@@ -1614,8 +1732,9 @@ def check_training_kernels(plan, stage3, batch: int = 2, heads: int = 8, frames:
                              bank_batch=1 if kind == "dq" else None,
                              launches_per_step=per_step, kernel_ms=ms, plain_ms=plain_ms,
                              library_ms=lib, bound_ms=bound, bound_by=bound_by,
-                             exp_bound_ms=exp_bound_ms(frames, s, heads, kv)))
-            log(f"      {mode:25s} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (by {chunk} "
+                             exp_bound_ms=exp_bound_ms(frames, s, heads, kv), **bodies))
+            log(f"      {mode:25s} kernel_ms={ms:.4f} " + bodies_text(bodies)
+                + f"plain_ms={plain_ms:.4f} (by {chunk} "
                 f"frames) library_ms={lib:.4f} bound_ms={bound:.4f} ({bound_by}) "
                 f"x{per_step}/stage-3 step")
         del q, k, v, dout, kb, vb, lse, delta, kh, vh, qs, ks, vs, lib_out, g
@@ -4499,18 +4618,29 @@ def p26_flash_shapes(cases, heads: int = 8):
                 qside = (q, k, v, dout, lse, delta) + ((kb, vb) if two and bb == b else ())
                 kern["lse"] = (lambda **kw: lfwd(*src, *tail, **kw),
                                lambda: by_rows(lref, src, tail, chunk))
-                kern["dq"] = (lambda: V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb),
+                kern["dq"] = (lambda **kw: V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb,
+                                                          **kw),
                               lambda: by_rows(dq_ref, qside, tail, chunk))
-                kern["dkv"] = (lambda: V.attention_dkv(k, v, q, dout, lse, delta),
+                kern["dkv"] = (lambda **kw: V.attention_dkv(k, v, q, dout, lse, delta, **kw),
                                lambda: by_rows(V.attention_dkv_ref, (k, v, q, dout, lse, delta),
                                                (), chunk))
-                check("attention_dq", kern["dq"][0](), kern["dq"][1](), f"{tag} dQ", grad=True)
+                bf16 = dtype == torch.bfloat16
+                if bf16:  # C and D on both bodies, and the default one twice
+                    hold_bwd_bodies(check, "attention_dq", kern["dq"][0], kern["dq"][1](), tag, d,
+                                    "dq")
+                else:
+                    check("attention_dq", kern["dq"][0](), kern["dq"][1](), f"{tag} dQ",
+                          grad=True)
                 sources = [("self", k, v)] + ([("bank", kb, vb)] if two and bb == b else [])
                 for name_, kk, vv in sources:
                     dkv_args = (kk, vv, q, dout, lse, delta)
-                    for g_, w_, nm in zip(V.attention_dkv(*dkv_args),
-                                          by_rows(V.attention_dkv_ref, dkv_args, (), chunk),
-                                          ("dK", "dV")):
+                    want = by_rows(V.attention_dkv_ref, dkv_args, (), chunk)
+                    if bf16:
+                        hold_bwd_bodies(check, "attention_dkv",
+                                        lambda a_=dkv_args, **kw: V.attention_dkv(*a_, **kw), want,
+                                        f"{tag} ({name_} source)", d, "dkv")
+                        continue
+                    for g_, w_, nm in zip(V.attention_dkv(*dkv_args), want, ("dK", "dV")):
                         check("attention_dkv", g_, w_, f"{tag} {nm} ({name_} source)", grad=True)
             if dtype != torch.bfloat16:
                 del q, k, v, dout, kb, vb, src, tail, kern
@@ -4537,10 +4667,10 @@ def p26_flash_shapes(cases, heads: int = 8):
                 bodies = {}
                 if kind in ("fwd", "lse"):  # A or B: both bodies
                     chosen, t = body_times(run, d, sq, kv)
-                    ms = t[chosen]
-                    bodies = dict(body=chosen, wgmma_ms=t["wgmma"], mma_sync_ms=t["mma_sync"])
-                else:
-                    ms = device_time_ms(run)
+                else:  # C or D: each body that takes the width (D's on the self source)
+                    chosen, t = body_times(run, d, sq, kv if kind == "dq" else kv[:1], kind)
+                ms = t[chosen]
+                bodies = dict(body=chosen, wgmma_ms=t.get("wgmma"), mma_sync_ms=t.get("mma_sync"))
                 plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
                 if kind == "fwd":
                     bound, bound_by = attention_bound_ms(b, sq, heads, d, kvs)
@@ -4552,9 +4682,7 @@ def p26_flash_shapes(cases, heads: int = 8):
                                  bank_batch=bb, path=path, launches_per_step=n, kernel_ms=ms,
                                  plain_ms=plain_ms, library_ms=lib[kind], bound_ms=bound,
                                  bound_by=bound_by, **bodies))
-                log(f"      {mode:25s} kernel_ms={ms:.4f} "
-                    + (f"({bodies['body']}) wgmma_ms={bodies['wgmma_ms']:.4f} "
-                       f"mma_sync_ms={bodies['mma_sync_ms']:.4f} " if bodies else "")
+                log(f"      {mode:25s} kernel_ms={ms:.4f} " + bodies_text(bodies)
                     + f"plain_ms={plain_ms:.4f} "
                     f"library_ms={lib[kind]:.4f} bound_ms={bound:.4f} ({bound_by}) "
                     f"x{n}/{path} flash step")
@@ -4905,6 +5033,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     paths = build.build()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(HOPPER_EXPECTED)) as pool:  # one cuobjdump a library at once
+        sass = {n: pool.submit(sass_opcodes, paths[n], hopper_opcodes(n))
+                for n in HOPPER_EXPECTED}
+        sass = {n: f.result() for n, f in sass.items()}
     hopper = {}
     for name in paths:
         text = build.build_log(name) or ""
@@ -4915,7 +5049,7 @@ def main(argv=None) -> int:
         for inst, nreg, spill in tc_instantiations(text) + gn_instantiations(text):
             log(f"    {inst}: {nreg} registers, {spill} spill bytes")
         if name in HOPPER_EXPECTED:
-            hopper[name] = check_hopper_body(name, paths[name], text)
+            hopper[name] = check_hopper_body(name, paths[name], text, sass[name])
         body = CUDA_CORE_BODIES.get(name)
         if body is None:
             continue
@@ -5251,6 +5385,7 @@ def main(argv=None) -> int:
         if stage3_rows:
             entry["stage3_step"] = dict(
                 ms=per_step(stage3_rows, "kernel_ms"), plain_ms=per_step(stage3_rows, "plain_ms"),
+                mma_sync_ms=per_step(stage3_rows, "mma_sync_ms"),
                 bound_ms=per_step(stage3_rows, "bound_ms"),
                 exp_bound_ms=per_step(stage3_rows, "exp_bound_ms"),
                 library_ms=per_step(stage3_rows, "library_ms"), bound_by=bound_by(stage3_rows),
@@ -5261,7 +5396,8 @@ def main(argv=None) -> int:
             entry["flash_shapes"] = [
                 {k: r[k] for k in ("mode", "case", "B", "S", "S_kv", "D", "path",
                                    "launches_per_step", "kernel_ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")} for r in flash_rows]
+                                   "bound_ms", "bound_by", "body", "wgmma_ms", "mma_sync_ms")
+                 if k in r} for r in flash_rows]
             for path in ("stage 2", "stage 3"):
                 sub = [r for r in flash_rows if r["path"] == path]
                 if sub:

@@ -23,16 +23,18 @@ Kernel B takes an optional `bank_mask`, a (B,) gate on the bank per batch row
 forward-only, as in JAX; its launches count under
 `LAUNCHES["two_source_attention_gated"]`.
 
-Bodies. On the card A, B (every mode) and K9 (`ops.kernels.packed`) run one
-of three bodies, chosen by `attention_body` from the dtype, the head width
-and, for A and B, the query length and key counts, and passed to the C
-entry as its `body` argument: "wgmma" (bf16 up to WGMMA_MAX_HEAD, K9 up to
-WGMMA_MAX_PACKED, at the sizes where it is the faster body:
-`csrc/attention_wgmma.cuh`, Hopper's wgmma fed by TMA through an mbarrier
-ring), "mma_sync" (bf16 at any width: `attention_tc` of
-`csrc/attention_mma.cuh`) and "cuda_core" (fp32). A caller may name another
-body that can take the dtype and width; a body is never chosen because
-another failed to build or launch.
+Bodies. On the card A, B (every mode), K9 (`ops.kernels.packed`) and the
+backward kernels C and D (`ops.kernels.flash_vjp`) run one of three bodies,
+chosen by `attention_body` from the kernel, the dtype, the head width and,
+but for K9, the query length and key counts, and passed to the C entry as
+its `body` argument: "wgmma" (bf16 up to the kernel's WGMMA_MAX_*, at the
+sizes where it is the faster body: `csrc/attention_wgmma.cuh` for A, B and
+K9, `csrc/attention_bwd_wgmma.cuh` for C and D, Hopper's wgmma fed by TMA
+through an mbarrier ring), "mma_sync" (bf16 at any width: `attention_tc` of
+`csrc/attention_mma.cuh`, `attention_dq_tc` / `attention_dkv_tc` of
+`csrc/attention_bwd_mma.cuh`) and "cuda_core" (fp32). A caller may name
+another body that can take the dtype and width; a body is never chosen
+because another failed to build or launch.
 """
 
 from __future__ import annotations
@@ -74,6 +76,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 BODIES = {"cuda_core": 0, "mma_sync": 1, "wgmma": 2}
 WGMMA_MAX_HEAD = 192
 WGMMA_MAX_PACKED = 128
+# C's Hopper body holds dQ's fp32 accumulator of the row (three boxes leave
+# room for two stages); D's holds dK and dV, 8 x ceil(D / 16) registers
+# each a thread, beside 96 for the logits and their fragments at 64-query
+# tiles, 48 at the 32 it takes above D = 96: past D = 160 they would pass
+# setmaxnreg's 232 (csrc/attention_bwd_wgmma.cuh)
+WGMMA_MAX_DQ = 192
+WGMMA_MAX_DKV = 160
+# what each kernel's Hopper body takes: A and B, K9, C, D
+_WGMMA_MAX = {"attention": WGMMA_MAX_HEAD, "packed": WGMMA_MAX_PACKED, "dq": WGMMA_MAX_DQ,
+              "dkv": WGMMA_MAX_DKV}
 # Where the Hopper body beats attention_tc at the widths it takes, timed
 # over query lengths 16-4096 and key counts 16-4096 at D = 40, 80 and 160
 # (scripts/bench_attention_hopper.py; PERF.md). One of its blocks
@@ -88,28 +100,64 @@ WGMMA_MAX_PACKED = 128
 # - otherwise always (B at D = 80 0.93-1.42x, D = 160 1.09-2.52x).
 WGMMA_MIN_KEYS = 512
 WGMMA_MIN_ROWS = 64
+# The backward kernels, timed the same way (C with one and two sources, D on
+# a source of batch B and on a batch-1 source read by every batch; query
+# lengths 16-4096, key counts 16-4096 and 77, at 2 S / Sq and 16 S / Sq
+# sequences; my two sweep runs, PR 17, PERF.md). C's Hopper block walks
+# tiles of 128 keys up to D = 64 and of 64 above, so it needs more than one:
+# - C, D <= 48: above DQ_MIN_KEYS_NARROW keys over all sources (at 128 or
+#   fewer 0.67-1.05x the mma.sync body's speed; above, 1.05-1.91x);
+# - C, 48 < D <= 80: above DQ_MIN_KEYS keys (at 64 or fewer 0.80-1.24x;
+#   above, 0.93-2.22x); wider: always (0.87-2.34x).
+# D's Hopper block owns 128 keys and walks the query tiles of its batch (of
+# every batch for a batch-1 source), so it needs enough of them:
+# - D: at DKV_MIN_ROWS query rows walked or more (at 16-64 rows 0.58-1.20x;
+#   at 256 0.88-1.64x; from 1024 1.25-8.59x, and 1.42-31.75x on a batch-1
+#   source, where the mma.sync body walks every batch in one block).
+DQ_MIN_KEYS_NARROW = 128
+DQ_MIN_KEYS = 64
+DKV_MIN_ROWS = 256
 
 
-def _wgmma_takes(width: int, packed: bool) -> bool:
-    return width <= (WGMMA_MAX_PACKED if packed else WGMMA_MAX_HEAD)
+def _kind(packed: bool, kernel: str) -> str:
+    if kernel not in _WGMMA_MAX:
+        raise ValueError(f"kernel {kernel!r}: one of {sorted(_WGMMA_MAX)}")
+    return "packed" if packed else kernel
+
+
+def _backward_wgmma(kernel: str, width: int, rows: int, keys: tuple[int, ...]) -> bool:
+    """Where the Hopper body of C (`kernel` "dq": `rows` query rows over
+    `keys` per source) or D ("dkv": `rows` query rows walked by each key
+    block, those of every batch for a batch-1 source) is the faster body
+    (the rules above DQ_MIN_KEYS)."""
+    if kernel == "dkv":
+        return rows >= DKV_MIN_ROWS
+    if width <= 48:
+        return sum(keys) > DQ_MIN_KEYS_NARROW
+    return width > 80 or sum(keys) > DQ_MIN_KEYS
 
 
 def attention_body(dtype: torch.dtype, width: int, packed: bool = False,
-                   rows: Optional[int] = None, keys: tuple[int, ...] = ()) -> str:
-    """The body that runs kernel A or B (head width `width`), or K9
-    (`packed`: packed width G*D), on the card: fp32 on the CUDA cores, bf16
-    on the Hopper body up to its width and on attention_tc above it. Kernels
-    A and B name their query length `rows` and each source's key count
-    `keys`, and where the Hopper body would be the slower one (the rule
-    above WGMMA_MIN_KEYS) bf16 takes attention_tc."""
+                   rows: Optional[int] = None, keys: tuple[int, ...] = (),
+                   kernel: str = "attention") -> str:
+    """The body that runs kernel A or B (head width `width`), K9 (`packed`:
+    packed width G*D), or the backward kernel C (`kernel="dq"`) or D
+    ("dkv") on the card: fp32 on the CUDA cores, bf16 on the Hopper body up
+    to its width and on the mma.sync body above it. A, B, C and D name their
+    query length `rows` and each source's key count `keys`, and where the
+    Hopper body would be the slower one (the rules above WGMMA_MIN_KEYS and
+    `_backward_wgmma`) bf16 takes the mma.sync body."""
+    kind = _kind(packed, kernel)
     if dtype == torch.float32:
         return "cuda_core"
     if dtype != torch.bfloat16:
         raise ValueError(f"dtype {dtype} not supported (float32, bfloat16)")
-    if not _wgmma_takes(width, packed):
+    if width > _WGMMA_MAX[kind]:
         return "mma_sync"
     if rows is None:
         return "wgmma"
+    if kind in ("dq", "dkv"):
+        return "wgmma" if _backward_wgmma(kind, width, rows, keys) else "mma_sync"
     if width <= 48:
         return "wgmma" if sum(keys) >= WGMMA_MIN_KEYS else "mma_sync"
     if width <= 80 and len(keys) == 1:
@@ -117,14 +165,18 @@ def attention_body(dtype: torch.dtype, width: int, packed: bool = False,
     return "wgmma"
 
 
-def check_body(body: str, dtype: torch.dtype, width: int, packed: bool = False) -> None:
-    """Refuse a body that cannot take this dtype and width."""
+def check_body(body: str, dtype: torch.dtype, width: int, packed: bool = False,
+               kernel: str = "attention") -> None:
+    """Refuse a body that cannot take this dtype and width (`kernel` as for
+    `attention_body`)."""
+    kind = _kind(packed, kernel)
     ok = {"cuda_core": dtype == torch.float32,
           "mma_sync": dtype == torch.bfloat16,
-          "wgmma": dtype == torch.bfloat16 and _wgmma_takes(width, packed)}
+          "wgmma": dtype == torch.bfloat16 and width <= _WGMMA_MAX[kind]}
     if not ok.get(body, False):
-        raise ValueError(f"body {body!r} cannot run {'K9' if packed else 'attention'} in "
-                         f"{dtype} at width {width} (bodies: {sorted(BODIES)})")
+        what = {"attention": "attention", "packed": "K9", "dq": "kernel C", "dkv": "kernel D"}
+        raise ValueError(f"body {body!r} cannot run {what[kind]} in {dtype} at width {width} "
+                         f"(bodies: {sorted(BODIES)})")
 
 
 def tma_readable(t: torch.Tensor) -> bool:
@@ -135,20 +187,33 @@ def tma_readable(t: torch.Tensor) -> bool:
     return t.shape[1] <= 1 or t.stride(1) != 0
 
 
-def _pick_body(name: str, body: Optional[str], q: torch.Tensor, sources) -> str:
-    """`body`, or `attention_body`'s choice for q and the (K, V) pair of
-    each source; an operand TMA cannot read sends the default choice to
-    attention_tc and refuses a named "wgmma"."""
-    readable = all(tma_readable(t) for t in (q, *(t for kv in sources for t in kv)))
+def rows_tma_readable(t: torch.Tensor) -> bool:
+    """Whether kernel D's Hopper body can copy tiles of a contiguous (B, H,
+    Sq) fp32 lse or delta tensor by TMA: a tile starts at row r's query q0,
+    (r * Sq + q0) * 4 bytes on from an aligned base, and TMA takes 16-byte
+    aligned starts only."""
+    return t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0
+
+
+def _pick_body(name: str, body: Optional[str], q: torch.Tensor, sources,
+               kernel: str = "attention", more=(), rows=()) -> str:
+    """`body`, or `attention_body`'s choice for `kernel`, q and the (K, V)
+    pair of each source; an operand TMA cannot read (q, the sources, the
+    tensors of `more`, the fp32 row tensors of `rows`) sends the default
+    choice to the mma.sync body and refuses a named "wgmma"."""
+    readable = (all(tma_readable(t) for t in (q, *more, *(t for kv in sources for t in kv)))
+                and all(rows_tma_readable(t) for t in rows))
     if body is None:
-        body = attention_body(q.dtype, q.shape[3], rows=q.shape[1],
-                              keys=tuple(k.shape[1] for k, _ in sources))
+        walked = q.shape[1] * (q.shape[0] if kernel == "dkv" and sources[0][0].shape[0] == 1
+                               else 1)
+        body = attention_body(q.dtype, q.shape[3], rows=walked,
+                              keys=tuple(k.shape[1] for k, _ in sources), kernel=kernel)
         if body == "wgmma" and not readable:
             body = "mma_sync"
-    check_body(body, q.dtype, q.shape[3])
+    check_body(body, q.dtype, q.shape[3], kernel=kernel)
     if body == "wgmma" and not readable:
-        raise ValueError(f"{name}: an operand has row stride 0, which the wgmma body's "
-                         "TMA maps cannot read")
+        raise ValueError(f"{name}: an operand has row stride 0, or lse / delta rows start "
+                         "off 16 bytes, which the wgmma body's TMA maps cannot read")
     return body
 
 

@@ -105,15 +105,15 @@ _SIGNATURES = {
     "two_source_attention": ("md_two_source_attention",
                              [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                               _I, _I, _I, _I, _I, _I, _F, _VP]),
-    # dtype, nsrc, q, k_self, v_self, k_bank, v_bank, dout, lse, delta, dq,
-    # strides, B, H, D, Sq, Sk, Sb, scale, stream
+    # dtype, body, nsrc, q, k_self, v_self, k_bank, v_bank, dout, lse, delta,
+    # dq, strides, B, H, D, Sq, Sk, Sb, scale, stream
     "attention_dq": ("md_attention_dq",
-                     [_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                     [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                       _STRIDES, _I, _I, _I, _I, _I, _I, _F, _VP]),
-    # dtype, k, v, q, dout, lse, delta, dk, dv, strides,
+    # dtype, body, nsplit, k, v, q, dout, lse, delta, dk, dv, part, strides,
     # Bq, Bk, H, D, Sq, Sk, scale, stream
     "attention_dkv": ("md_attention_dkv",
-                      [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
+                      [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                        _I, _I, _I, _I, _I, _I, _F, _VP]),
     # dtype, q, k, v, o, strides, N, H, D, S, scale, stream
     "grouped_attention": ("md_grouped_attention",

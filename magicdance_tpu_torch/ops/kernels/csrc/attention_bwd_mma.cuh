@@ -1,7 +1,10 @@
-// Tensor-core bodies of the attention backward: kernel C (dQ,
+// mma.sync bodies of the attention backward: kernel C (dQ,
 // attention_dq.cu) and kernel D (dK/dV, attention_dkv.cu) in bf16, and the
-// launch parameters both of their bodies take. fp32 C and D stay on their
-// CUDA-core bodies (exact fp32 products: the card-vs-CPU checks need them).
+// launch parameters all of their bodies take. bf16 C and D run the Hopper
+// body (attention_bwd_wgmma.cuh) where the wrappers pick it; these run the
+// widths past it (C: D > 192, D: D > 160), operands TMA cannot read, and
+// whatever a caller names. fp32 C and D stay on their CUDA-core bodies
+// (exact fp32 products: the card-vs-CPU checks need them).
 //
 // Both recompute the forward's probabilities from the per-row log-sum-exp
 // that kernels A and B write, P = exp2(s * scale * log2(e) - lse * log2(e)),
@@ -73,7 +76,9 @@ struct DqParams {
 };
 
 // Kernel D. lse and delta contiguous (Bq, H, Sq) fp32; shared_bank: a
-// batch-1 source read by Bq > 1 query batches (dK/dV summed over them).
+// batch-1 source read by Bq > 1 query batches (dK/dV summed over them);
+// nsplit > 1 (the Hopper body only): the query walk split over nsplit
+// blocks, which write fp32 partials to part (attention_bwd_wgmma.cuh).
 struct DkvParams {
   const void* k;
   const void* v;
@@ -89,8 +94,9 @@ struct DkvParams {
   long long do_sb, do_ss, do_sh;
   long long dk_sb, dk_ss, dk_sh;
   long long dv_sb, dv_ss, dv_sh;
+  float* part;
   int H, D, Sq, Sk, Bq;
-  int shared_bank;
+  int shared_bank, nsplit;
   float scale;
 };
 

@@ -15,12 +15,19 @@
 // no atomics, a deterministic order, and none of the B-fold intermediate that
 // JAX materializes and reduces (_core2_bwd, flash_vjp.py:457-461).
 //
-// Two bodies. bf16 runs on the tensor cores: attention_dkv_tc of
-// attention_bwd_mma.cuh (K and V held in shared memory, Q/dO/lse/delta
-// tiles streamed through a cp.async ring, four mma.sync products per query
-// tile, P^T and dS^T packed to bf16 in registers). fp32 runs the CUDA-core
-// body below, whose products are exact fp32; it is compiled for fp32 only,
-// so no bf16 call can reach it.
+// Three bodies, chosen by the wrapper (ops/kernels/attention.py,
+// attention_body) and named by the C entry's `body` argument: 2, bf16 at
+// D <= 160, the Hopper body (wg::attention_dkv_wgmma of
+// attention_bwd_wgmma.cuh: K and V copied once by TMA, Q/dO/lse/delta tiles
+// through an mbarrier ring, four wgmma products per query tile), which
+// alone takes nsplit > 1: the query walk split over nsplit blocks writing
+// fp32 partials to `part` (2 x nsplit x Bk x Sk x H x D values), summed in
+// split order by a second kernel, for grids too small to fill the card; 1,
+// bf16 at any width, attention_dkv_tc of attention_bwd_mma.cuh (K and V
+// held in shared memory, Q/dO/lse/delta tiles streamed through a cp.async
+// ring, four mma.sync products per query tile, P^T and dS^T packed to bf16
+// in registers); 0, fp32, the CUDA-core body below, whose products are
+// exact fp32; it is compiled for fp32 only, so no bf16 call can reach it.
 //
 // What bounds it on an H100: 8 * Sq * Skv * D operations per (batch, head)
 // (four products: k q^T, v dO^T, P^T dO, dS^T q) against ~6 * S * D input and
@@ -40,9 +47,11 @@
 // strides[0..17] = k, v, q, dout, dk, dv, each (batch, row, head). lse and
 // delta: contiguous (Bq, H, Sq) fp32. Bk is Bq, or 1 for a shared bank (then
 // the k/v batch strides are ignored and dk/dv hold the sum over the Bq query
-// batches). Returns cudaGetLastError() of the launch.
+// batches). A body that cannot take the dtype, width or split returns
+// cudaErrorInvalidValue; otherwise cudaGetLastError() of the launch(es).
 
 #include "attention_bwd_mma.cuh"
+#include "attention_bwd_wgmma.cuh"
 
 namespace md {
 
@@ -213,14 +222,14 @@ struct DkvLaunch {
 
 }  // namespace md
 
-extern "C" int md_attention_dkv(int dtype, const void* k, const void* v,
-                                const void* q, const void* dout,
+extern "C" int md_attention_dkv(int dtype, int body, int nsplit, const void* k,
+                                const void* v, const void* q, const void* dout,
                                 const float* lse, const float* delta, void* dk,
-                                void* dv, const long long* strides, int Bq,
-                                int Bk, int H, int D, int Sq, int Sk,
+                                void* dv, float* part, const long long* strides,
+                                int Bq, int Bk, int H, int D, int Sq, int Sk,
                                 float scale, void* stream) {
   if (!md::head_dim_ok(D) || Sq < 1 || Sk < 1 || Bq < 1 || H < 1 ||
-      !(Bk == Bq || Bk == 1))
+      !(Bk == Bq || Bk == 1) || nsplit < 1 || (nsplit > 1 && body != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   md::DkvParams p = {};
   p.k = k;
@@ -243,13 +252,16 @@ extern "C" int md_attention_dkv(int dtype, const void* k, const void* v,
   p.Sk = Sk;
   p.Bq = Bq;
   p.shared_bank = (Bk == 1 && Bq > 1) ? 1 : 0;
+  p.nsplit = nsplit;
+  p.part = part;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (dtype == 0 && body == 0) {
     md::DkvLaunch<float> f{p, Bk, st};
     return static_cast<int>(md::dispatch_dj(D, f));
   }
-  if (dtype == 1) {
+  if (dtype == 1 && body == 2) return static_cast<int>(md::wg::launch_attention_dkv(p, Bk, st));
+  if (dtype == 1 && body == 1) {
     md::tc::DkvTcLaunch f{p, Bk, st};
     return static_cast<int>(md::tc::dispatch_no(D, f));
   }

@@ -12,12 +12,17 @@
 // in VMEM; this kernel reads the forward's per-row log-sum-exp and the
 // caller's delta instead, so it can stream K/V in tiles.
 //
-// Two bodies. bf16 runs on the tensor cores: attention_dq_tc of
-// attention_bwd_mma.cuh (FA2's dQ layout, three mma.sync products per key
-// tile, dS packed to bf16 in registers; that header says how and why C and
-// D stay two kernels). fp32 runs the CUDA-core body below, whose products
-// are exact fp32 (the card-vs-CPU checks and the fp32 paths need them); it
-// is compiled for fp32 only, so no bf16 call can reach it.
+// Three bodies, chosen by the wrapper (ops/kernels/attention.py,
+// attention_body) and named by the C entry's `body` argument: 2, bf16 at
+// D <= 192, the Hopper body (wg::attention_dq_wgmma of
+// attention_bwd_wgmma.cuh: Q and dO copied once by TMA, K/V tiles through
+// an mbarrier ring, three wgmma products per key tile); 1, bf16 at any
+// width, attention_dq_tc of attention_bwd_mma.cuh (FA2's dQ layout, three
+// mma.sync products per key tile, dS packed to bf16 in registers; that
+// header says how and why C and D stay two kernels); 0, fp32, the
+// CUDA-core body below, whose products are exact fp32 (the card-vs-CPU
+// checks and the fp32 paths need them); it is compiled for fp32 only, so
+// no bf16 call can reach it.
 //
 // What bounds it on an H100: 6 * Sq * Skv * D operations per (batch, head,
 // source) (three products: q k^T, dO v^T, dS k) against ~4 * S * D input and
@@ -37,9 +42,11 @@
 // Plain C interface, loaded with ctypes. Strides are in elements:
 // strides[0..20] = q, k_self, v_self, k_bank, v_bank, dout, dq, each
 // (batch, row, head). lse and delta: contiguous (B, H, Sq) fp32. nsrc = 1
-// ignores the bank arguments. Returns cudaGetLastError() of the launch.
+// ignores the bank arguments. A body that cannot take the dtype and width
+// returns cudaErrorInvalidValue; otherwise cudaGetLastError() of the launch.
 
 #include "attention_bwd_mma.cuh"
+#include "attention_bwd_wgmma.cuh"
 
 namespace md {
 
@@ -205,7 +212,7 @@ cudaError_t dq_launch(int nsrc, const DqParams& p, int B, cudaStream_t stream) {
 
 }  // namespace md
 
-extern "C" int md_attention_dq(int dtype, int nsrc, const void* q,
+extern "C" int md_attention_dq(int dtype, int body, int nsrc, const void* q,
                                const void* k_self, const void* v_self,
                                const void* k_bank, const void* v_bank,
                                const void* dout, const float* lse,
@@ -240,8 +247,10 @@ extern "C" int md_attention_dq(int dtype, int nsrc, const void* q,
   p.Sq = Sq;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(md::dq_launch<float>(nsrc, p, B, st));
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && body == 0) return static_cast<int>(md::dq_launch<float>(nsrc, p, B, st));
+  if (dtype == 1 && body == 2)
+    return static_cast<int>(md::wg::launch_attention_dq(p, nsrc, B, st));
+  if (dtype != 1 || body != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (nsrc == 1) {
     md::tc::DqTcLaunch<1> f{p, B, st};
     return static_cast<int>(md::tc::dispatch_no(D, f));

@@ -319,13 +319,14 @@ struct Args {
 // copies them and the consumers read them: the tile's source (0: self, 1:
 // bank), its PACKED segment and its index in the source or segment. next()
 // steps the counters, with no division; tps: tiles of source 0 (of a
-// segment).
+// segment); len0, len1: the keys of source 0 (a segment) and 1. Kernel C's
+// Hopper body (attention_bwd_wgmma.cuh) walks its keys with it too.
 template <int MODE, int BN>
 struct TileWalk {
   int src = 0, seg = 0, ti = 0;
-  __device__ __forceinline__ int row(const Args& a) const { return seg * a.len0 + ti * BN; }
-  __device__ __forceinline__ int nk(const Args& a) const {
-    return min(BN, (src ? a.len1 : a.len0) - ti * BN);
+  __device__ __forceinline__ int row(int len0) const { return seg * len0 + ti * BN; }
+  __device__ __forceinline__ int nk(int len0, int len1) const {
+    return min(BN, (src ? len1 : len0) - ti * BN);
   }
   __device__ __forceinline__ bool seg_end(int tps) const {
     return MODE == tc::PACKED && ti == tps - 1;
@@ -401,7 +402,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const CUtensorMap* k_map = tile.src ? &maps.k1 : &maps.k0;
         const CUtensorMap* v_map = tile.src ? &maps.v1 : &maps.v0;
         const int km = 1 + 2 * tile.src;  // map index of this source's K (V: km + 1)
-        const int row = tile.row(a);
+        const int row = tile.row(a.len0);
         mbar_wait(empty_bar(st), phase ^ 1u);  // round 0 passes at once
         mbar_expect_tx(full_bar(st), L::STAGE_BYTES);
         const uint32_t k_s = kv_s + st * L::STAGE_BYTES;
@@ -463,7 +464,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       keep(s);
 
       uint32_t pa[BN / 16][4];
-      tc::softmax_rows<NO, BN, MODE == tc::GATED>(s, pa, m, l, acc, scale_log2, tile.nk(a),
+      tc::softmax_rows<NO, BN, MODE == tc::GATED>(s, pa, m, l, acc, scale_log2,
+                                                  tile.nk(a.len0, a.len1),
                                                   tile.src ? gate : 1.f);
       wg_fence();
 #pragma unroll

@@ -23,6 +23,15 @@ delta = rowsum(dO o O) is a plain torch reduction (`attention_delta`), as JAX
 computes it in XLA (`_delta`). Unlike the Pallas dQ kernel, which recomputes
 the softmax statistics from a whole K row, kernel C reads the forward's LSE.
 
+Bodies. bf16 C and D run the Hopper body (`csrc/attention_bwd_wgmma.cuh`,
+C up to D = 192, D up to 160) where `attention.attention_body` picks it, and
+the mma.sync body otherwise; fp32 runs on the CUDA cores. `body=` names one
+as for kernels A and B. Where kernel D's grid would not fill the card
+(`dkv_split`), its Hopper body splits the query walk over several blocks,
+which write fp32 partial sums into a scratch buffer the wrapper allocates;
+a second kernel sums them in a fixed order, so two runs on the same inputs
+give the same bits (no atomics in C or D).
+
 The wrapper rule is the one of `ops.kernels.attention`: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises, and each launch
 adds one to `LAUNCHES[<mode>]`. The plain versions mirror the JAX kernels'
@@ -41,8 +50,10 @@ from typing import Optional
 import torch
 
 from magicdance_tpu_torch.ops.kernels.attention import (
+    BODIES,
     _check_operand,
     _check_q,
+    _pick_body,
     _strides,
     check_body,
     launch,
@@ -206,20 +217,55 @@ def _check_rows(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
                          f"{tuple(t.shape)} on {t.device}")
 
 
+# Kernel D's Hopper body: keys a block owns (csrc/attention_bwd_wgmma.cuh,
+# BM). One of its blocks fills an SM; where the key blocks leave SMs idle
+# the query walk is split so that one wave fills the card, each split
+# walking at least SPLIT_MIN_QUERIES queries (my sweep runs, PR 17,
+# PERF.md: 77 keys at (2, 4096, 40), 16
+# blocks, 0.0678-0.0688 ms unsplit, 0.0183-0.0186 in 8 splits of 512
+# queries, one wave; splits of 128 queries lost to the second kernel's
+# launch: D = 80, 64 blocks, 0.0103-0.0115 ms unsplit, 0.0129-0.0193 in
+# two; D = 160, 32 blocks, 0.0201 unsplit, 0.0306 in two).
+DKV_BLOCK_KEYS = 128
+SMS = 132
+SPLIT_MIN_QUERIES = 256
+
+
+def dkv_split(bk: int, sk: int, heads: int, queries: int) -> int:
+    """Query splits of kernel D's Hopper body for `bk` key batches of `sk`
+    keys and `heads` heads, each key block walking `queries` queries (those
+    of every batch for a batch-1 source)."""
+    blocks = -(-sk // DKV_BLOCK_KEYS) * heads * bk
+    return max(1, min(SMS // blocks, queries // SPLIT_MIN_QUERIES))
+
+
 def attention_dq(q: torch.Tensor, k_self: torch.Tensor, v_self: torch.Tensor,
                  dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                  scale: Optional[float] = None,
                  k_bank: Optional[torch.Tensor] = None,
-                 v_bank: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 v_bank: Optional[torch.Tensor] = None,
+                 body: Optional[str] = None) -> torch.Tensor:
     """Kernel C: dQ (B, Sq, H, D) of self-attention, or of a bank read when
-    k_bank/v_bank (bank batch 1 or B) are given."""
+    k_bank/v_bank (bank batch 1 or B) are given. On the card `body`
+    defaults to `attention_body`'s choice (kernel "dq"); another body that
+    can take the dtype and width may be named (checked on the CPU too, where
+    the plain version runs whichever is named)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if body is not None:
+        check_body(body, q.dtype, q.shape[-1], kernel="dq")
     if q.device.type == "cpu":
         return attention_dq_ref(q, k_self, v_self, dout, lse, delta, scale,
                                 k_bank, v_bank)
     if q.device.type != "cuda":
         raise ValueError(f"attention_dq: unsupported device {q.device}")
+    return attention_dq_cuda(q, k_self, v_self, dout, lse, delta, scale, k_bank, v_bank, body)
+
+
+def attention_dq_cuda(q, k_self, v_self, dout, lse, delta, scale: float, k_bank=None,
+                      v_bank=None, body: Optional[str] = None) -> torch.Tensor:
+    """Launch kernel C on CUDA tensors on `body` (default:
+    `attention_body`'s choice for kernel "dq")."""
     _check_q(q)
     b, sq, h, d = q.shape
     _check_operand("q", q, q, (b,), sq)
@@ -237,27 +283,42 @@ def attention_dq(q: torch.Tensor, k_self: torch.Tensor, v_self: torch.Tensor,
         sb = k_bank.shape[1]
     else:
         bank_strides, sb = [0] * 6, 0
+    sources = ((k_self, v_self),) + (((k_bank, v_bank),) if two else ())
+    body = _pick_body("attention_dq", body, q, sources, kernel="dq", more=(dout,))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     strides = (_strides(q) + _strides(k_self) + _strides(v_self) + bank_strides
                + _strides(dout) + _strides(dq))
     launch("attention_dq", "attention_dq_two_source" if two else "attention_dq",
-           q, [2 if two else 1], [q, k_self, v_self, k_bank, v_bank, dout, lse,
-                                  delta, dq],
+           q, [BODIES[body], 2 if two else 1],
+           [q, k_self, v_self, k_bank, v_bank, dout, lse, delta, dq],
            strides, [b, h, d, sq, k_self.shape[1], sb], scale)
     return dq
 
 
 def attention_dkv(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
                   dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                  scale: Optional[float] = None):
+                  scale: Optional[float] = None, body: Optional[str] = None,
+                  nsplit: Optional[int] = None):
     """Kernel D: (dK, dV) of one K/V source of batch 1 or B; a batch-1
-    source read by B > 1 query batches gets the sum over the batches."""
+    source read by B > 1 query batches gets the sum over the batches.
+    `body` as for `attention_dq` (kernel "dkv"); `nsplit`: query splits of
+    the Hopper body (default `dkv_split`'s; the mma.sync body takes 1)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if body is not None:
+        check_body(body, q.dtype, q.shape[-1], kernel="dkv")
     if q.device.type == "cpu":
         return attention_dkv_ref(k, v, q, dout, lse, delta, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention_dkv: unsupported device {q.device}")
+    return attention_dkv_cuda(k, v, q, dout, lse, delta, scale, body, nsplit)
+
+
+def attention_dkv_cuda(k, v, q, dout, lse, delta, scale: float, body: Optional[str] = None,
+                       nsplit: Optional[int] = None):
+    """Launch kernel D on CUDA tensors on `body` (default:
+    `attention_body`'s choice for kernel "dkv") in `nsplit` query splits
+    (default: `dkv_split`'s on the Hopper body, else 1)."""
     _check_q(q)
     b, sq, h, d = q.shape
     _check_operand("q", q, q, (b,), sq)
@@ -267,12 +328,21 @@ def attention_dkv(k: torch.Tensor, v: torch.Tensor, q: torch.Tensor,
     _check_rows("lse", lse, q)
     _check_rows("delta", delta, q)
     bk, sk = k.shape[0], k.shape[1]
+    body = _pick_body("attention_dkv", body, q, ((k, v),), kernel="dkv", more=(dout,),
+                      rows=(lse, delta))
+    if nsplit is None:
+        nsplit = dkv_split(bk, sk, h, (b if bk == 1 else 1) * sq) if body == "wgmma" else 1
+    if nsplit < 1 or (nsplit > 1 and body != "wgmma"):
+        raise ValueError(f"attention_dkv: nsplit {nsplit} on body {body!r} (only the wgmma "
+                         "body splits the query walk)")
     dk = torch.empty((bk, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((bk, sk, h, d), dtype=v.dtype, device=q.device)
+    part = (torch.empty(2 * nsplit * bk * sk * h * d, dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
     strides = (_strides(k) + _strides(v) + _strides(q) + _strides(dout)
                + _strides(dk) + _strides(dv))
-    launch("attention_dkv", "attention_dkv", q, [],
-           [k, v, q, dout, lse, delta, dk, dv], strides,
+    launch("attention_dkv", "attention_dkv", q, [BODIES[body], nsplit],
+           [k, v, q, dout, lse, delta, dk, dv, part], strides,
            [b, bk, h, d, sq, sk], scale)
     return dk, dv
 

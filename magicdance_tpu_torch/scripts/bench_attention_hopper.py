@@ -1,21 +1,35 @@
-"""Device time of bf16 kernels A and B on their two bodies, the Hopper body
-(`csrc/attention_wgmma.cuh`, body "wgmma") and attention_tc
-(`csrc/attention_mma.cuh`, body "mma_sync"), over query and key lengths:
-the measurement behind the size rule of `ops.kernels.attention.attention_body`.
+"""Device time of the bf16 attention kernels on their two bodies, the Hopper
+body ("wgmma": `csrc/attention_wgmma.cuh` for A and B,
+`csrc/attention_bwd_wgmma.cuh` for C and D) and the mma.sync body
+("mma_sync": `attention_tc` of `csrc/attention_mma.cuh`, `attention_dq_tc` /
+`attention_dkv_tc` of `csrc/attention_bwd_mma.cuh`), over query and key
+lengths: the measurement behind the size rule of
+`ops.kernels.attention.attention_body`.
 
-For each head width D of the model (40, 80, 160; H = 8) it runs A over Sk
-keys and B over Sk self keys and a batch-1 bank of Sk keys, at every query
-length Sq and key count Sk of a grid up to the width's image length S (4096,
-1024, 256), with B = 16 S / Sq sequences (the rows of a 16-frame pass at
-that width; fewer where K and V would pass 512 MiB). The two bodies run in
-turns (a, b, b, a) on one card and each reports its mean, so that a drift
-of the card's clock falls on both alike. Each row also names the body that
-`attention_body` picks there. Correctness is `chip_smoke.py`'s job; here
-each call is only checked to have launched its kernel once.
+Forward (A, B). For each head width D of the model (40, 80, 160; H = 8) it
+runs A over Sk keys and B over Sk self keys and a batch-1 bank of Sk keys,
+at every query length Sq and key count Sk of a grid up to the width's image
+length S (4096, 1024, 256), with B = 16 S / Sq sequences (the rows of a
+16-frame pass at that width; fewer where K and V would pass 512 MiB).
+
+Backward (C, D). At the same widths, query lengths and key counts from 16
+(the temporal sites) and 64 up to S, plus the text encoder's 77 keys, at B =
+2 S / Sq and 16 S / Sq sequences (a stage-2 and a stage-3 step's rows): C
+with one source ("C") and with a second, batch-1 source of Sk keys ("C2"),
+D on a source of batch B ("D") and, at 16 S / Sq, on a batch-1 source read
+by every batch ("Dshared"). Where `dkv_split` splits D's query walk, D's
+Hopper body is also timed unsplit ("wgmma_nosplit"). The delta and LSE are
+random: the time does not depend on them.
+
+The bodies run in turns (a, b, b, a) on one card and each reports its mean,
+so that a drift of the card's clock falls on both alike. Each row also names
+the body that `attention_body` picks there. Correctness is `chip_smoke.py`'s
+job; here each call is only checked to have launched its kernel once.
 
 Usage, on a machine with an NVIDIA GPU, from the root of a checkout:
 
     python -m magicdance_tpu_torch.scripts.bench_attention_hopper [--json PATH]
+        [--kernels AB,CD]
 """
 
 from __future__ import annotations
@@ -28,7 +42,8 @@ import torch
 from magicdance_tpu_torch.device import resolve_device
 from magicdance_tpu_torch.ops import kernels as K
 from magicdance_tpu_torch.ops.kernels import build
-from magicdance_tpu_torch.ops.kernels.attention import attention_body
+from magicdance_tpu_torch.ops.kernels import flash_vjp as V
+from magicdance_tpu_torch.ops.kernels.attention import WGMMA_MAX_DKV, attention_body
 from magicdance_tpu_torch.utils.timing import card_line, device_time_ms
 
 SITES = ((40, 4096), (80, 1024), (160, 256))  # (D, image length S)
@@ -36,6 +51,10 @@ HEADS = 8
 QUERY_LENGTHS = (16, 64, 128, 256, 1024, 4096)
 KEY_COUNTS = (16, 77, 128, 256, 512, 1024, 4096)
 KV_BYTES = 1 << 29  # per K or V tensor
+BWD_QUERY_LENGTHS = (16, 64, 256, 1024, 4096)
+BWD_KEY_COUNTS = (16, 64, 77, 256, 1024, 4096)
+BWD_FRAMES = (2, 16)  # B = frames x S / Sq
+BWD_MIN_S = 0.1  # seconds of work a timing
 
 
 def grid():
@@ -47,25 +66,46 @@ def grid():
                 yield d, sq, sk, b
 
 
-def in_turns(variants: dict) -> dict:
+def bwd_grid():
+    """(D, Sq, Sk, B, frames) of every timed C / D shape (a shape the
+    memory cap gives the same B at both frame counts comes once)."""
+    for d, s in SITES:
+        for sq in (x for x in BWD_QUERY_LENGTHS if x <= s):
+            for sk in (x for x in BWD_KEY_COUNTS if x <= s or x == 77):
+                seen = set()
+                for frames in BWD_FRAMES:
+                    b = max(1, min(frames * s // sq, KV_BYTES // (sk * HEADS * d * 2)))
+                    if b not in seen:
+                        seen.add(b)
+                        yield d, sq, sk, b, frames
+
+
+def in_turns(variants: dict, min_total_s: float = 0.25) -> dict:
     """{name: fn}: each timed twice, in the order a, b, b, a; the mean."""
     names = list(variants)
     times = {n: [] for n in names}
     for n in names + names[::-1]:
-        times[n].append(device_time_ms(variants[n]))
+        times[n].append(device_time_ms(variants[n], min_total_s=min_total_s))
     return {n: sum(t) / len(t) for n, t in times.items()}
 
 
-def run() -> dict:
+def run(kernels=("AB", "CD")) -> dict:
     dev = resolve_device(None)
     card = card_line()
     print(card, flush=True)
-    build.build(("self_attention", "two_source_attention"))
+    build.build(("self_attention", "two_source_attention", "attention_dq", "attention_dkv"))
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
+    rows = forward_rows(rnd) if "AB" in kernels else []
+    if "CD" in kernels:
+        rows += backward_rows(rnd)
+    return dict(card=card, rows=rows)
+
+
+def forward_rows(rnd) -> list:
     rows = []
     for d, sq, sk, b in grid():
         q = rnd(b, sq, HEADS, d)
@@ -90,14 +130,65 @@ def run() -> dict:
                   f"chosen {row['chosen']}", flush=True)
         del q, k, v, kb, vb
         torch.cuda.empty_cache()
-    return dict(card=card, rows=rows)
+    return rows
+
+
+def backward_rows(rnd) -> list:
+    rows = []
+    for d, sq, sk, b, frames in bwd_grid():
+        q, dout = rnd(b, sq, HEADS, d), rnd(b, sq, HEADS, d)
+        k, v, kb, vb = rnd(b, sk, HEADS, d), rnd(b, sk, HEADS, d), rnd(1, sk, HEADS, d), \
+            rnd(1, sk, HEADS, d)
+        lse = torch.randn(b, HEADS, sq, device=q.device) + 5.0
+        delta = torch.randn(b, HEADS, sq, device=q.device)
+        cases = [
+            ("C", "attention_dq", "dq", (sk,),
+             lambda body: V.attention_dq(q, k, v, dout, lse, delta, body=body)),
+            ("C2", "attention_dq_two_source", "dq", (sk, sk),
+             lambda body: V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb, body=body)),
+            ("D", "attention_dkv", "dkv", (sk,),
+             lambda body, n=None: V.attention_dkv(k, v, q, dout, lse, delta, body=body,
+                                                  nsplit=n))]
+        if frames == max(BWD_FRAMES):
+            cases.append(("Dshared", "attention_dkv", "dkv", (sk,),
+                          lambda body, n=None: V.attention_dkv(kb, vb, q, dout, lse, delta,
+                                                               body=body, nsplit=n)))
+        for kernel, counter, kind, keys, fn in cases:
+            if kind == "dkv" and d > WGMMA_MAX_DKV:
+                continue
+            K.reset_launches()
+            fn(None)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES[counter] == 1, (kernel, dict(K.LAUNCHES))
+            variants = {body: (lambda body=body: fn(body)) for body in ("wgmma", "mma_sync")}
+            nsplit = 1
+            if kind == "dkv":
+                bk = 1 if kernel == "Dshared" else b
+                nsplit = V.dkv_split(bk, sk, HEADS, (b if bk == 1 else 1) * sq)
+                if nsplit > 1:
+                    variants["wgmma_nosplit"] = lambda: fn("wgmma", 1)
+            t = in_turns(variants, BWD_MIN_S)
+            row = dict(kernel=kernel, B=b, Sq=sq, Sk=sk, D=d, frames=frames, nsplit=nsplit,
+                       wgmma_ms=t["wgmma"], mma_sync_ms=t["mma_sync"],
+                       wgmma_nosplit_ms=t.get("wgmma_nosplit"),
+                       chosen=attention_body(torch.bfloat16, d, rows=sq, keys=keys, kernel=kind))
+            rows.append(row)
+            print(f"{kernel:7s} B={b:5d} Sq={sq:5d} Sk={sk:5d} D={d:3d}  wgmma {t['wgmma']:.4f} ms"
+                  + (f" (x{nsplit}; unsplit {t['wgmma_nosplit']:.4f})" if nsplit > 1 else "")
+                  + f"  mma_sync {t['mma_sync']:.4f} ms  ({t['mma_sync'] / t['wgmma']:.2f}x)  "
+                  f"chosen {row['chosen']}", flush=True)
+        del q, k, v, kb, vb, dout, lse, delta
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None, help="also write the rows to this path")
+    ap.add_argument("--kernels", default="AB,CD",
+                    help="AB (forward), CD (backward) or both, comma-separated")
     args = ap.parse_args(argv)
-    res = run()
+    res = run(tuple(args.kernels.split(",")))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(res, f, indent=1)

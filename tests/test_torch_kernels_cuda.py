@@ -5,10 +5,12 @@ fused GroupNorm+SiLU (K8) and the head-packed attention (K9) against their
 plain PyTorch versions, on the card. Kernels A, B and K9 run the Hopper
 body (wgmma, TMA; csrc/attention_wgmma.cuh) in bf16 up to D = 192 (K9: G*D
 = 128), attention_tc (mma.sync) above and when named, and their CUDA-core
-bodies in fp32; C, D and G (forward and backward) run their tensor-core body
-in bf16 and their CUDA-core body in fp32; K8 runs the same two kernels
-(statistics, then apply) in both types.
-K8 and G's backward are held to give the same bits on every run.
+bodies in fp32; C and D run their Hopper body (csrc/attention_bwd_wgmma.cuh,
+C up to D = 192, D up to 160) where `attention_body` picks it, their mma.sync
+body otherwise and when named, and their CUDA-core body in fp32; G (forward
+and backward) runs its tensor-core body in bf16 and its CUDA-core body in
+fp32; K8 runs the same two kernels (statistics, then apply) in both types.
+C, D, K8 and G's backward are held to give the same bits on every run.
 
 Every test here needs an NVIDIA GPU and the CUDA toolkit and skips without
 one. On a machine with a card, from the repository root (this file imports
@@ -692,6 +694,153 @@ def test_attention_broadcast_operands(cuda):
     _close(K.self_attention(q, k_row, kbh), K.self_attention_ref(q, k_row, kbh), dt)
     with pytest.raises(ValueError):
         K.self_attention(q, k_row, kbh, body="wgmma")
+
+
+# the Hopper body of C and D (csrc/attention_bwd_wgmma.cuh) beside the
+# mma.sync body named explicitly: (b, sq, sk, sb, bank batch or None, d); the
+# training sites, 77 keys (D's split), a batch-1 bank read by 16 frames, a
+# ragged case, D's widest 64-query-tile width (96) and C's widest width (192)
+BWD_HOPPER_CASES = [
+    (2, 4096, 4096, None, None, 40), (2, 1024, 1024, 1024, 2, 80), (2, 256, 256, 256, 2, 160),
+    (16, 1024, 1024, 1024, 1, 80), (2, 4096, 77, None, None, 40), (2, 1024, 77, None, None, 80),
+    (3, 300, 200, 130, 1, 48), (2, 132, 390, None, None, 96), (1, 150, 250, 64, 1, 192),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,sb,bb,d", BWD_HOPPER_CASES)
+def test_backward_bodies_match_plain(cuda, b, sq, sk, sb, bb, d):
+    """bf16 C and D on the body `attention_body` picks, on the Hopper body
+    where it takes the width (C up to D = 192, D up to 160; D also in 1 and 3
+    query splits) and on the mma.sync body named explicitly, one launch
+    each, all against the plain version by the gradient rule; the default
+    bodies twice, with the same bits."""
+    dt = torch.bfloat16
+    q, dout = (_rand(cuda, b, sq, 4, d, dtype=dt, seed=200 + i) for i in range(2))
+    k, v = (_rand(cuda, b, sk, 4, d, dtype=dt, seed=202 + i) for i in range(2))
+    kb = vb = None
+    if bb:
+        kb, vb = (_rand(cuda, bb, sb, 4, d, dtype=dt, seed=204 + i) for i in range(2))
+        out, lse = V.two_source_attention_lse_ref(q, k, v, kb, vb)
+    else:
+        out, lse = V.self_attention_lse_ref(q, k, v)
+    delta = V.attention_delta(dout, out)
+    counter = "attention_dq_two_source" if bb else "attention_dq"
+    want = V.attention_dq_ref(q, k, v, dout, lse, delta, None, kb, vb)
+    for body in (None, "wgmma", "mma_sync") if d <= 192 else (None, "mma_sync"):
+        K.reset_launches()
+        got = V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb, body=body)
+        assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES}, counter: 1}
+        _grad_close(got, want, dt)
+    assert torch.equal(V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb),
+                       V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb))
+    for kk, vv in [(k, v)] + ([(kb, vb)] if bb else []):
+        want = V.attention_dkv_ref(kk, vv, q, dout, lse, delta)
+        runs = [(None, None), ("mma_sync", None)]
+        if d <= 160:
+            runs += [("wgmma", None), ("wgmma", 1), ("wgmma", 3)]
+        for body, nsplit in runs:
+            K.reset_launches()
+            got = V.attention_dkv(kk, vv, q, dout, lse, delta, body=body, nsplit=nsplit)
+            assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES}, "attention_dkv": 1}
+            for g, w in zip(got, want):
+                _grad_close(g, w, dt)
+        first = V.attention_dkv(kk, vv, q, dout, lse, delta)
+        again = V.attention_dkv(kk, vv, q, dout, lse, delta)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_backward_bodies_route_what_tma_cannot_read(cuda, monkeypatch):
+    """What the Hopper body of C and D cannot read goes to the mma.sync body
+    by default, and naming the Hopper body for it raises: queries broadcast
+    over rows (row stride 0; keys broadcast so would all be the same key,
+    which makes dQ zero up to rounding, below any rule relative to its RMS)
+    and, for D, lse rows off 16 bytes (S_q not a multiple of 4); a
+    BSNH-strided case stays on the Hopper body. The C entries refuse the
+    Hopper body past its widths with cudaErrorInvalidValue: nothing falls
+    back to another body."""
+    import ctypes
+
+    from magicdance_tpu_torch.ops.kernels import build
+
+    seen = []
+    real = V.launch
+    monkeypatch.setattr(V, "launch", lambda lib, counter, ref, lead, *rest: (
+        seen.append((lib, lead[0])), real(lib, counter, ref, lead, *rest)))
+    dt = torch.bfloat16
+    q, dout = (_rand(cuda, 2, 1030, 4, 40, dtype=dt, seed=210 + i) for i in range(2))
+    k, v = (_rand(cuda, 2, 390, 4, 40, dtype=dt, seed=212 + i) for i in range(2))
+    out, lse = V.self_attention_lse_ref(q, k, v)
+    delta = V.attention_delta(dout, out)
+    for g, w in zip(V.attention_dkv(k, v, q, dout, lse, delta),
+                    V.attention_dkv_ref(k, v, q, dout, lse, delta)):
+        _grad_close(g, w, dt)
+    with pytest.raises(ValueError):
+        V.attention_dkv(k, v, q, dout, lse, delta, body="wgmma")
+    dout = dout[:, :1024]
+    q_row = _rand(cuda, 2, 1, 4, 40, dtype=dt, seed=214).expand(2, 1024, 4, 40)
+    out, lse = V.self_attention_lse_ref(q_row, k, v)
+    delta = V.attention_delta(dout, out)
+    _grad_close(V.attention_dq(q_row, k, v, dout, lse, delta),
+                V.attention_dq_ref(q_row, k, v, dout, lse, delta), dt)
+    for g, w in zip(V.attention_dkv(k, v, q_row, dout, lse, delta),
+                    V.attention_dkv_ref(k, v, q_row, dout, lse, delta)):
+        _grad_close(g, w, dt)
+    for call in (V.attention_dq, lambda *a, **kw: V.attention_dkv(a[1], a[2], a[0], *a[3:], **kw)):
+        with pytest.raises(ValueError):
+            call(q_row, k, v, dout, lse, delta, body="wgmma")
+
+    def bsnh(seed):
+        return _rand(cuda, 2, 4, 1024, 80, dtype=dt, seed=seed).transpose(1, 2)
+    q, k, v, dout = (bsnh(220 + i) for i in range(4))
+    out, lse = V.self_attention_lse_ref(q, k, v)
+    delta = V.attention_delta(dout, out)
+    _grad_close(V.attention_dq(q, k, v, dout, lse, delta),
+                V.attention_dq_ref(q, k, v, dout, lse, delta), dt)
+    for g, w in zip(V.attention_dkv(k, v, q, dout, lse, delta),
+                    V.attention_dkv_ref(k, v, q, dout, lse, delta)):
+        _grad_close(g, w, dt)
+    assert seen == [("attention_dkv", 1), ("attention_dq", 1), ("attention_dkv", 1),
+                    ("attention_dq", 2), ("attention_dkv", 2)]
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for lib_name, d in (("attention_dq", 256), ("attention_dkv", 192)):
+        x = _rand(cuda, 1, 128, 2, d, dtype=dt, seed=230)
+        rows = torch.zeros(1, 2, 128, device=cuda)
+        lib = build.load(lib_name)
+        if lib_name == "attention_dq":
+            strides = (ctypes.c_longlong * 21)(*([x.stride(0), x.stride(1), x.stride(2)] * 7))
+            err = lib.md_attention_dq(1, 2, 1, x.data_ptr(), x.data_ptr(), x.data_ptr(), None,
+                                      None, x.data_ptr(), rows.data_ptr(), rows.data_ptr(),
+                                      torch.empty_like(x).data_ptr(), strides, 1, 2, d, 128,
+                                      128, 0, ctypes.c_float(0.1), stream)
+        else:
+            strides = (ctypes.c_longlong * 18)(*([x.stride(0), x.stride(1), x.stride(2)] * 6))
+            err = lib.md_attention_dkv(1, 2, 1, x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                       x.data_ptr(), rows.data_ptr(), rows.data_ptr(),
+                                       torch.empty_like(x).data_ptr(),
+                                       torch.empty_like(x).data_ptr(), None, strides, 1, 1, 2,
+                                       d, 128, 128, ctypes.c_float(0.1), stream)
+        assert err != 0 and b"invalid argument" in lib.md_error_string(err)
+
+
+def test_backward_hopper_body_is_deterministic(cuda):
+    """C and D on the Hopper body at the stage-3 shape (16 frames over a
+    batch-1 bank, D = 40) and D split at 77 keys: two launches on the same
+    inputs give the same bits (no atomics; D's split partials summed in a
+    fixed order)."""
+    dt = torch.bfloat16
+    q, k, v, dout = (_rand(cuda, 16, 4096, 8, 40, dtype=dt, seed=240 + i) for i in range(4))
+    kb, vb = (_rand(cuda, 1, 4096, 8, 40, dtype=dt, seed=244 + i) for i in range(2))
+    lse = torch.randn(16, 8, 4096, device=cuda) + 8.0
+    delta = torch.randn(16, 8, 4096, device=cuda)
+    assert torch.equal(V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb, body="wgmma"),
+                       V.attention_dq(q, k, v, dout, lse, delta, None, kb, vb, body="wgmma"))
+    for kk, vv, nsplit in ((k, v, None), (k[:2, :77], v[:2, :77], None), (kb, vb, 4)):
+        qq, oo, ll, dd = (q, dout, lse, delta) if kk.shape[0] != 2 else (
+            q[:2], dout[:2], lse[:2], delta[:2])
+        first = V.attention_dkv(kk, vv, qq, oo, ll, dd, body="wgmma", nsplit=nsplit)
+        again = V.attention_dkv(kk, vv, qq, oo, ll, dd, body="wgmma", nsplit=nsplit)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 def _packed_inputs(dev, bg, sq, s, g, d, dtype, blockdiag_heads, seed):
