@@ -2926,7 +2926,7 @@ def profile_ddim_step(pipe, frames: int, out_dir: str):
     from magicdance_tpu_torch.config import SampleConfig
     from magicdance_tpu_torch.ops.schedules import make_ddim_schedule
     from magicdance_tpu_torch.sampling.ddim import ddim_sample
-    from magicdance_tpu_torch.utils.profiling import annotate, device_busy_ms, top_ops, trace
+    from magicdance_tpu_torch.utils.profiling import device_busy_ms, span, top_ops, trace
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     pose = torch.rand(frames, 512, 512, 3, generator=gen, device="cuda")
@@ -2944,7 +2944,7 @@ def profile_ddim_step(pipe, frames: int, out_dir: str):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with trace(out_dir, name="ddim_step") as prof:
-        with annotate("ddim_step"):
+        with span("ddim_step"):
             step()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3

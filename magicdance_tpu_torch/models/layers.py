@@ -81,7 +81,7 @@ def remat(enabled: bool, fn, *args):
         impl = current_impl()
 
         def run(*a):
-            with attention_impl(impl):
+            with attention_impl(impl), span("md.remat", _block_name, fn):
                 return fn(*a)
 
         return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
@@ -96,6 +96,11 @@ from magicdance_tpu_torch.ops.attention import (
 )
 from magicdance_tpu_torch.ops.kernels.groupnorm import groupnorm_silu
 from magicdance_tpu_torch.models.quant import param_at
+from magicdance_tpu_torch.utils.profiling import dims, span
+
+
+def _block_name(fn) -> str:
+    return f" block={type(fn).__name__}"
 
 # devices on which `GroupNorm32` may take the fused GroupNorm+SiLU kernel
 FUSED_GN_DEVICES = ("cuda",)
@@ -272,16 +277,29 @@ class CrossAttention(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 kv_extra: Optional[torch.Tensor] = None,
                 bank_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
-        heads = q.shape[-1] // self.head_dim
-        if kv_extra is not None:
-            kb, vb = self.to_k(kv_extra), self.to_v(kv_extra)
-            out = bank_read_attention_packed(q, k, v, kb, vb, num_heads=heads,
-                                             bank_mask=bank_mask)
-        else:
-            out = attention_packed(q, k, v, num_heads=heads)
-        return self.to_out(out)
+        with span("md.attn", self.span_detail, x, context, kv_extra):
+            ctx = x if context is None else context
+            q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+            heads = q.shape[-1] // self.head_dim
+            if kv_extra is not None:
+                kb, vb = self.to_k(kv_extra), self.to_v(kv_extra)
+                out = bank_read_attention_packed(q, k, v, kb, vb, num_heads=heads,
+                                                 bank_mask=bank_mask)
+            else:
+                out = attention_packed(q, k, v, num_heads=heads)
+            return self.to_out(out)
+
+    def span_detail(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                    kv_extra: Optional[torch.Tensor]) -> str:
+        """The call's shapes, as its `md.attn` span carries them: the queries'
+        source (B x S x C), the keys' and values' (the context, or x),
+        whether it is a cross-attention (the context given), the bank's (B x
+        S x C, "0x0x0" without one), the inner width and the heads."""
+        inner = self.to_q.out_features
+        return (f" q={dims(x)} kv={dims(x if context is None else context)}"
+                f" cross={int(context is not None)}"
+                f" bank={'0x0x0' if kv_extra is None else dims(kv_extra)}"
+                f" inner={inner} heads={inner // self.head_dim}")
 
 
 class BasicTransformerBlock(nn.Module):

@@ -32,6 +32,7 @@ from torch import nn
 from magicdance_tpu_torch.config import ModelConfig, UNetConfig
 from magicdance_tpu_torch.models.controlnet import PoseControlNet
 from magicdance_tpu_torch.models.unet import Bank, UNet
+from magicdance_tpu_torch.utils.profiling import span
 
 
 def appearance_unet_config(cfg: ModelConfig) -> UNetConfig:
@@ -87,8 +88,9 @@ class MagicPoseModel(nn.Module):
     def compute_bank(self, reference_noisy: torch.Tensor, timesteps: torch.Tensor,
                      context: torch.Tensor) -> Bank:
         """Appearance UNet in write mode; its eps output is discarded."""
-        _, bank = self.appearance_unet(reference_noisy, timesteps, context,
-                                       collect_bank=True)
+        with span("md.pass.bank_write"):
+            _, bank = self.appearance_unet(reference_noisy, timesteps, context,
+                                           collect_bank=True)
         return bank
 
     def compute_pose_residuals(self, x_noisy: torch.Tensor, pose_hint: torch.Tensor,
@@ -112,13 +114,14 @@ class MagicPoseModel(nn.Module):
         The sum is the quantity the turbo sampler caches, so reuse keeps
         both branches."""
         res = None
-        if self.cfg.has_pose and pose_hint is not None:
-            res = self.compute_pose_residuals(x_noisy, pose_hint, timesteps, context,
+        with span("md.pass.controlnet"):
+            if self.cfg.has_pose and pose_hint is not None:
+                res = self.compute_pose_residuals(x_noisy, pose_hint, timesteps, context,
+                                                  self_kv_pool, self_kv_min_seq)
+            if self.cfg.has_image_control and image_hint is not None:
+                ir = self.image_control_model(x_noisy, image_hint, timesteps, context,
                                               self_kv_pool, self_kv_min_seq)
-        if self.cfg.has_image_control and image_hint is not None:
-            ir = self.image_control_model(x_noisy, image_hint, timesteps, context,
-                                          self_kv_pool, self_kv_min_seq)
-            res = ir if res is None else tuple(a + b for a, b in zip(res, ir))
+                res = ir if res is None else tuple(a + b for a, b in zip(res, ir))
         return res
 
     def forward(self, x_noisy: torch.Tensor, timesteps: torch.Tensor,
@@ -152,7 +155,8 @@ class MagicPoseModel(nn.Module):
         if concat_cond is not None:
             x_noisy = torch.cat([x_noisy, concat_cond.to(x_noisy.dtype)], dim=-1)
         if uc:
-            res = self.unet(x_noisy, timesteps, context, num_frames=num_frames, **deep_kw)
+            with span("md.pass.unet_uncond"):
+                res = self.unet(x_noisy, timesteps, context, num_frames=num_frames, **deep_kw)
             return (res[0], res[2]) if collect_deep else res[0]
         b = x_noisy.shape[0]
         if bank is not None and len(bank) and bank[0].shape[0] not in (1, b):
@@ -175,8 +179,9 @@ class MagicPoseModel(nn.Module):
             pose_residuals = self.compute_control_residuals(
                 x_noisy, pose_hint, timesteps, context, self_kv_pool, self_kv_min_seq,
                 image_hint=image_hint)
-        res = self.unet(x_noisy, timesteps, context, bank=bank,
-                        pose_residuals=pose_residuals, num_frames=num_frames, **deep_kw)
+        with span("md.pass.unet_cond"):
+            res = self.unet(x_noisy, timesteps, context, bank=bank,
+                            pose_residuals=pose_residuals, num_frames=num_frames, **deep_kw)
         return (res[0], res[2]) if collect_deep else res[0]
 
     def cfg_fused_eps(self, x_noisy: torch.Tensor, timesteps: torch.Tensor,
@@ -200,9 +205,11 @@ class MagicPoseModel(nn.Module):
                                                    image_hint=image_hint)
         if residuals is not None:
             residuals = tuple(torch.cat([r, torch.zeros_like(r)]) for r in residuals)
-        if bank is not None and self.cfg.has_appearance:
-            out = self.unet(xx, tt, cc, bank=bank, bank_mask=mask,
-                            pose_residuals=residuals, num_frames=num_frames)[0]
-        else:
-            out = self.unet(xx, tt, cc, pose_residuals=residuals, num_frames=num_frames)[0]
+        with span("md.pass.unet_fused"):
+            if bank is not None and self.cfg.has_appearance:
+                out = self.unet(xx, tt, cc, bank=bank, bank_mask=mask,
+                                pose_residuals=residuals, num_frames=num_frames)[0]
+            else:
+                out = self.unet(xx, tt, cc, pose_residuals=residuals,
+                                num_frames=num_frames)[0]
         return out[:b], out[b:]

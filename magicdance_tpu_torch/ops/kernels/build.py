@@ -5,7 +5,8 @@ C interface (no PyTorch headers, so a build takes seconds, not minutes). All
 sources start compiling at once, one `nvcc` process each. Libraries land in
 `magicdance_tpu_torch/_build/`, named by a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is reused. Nothing here runs
-at import time: the first launch of a kernel builds it.
+at import time: the first launch of a kernel builds it. `BUILDS` tells an
+operator whether a run compiled or loaded a kernel library, and which.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -31,6 +33,14 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# per library name, in this process: {"builds": nvcc builds, "build_s": their
+# wall seconds (the builds of one `build` call run at once, and each is given
+# the call's whole wall time), "loaded": whether `load` has loaded it}
+BUILDS: dict[str, dict] = {}
+
+
+def _builds_entry(name: str) -> dict:
+    return BUILDS.setdefault(name, {"builds": 0, "build_s": 0.0, "loaded": False})
 
 
 def _nvcc() -> str:
@@ -68,15 +78,21 @@ def build(names=SOURCES) -> dict[str, Path]:
     if not todo:
         return paths
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for n in todo:
         tmp = paths[n].with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
+    outs = {n: proc.communicate()[0] for n, (_, proc) in procs.items()}
+    wall = time.perf_counter() - t0
     failed = []
     for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
+        entry = _builds_entry(n)
+        entry["builds"] += 1
+        entry["build_s"] += wall
+        out = outs[n]
         paths[n].with_suffix(".so.log").write_text(out)
         if proc.returncode != 0:
             failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{out}")
@@ -145,4 +161,5 @@ def load(name: str) -> ctypes.CDLL:
             lib.md_error_string.argtypes = [ctypes.c_int]
             lib.md_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+            _builds_entry(name)["loaded"] = True
         return lib

@@ -61,6 +61,7 @@ from magicdance_tpu_torch.ops.kernels.attention import (
     two_source_attention_cuda,
 )
 from magicdance_tpu_torch.ops.kernels.grouped import grouped_attention, grouped_attention_bwd
+from magicdance_tpu_torch.utils.profiling import dims, span
 
 # --------------------------------------------------------------------------
 # plain versions
@@ -352,6 +353,14 @@ def attention_dkv_cuda(k, v, q, dout, lse, delta, scale: float, body: Optional[s
 # --------------------------------------------------------------------------
 
 
+def bwd_detail(q: torch.Tensor, k: torch.Tensor, k_bank: Optional[torch.Tensor] = None) -> str:
+    """A backward call's shapes, as its `md.attn.bwd` span carries them: q
+    (B x Sq x H x D) and the (batch x rows) of each key source, "0x0" for
+    no bank."""
+    bank = "0x0" if k_bank is None else f"{k_bank.shape[0]}x{k_bank.shape[1]}"
+    return f" q={dims(q)} kv={k.shape[0]}x{k.shape[1]} bank={bank}"
+
+
 class _MHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -363,13 +372,14 @@ class _MHA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        g = g.contiguous()  # the kernels take unit stride over D, aligned rows
-        delta = attention_delta(g, out)
-        need_q, need_k, need_v = ctx.needs_input_grad[:3]
-        dq = attention_dq(q, k, v, g, lse, delta, ctx.scale) if need_q else None
-        dk = dv = None
-        if need_k or need_v:
-            dk, dv = attention_dkv(k, v, q, g, lse, delta, ctx.scale)
+        with span("md.attn.bwd", bwd_detail, q, k):
+            g = g.contiguous()  # the kernels take unit stride over D, aligned rows
+            delta = attention_delta(g, out)
+            need_q, need_k, need_v = ctx.needs_input_grad[:3]
+            dq = attention_dq(q, k, v, g, lse, delta, ctx.scale) if need_q else None
+            dk = dv = None
+            if need_k or need_v:
+                dk, dv = attention_dkv(k, v, q, g, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
 
@@ -384,19 +394,20 @@ class _MHATwoSource(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k_self, v_self, k_bank, v_bank, out, lse = ctx.saved_tensors
-        g = g.contiguous()
-        delta = attention_delta(g, out)
-        need = ctx.needs_input_grad
-        grads = [None] * 6
-        if need[0]:
-            grads[0] = attention_dq(q, k_self, v_self, g, lse, delta, ctx.scale,
-                                    k_bank, v_bank)
-        if need[1] or need[2]:
-            grads[1], grads[2] = attention_dkv(k_self, v_self, q, g, lse, delta,
-                                               ctx.scale)
-        if need[3] or need[4]:
-            grads[3], grads[4] = attention_dkv(k_bank, v_bank, q, g, lse, delta,
-                                               ctx.scale)
+        with span("md.attn.bwd", bwd_detail, q, k_self, k_bank):
+            g = g.contiguous()
+            delta = attention_delta(g, out)
+            need = ctx.needs_input_grad
+            grads = [None] * 6
+            if need[0]:
+                grads[0] = attention_dq(q, k_self, v_self, g, lse, delta, ctx.scale,
+                                        k_bank, v_bank)
+            if need[1] or need[2]:
+                grads[1], grads[2] = attention_dkv(k_self, v_self, q, g, lse, delta,
+                                                   ctx.scale)
+            if need[3] or need[4]:
+                grads[3], grads[4] = attention_dkv(k_bank, v_bank, q, g, lse, delta,
+                                                   ctx.scale)
         return tuple(grads)
 
 
@@ -436,6 +447,12 @@ def mha_two_source_packed(q: torch.Tensor, k_self: torch.Tensor,
                           scale).reshape(q.shape)
 
 
+def grouped_bwd_detail(q: torch.Tensor, num_heads: int) -> str:
+    """The grouped backward's shapes for its `md.attn.bwd` span: packed q
+    (sequences x rows x H*D) and the heads."""
+    return f" grouped={dims(q)} heads={num_heads}"
+
+
 class _MHAGrouped(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, num_heads):
@@ -449,7 +466,8 @@ class _MHAGrouped(torch.autograd.Function):
         if not any(need):
             return None, None, None, None, None
         q, k, v = ctx.saved_tensors
-        grads = grouped_attention_bwd(q, k, v, g.contiguous(), ctx.scale, ctx.num_heads)
+        with span("md.attn.bwd", grouped_bwd_detail, q, ctx.num_heads):
+            grads = grouped_attention_bwd(q, k, v, g.contiguous(), ctx.scale, ctx.num_heads)
         return tuple(d if n else None for d, n in zip(grads, need)) + (None, None)
 
 

@@ -22,6 +22,7 @@ package's fp32 reference computes it.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence, Union
 
 import torch
@@ -36,6 +37,7 @@ from magicdance_tpu_torch.ops.schedules import make_ddim_schedule, make_schedule
 from magicdance_tpu_torch.parallel.mesh import as_axis
 from magicdance_tpu_torch.sampling.ddim import ddim_sample
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
+from magicdance_tpu_torch.utils.profiling import span
 
 DECODE_CHUNK = 8
 
@@ -56,6 +58,7 @@ class MagicPosePipeline:
             m.eval().requires_grad_(False)
         self.sched = make_schedule(cfg.diffusion)
         self.tokenizer = tokenizer or CLIPTokenizer()
+        self._request_ids = itertools.count()  # the index an `md.request` span carries
 
     # -- initialization ----------------------------------------------------
     @torch.no_grad()
@@ -96,21 +99,24 @@ class MagicPosePipeline:
     @full_fp32()
     def encode_text(self, prompts: list[str]) -> torch.Tensor:
         ids = self.tokenizer(prompts, self.cfg.clip.max_length)
-        return self.clip(torch.from_numpy(ids).to(self.device))
+        with span("md.clip"):
+            return self.clip(torch.from_numpy(ids).to(self.device))
 
     @torch.inference_mode()
     @full_fp32()
     def encode_empty(self, batch: int = 1) -> torch.Tensor:
         ids = empty_prompt_ids(batch, self.cfg.clip.max_length)
-        return self.clip(torch.from_numpy(ids).to(self.device))
+        with span("md.clip"):
+            return self.clip(torch.from_numpy(ids).to(self.device))
 
     @torch.inference_mode()
     @full_fp32()
     def encode_reference(self, image: torch.Tensor) -> torch.Tensor:
         """image: (1, H, W, 3) in [-1, 1] -> scaled latent (1, H/8, W/8, 4),
         from the posterior mode."""
-        post = self.vae.encode(image.to(self.device))
-        return encode_to_latent(post.mode(), self.cfg.vae.scale_factor)
+        with span("md.vae.encode"):
+            post = self.vae.encode(image.to(self.device))
+            return encode_to_latent(post.mode(), self.cfg.vae.scale_factor)
 
     @torch.inference_mode()
     @full_fp32()
@@ -118,8 +124,11 @@ class MagicPosePipeline:
         """(F, h, w, 4) latents -> (F, 8h, 8w, 3) fp32 images, decoded in
         chunks of 8 frames."""
         z = latent_to_decoder_input(latents.to(self.device), self.cfg.vae.scale_factor)
-        return torch.cat([self.vae.decode(c).float()
-                          for c in torch.split(z, DECODE_CHUNK)], dim=0)
+        images = []
+        for c in torch.split(z, DECODE_CHUNK):
+            with span("md.vae.decode"):
+                images.append(self.vae.decode(c).float())
+        return torch.cat(images, dim=0)
 
     # -- sampling ----------------------------------------------------------
     @torch.inference_mode()
@@ -159,42 +168,43 @@ class MagicPosePipeline:
         whole, then the decode splits by frames. An all-gather returns the
         whole (F, ...) result on every rank. The weights are the caller's on
         every rank (the same seed or checkpoint)."""
-        cfg = self.cfg
-        video = video and cfg.has_temporal
-        if image_hints is not None:
-            image_hints = image_hints.to(self.device)
-        if pose_maps is not None:
-            F, H = pose_maps.shape[0], pose_maps.shape[1]
-            pose_maps = pose_maps.to(self.device)
-        else:
-            F, H = 1, cfg.latent_size * 8
-        latent = H // 8
-        ctx = self.encode_text(prompts) if prompts else self.encode_empty(1)
-        uctx = self.encode_empty(1)
-        use_ref = reference_image is not None and cfg.has_appearance
-        ref_latent = self.encode_reference(reference_image) if use_ref else None
-        if x_T is None:
-            shape = (1 if scfg.shared_noise else F, latent, latent, 4)
-            x_T = torch.randn(shape, generator=generator, device=self.device)
-            x_T = x_T.expand(F, latent, latent, 4)
-        x_T = x_T.to(self.device, torch.float32).contiguous()
-        ddim = make_ddim_schedule(self.sched, scfg.steps, eta=scfg.eta)
-        kw = dict(reference_latent=ref_latent, pose_hint=pose_maps, image_hint=image_hints,
-                  parameterization=cfg.diffusion.parameterization, generator=generator)
-        axis = as_axis(mesh)
-        axis.broadcast(x_T)
-        f0, f1 = axis.rows(F)
-        if video:
-            lat = ddim_sample_video(self.model, self.sched, ddim, scfg, x_T, ctx, uctx,
-                                    window_offsets=window_offsets, window_sharding=axis,
-                                    **kw)[f0:f1]
-        else:
-            share = {k: (v[f0:f1] if k in ("pose_hint", "image_hint") and v is not None else v)
-                     for k, v in kw.items()}
-            lat = (ddim_sample(self.model, self.sched, ddim, scfg, x_T[f0:f1], ctx, uctx,
-                               rows=(f0, F), **share) if f1 > f0 else x_T[f0:f1])
-        if decode:
-            up = 2 ** (len(cfg.vae.channel_mult) - 1)
-            lat = (self.decode_latents(lat) if f1 > f0
-                   else lat.new_zeros((0, up * lat.shape[1], up * lat.shape[2], 3)))
-        return axis.gather_rows(lat, F)
+        with span("md.request", " i={}".format, next(self._request_ids)):
+            cfg = self.cfg
+            video = video and cfg.has_temporal
+            if image_hints is not None:
+                image_hints = image_hints.to(self.device)
+            if pose_maps is not None:
+                F, H = pose_maps.shape[0], pose_maps.shape[1]
+                pose_maps = pose_maps.to(self.device)
+            else:
+                F, H = 1, cfg.latent_size * 8
+            latent = H // 8
+            ctx = self.encode_text(prompts) if prompts else self.encode_empty(1)
+            uctx = self.encode_empty(1)
+            use_ref = reference_image is not None and cfg.has_appearance
+            ref_latent = self.encode_reference(reference_image) if use_ref else None
+            if x_T is None:
+                shape = (1 if scfg.shared_noise else F, latent, latent, 4)
+                x_T = torch.randn(shape, generator=generator, device=self.device)
+                x_T = x_T.expand(F, latent, latent, 4)
+            x_T = x_T.to(self.device, torch.float32).contiguous()
+            ddim = make_ddim_schedule(self.sched, scfg.steps, eta=scfg.eta)
+            kw = dict(reference_latent=ref_latent, pose_hint=pose_maps, image_hint=image_hints,
+                      parameterization=cfg.diffusion.parameterization, generator=generator)
+            axis = as_axis(mesh)
+            axis.broadcast(x_T)
+            f0, f1 = axis.rows(F)
+            if video:
+                lat = ddim_sample_video(self.model, self.sched, ddim, scfg, x_T, ctx, uctx,
+                                        window_offsets=window_offsets, window_sharding=axis,
+                                        **kw)[f0:f1]
+            else:
+                share = {k: (v[f0:f1] if k in ("pose_hint", "image_hint") and v is not None else v)
+                         for k, v in kw.items()}
+                lat = (ddim_sample(self.model, self.sched, ddim, scfg, x_T[f0:f1], ctx, uctx,
+                                   rows=(f0, F), **share) if f1 > f0 else x_T[f0:f1])
+            if decode:
+                up = 2 ** (len(cfg.vae.channel_mult) - 1)
+                lat = (self.decode_latents(lat) if f1 > f0
+                       else lat.new_zeros((0, up * lat.shape[1], up * lat.shape[2], 3)))
+            return axis.gather_rows(lat, F)

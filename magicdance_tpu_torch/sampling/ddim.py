@@ -38,6 +38,7 @@ import torch
 from magicdance_tpu_torch.config import Parameterization, SampleConfig
 from magicdance_tpu_torch.models.diffusion import output_to_eps
 from magicdance_tpu_torch.ops.schedules import DDIMSchedule, DiffusionSchedule, q_sample
+from magicdance_tpu_torch.utils.profiling import span
 
 
 def ddim_step(x: torch.Tensor, eps: torch.Tensor, alpha: torch.Tensor,
@@ -242,72 +243,73 @@ def ddim_sample(
     eps_u = torch.zeros_like(x)
     bank = pose_res = deep = deep_u = None
     for i in range(S):
-        step = S - 1 - i  # descending t
-        t_scalar = int(ddim.timesteps[step])
-        t = torch.full((B,), t_scalar, dtype=torch.int64, device=x.device)
+        with span("md.ddim.step", " i={}".format, i):
+            step = S - 1 - i  # descending t
+            t_scalar = int(ddim.timesteps[step])
+            t = torch.full((B,), t_scalar, dtype=torch.int64, device=x.device)
 
-        if has_appearance and plan.bank_refresh[step]:
-            t_ref = torch.full((reference_latent.shape[0],), t_scalar,
-                               dtype=torch.int64, device=x.device)
-            if scfg.wonoise:
-                ref_noisy = reference_latent
-            else:
-                ref_noise = torch.randn(reference_latent.shape, generator=generator,
-                                        device=x.device, dtype=reference_latent.dtype)
-                ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
-            bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
-                                   scfg.bank_downsample, scfg.bank_downsample_min_seq)
+            if has_appearance and plan.bank_refresh[step]:
+                t_ref = torch.full((reference_latent.shape[0],), t_scalar,
+                                   dtype=torch.int64, device=x.device)
+                if scfg.wonoise:
+                    ref_noisy = reference_latent
+                else:
+                    ref_noise = torch.randn(reference_latent.shape, generator=generator,
+                                            device=x.device, dtype=reference_latent.dtype)
+                    ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
+                bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
+                                       scfg.bank_downsample, scfg.bank_downsample_min_seq)
 
-        if fused:
-            out_c, out_u = model.cfg_fused_eps(x, t, ctx, uctx, bank=bank,
-                                               pose_hint=pose_hint, image_hint=image_hint)
-            eps_c, eps_u = to_eps(out_c, x, t), to_eps(out_u, x, t)
-            eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
-        else:
-            pose_kw = {}
-            if plan.pose_reuse:
-                if plan.pose_refresh[step]:
-                    pose_res = model.compute_control_residuals(x, pose_hint, t, ctx,
-                                                               image_hint=image_hint, **kv_kw)
-                pose_kw = dict(pose_residuals=pose_res)
-            cond_kw = dict(bank=bank, pose_hint=pose_hint, image_hint=image_hint, **pose_kw,
-                           **kv_kw)
-            if plan.deepcache and plan.deep_refresh[step]:
-                out_c, deep = model(x, t, ctx, collect_deep=True,
-                                    deep_level=plan.deep_level, **cond_kw)
-            elif plan.deepcache:
-                out_c = model(x, t, ctx, deep_cache_in=deep, deep_level=plan.deep_level,
-                              **cond_kw)
-            else:
-                out_c = model(x, t, ctx, **cond_kw)
-            eps_c = to_eps(out_c, x, t)
-            if use_cfg and plan.refresh[step]:
-                if scfg.control_mode == "balance":
-                    # the uncond pass keeps both control branches and swaps
-                    # only the text conditioning
-                    out_u = model(x, t, uctx, **cond_kw)
-                elif plan.uncond_deepcache and plan.udeep_refresh[step]:
-                    out_u, deep_u = model(x, t, uctx, uc=True, collect_deep=True,
-                                          deep_level=plan.deep_level, **kv_kw)
-                elif plan.uncond_deepcache:
-                    out_u = model(x, t, uctx, uc=True, deep_cache_in=deep_u,
-                                  deep_level=plan.deep_level, **kv_kw)
-                else:  # controlnet_important: vanilla SD uncond
-                    out_u = model(x, t, uctx, uc=True, **kv_kw)
-                eps_u = to_eps(out_u, x, t)
-            if plan.active[step]:
+            if fused:
+                out_c, out_u = model.cfg_fused_eps(x, t, ctx, uctx, bank=bank,
+                                                   pose_hint=pose_hint, image_hint=image_hint)
+                eps_c, eps_u = to_eps(out_c, x, t), to_eps(out_u, x, t)
                 eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
             else:
-                eps = eps_c
+                pose_kw = {}
+                if plan.pose_reuse:
+                    if plan.pose_refresh[step]:
+                        pose_res = model.compute_control_residuals(x, pose_hint, t, ctx,
+                                                                   image_hint=image_hint, **kv_kw)
+                    pose_kw = dict(pose_residuals=pose_res)
+                cond_kw = dict(bank=bank, pose_hint=pose_hint, image_hint=image_hint, **pose_kw,
+                               **kv_kw)
+                if plan.deepcache and plan.deep_refresh[step]:
+                    out_c, deep = model(x, t, ctx, collect_deep=True,
+                                        deep_level=plan.deep_level, **cond_kw)
+                elif plan.deepcache:
+                    out_c = model(x, t, ctx, deep_cache_in=deep, deep_level=plan.deep_level,
+                                  **cond_kw)
+                else:
+                    out_c = model(x, t, ctx, **cond_kw)
+                eps_c = to_eps(out_c, x, t)
+                if use_cfg and plan.refresh[step]:
+                    if scfg.control_mode == "balance":
+                        # the uncond pass keeps both control branches and swaps
+                        # only the text conditioning
+                        out_u = model(x, t, uctx, **cond_kw)
+                    elif plan.uncond_deepcache and plan.udeep_refresh[step]:
+                        out_u, deep_u = model(x, t, uctx, uc=True, collect_deep=True,
+                                              deep_level=plan.deep_level, **kv_kw)
+                    elif plan.uncond_deepcache:
+                        out_u = model(x, t, uctx, uc=True, deep_cache_in=deep_u,
+                                      deep_level=plan.deep_level, **kv_kw)
+                    else:  # controlnet_important: vanilla SD uncond
+                        out_u = model(x, t, uctx, uc=True, **kv_kw)
+                    eps_u = to_eps(out_u, x, t)
+                if plan.active[step]:
+                    eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
+                else:
+                    eps = eps_c
 
-        if scfg.eta > 0:
-            first, total = rows if rows is not None else (0, B)
-            noise = torch.randn((total,) + tuple(x.shape[1:]), generator=generator,
-                                device=x.device, dtype=x.dtype)[first:first + B]
-        else:
-            noise = torch.zeros_like(x)
-        x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
-                         ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
+            if scfg.eta > 0:
+                first, total = rows if rows is not None else (0, B)
+                noise = torch.randn((total,) + tuple(x.shape[1:]), generator=generator,
+                                    device=x.device, dtype=x.dtype)[first:first + B]
+            else:
+                noise = torch.zeros_like(x)
+            x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
+                             ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
     return x
 
 

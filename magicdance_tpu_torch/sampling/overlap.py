@@ -51,6 +51,7 @@ from magicdance_tpu_torch.sampling.ddim import (
     downsample_bank,
     self_kv_kwargs,
 )
+from magicdance_tpu_torch.utils.profiling import span
 
 
 def window_starts(num_frames: int, window: int, stride: int) -> np.ndarray:
@@ -133,81 +134,82 @@ def ddim_sample_video(
     # frame-space caches, each refreshed by the schedules at its first use
     eps_u = bank = pose_frames = deep = deep_u = None
     for i in range(S):
-        step = S - 1 - i  # descending t
-        t_scalar = int(ddim.timesteps[step])
-        idx = (starts[w0:w1, None] + offsets[i] + frame[None, :]) % F  # (windows, W)
-        flat = idx.reshape(-1)
-        xw = x[flat]
-        t = torch.full((flat.shape[0],), t_scalar, dtype=torch.int64, device=dev)
+        with span("md.ddim.step", " i={}".format, i):
+            step = S - 1 - i  # descending t
+            t_scalar = int(ddim.timesteps[step])
+            idx = (starts[w0:w1, None] + offsets[i] + frame[None, :]) % F  # (windows, W)
+            flat = idx.reshape(-1)
+            xw = x[flat]
+            t = torch.full((flat.shape[0],), t_scalar, dtype=torch.int64, device=dev)
 
-        def to_frames(vals_w):
-            return scatter_mean(vals_w, idx, F, axis)
+            def to_frames(vals_w):
+                return scatter_mean(vals_w, idx, F, axis)
 
-        if has_appearance and plan.bank_refresh[step]:
-            t_ref = torch.full((reference_latent.shape[0],), t_scalar, dtype=torch.int64,
-                               device=dev)
-            if scfg.wonoise:
-                ref_noisy = reference_latent
+            if has_appearance and plan.bank_refresh[step]:
+                t_ref = torch.full((reference_latent.shape[0],), t_scalar, dtype=torch.int64,
+                                   device=dev)
+                if scfg.wonoise:
+                    ref_noisy = reference_latent
+                else:
+                    ref_noise = torch.randn(reference_latent.shape, generator=generator,
+                                            device=dev, dtype=reference_latent.dtype)
+                    ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
+                bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
+                                       scfg.bank_downsample, scfg.bank_downsample_min_seq)
+
+            hint_w = pose_hint[flat] if pose_hint is not None else None
+            ihint_w = image_hint[flat] if image_hint is not None else None
+            pose_kw = {}
+            if plan.pose_reuse:
+                if plan.pose_refresh[step]:
+                    res = model.compute_control_residuals(xw, hint_w, t, win_ctx,
+                                                          image_hint=ihint_w, **kv_kw)
+                    pose_frames = tuple(to_frames(r) for r in res)
+                pose_kw = dict(pose_residuals=tuple(r[flat] for r in pose_frames))
+            cond_kw = dict(bank=bank, pose_hint=hint_w, image_hint=ihint_w, num_frames=W,
+                           **pose_kw, **kv_kw)
+            if plan.deepcache and plan.deep_refresh[step]:
+                out_c, d = model(xw, t, win_ctx, collect_deep=True, deep_level=plan.deep_level,
+                                 **cond_kw)
+                deep = to_frames(d)
+            elif plan.deepcache:
+                out_c = model(xw, t, win_ctx, deep_cache_in=deep[flat],
+                              deep_level=plan.deep_level, **cond_kw)
             else:
-                ref_noise = torch.randn(reference_latent.shape, generator=generator,
-                                        device=dev, dtype=reference_latent.dtype)
-                ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
-            bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
-                                   scfg.bank_downsample, scfg.bank_downsample_min_seq)
+                out_c = model(xw, t, win_ctx, **cond_kw)
+            eps_c = to_eps(out_c, xw, t)
 
-        hint_w = pose_hint[flat] if pose_hint is not None else None
-        ihint_w = image_hint[flat] if image_hint is not None else None
-        pose_kw = {}
-        if plan.pose_reuse:
-            if plan.pose_refresh[step]:
-                res = model.compute_control_residuals(xw, hint_w, t, win_ctx,
-                                                      image_hint=ihint_w, **kv_kw)
-                pose_frames = tuple(to_frames(r) for r in res)
-            pose_kw = dict(pose_residuals=tuple(r[flat] for r in pose_frames))
-        cond_kw = dict(bank=bank, pose_hint=hint_w, image_hint=ihint_w, num_frames=W,
-                       **pose_kw, **kv_kw)
-        if plan.deepcache and plan.deep_refresh[step]:
-            out_c, d = model(xw, t, win_ctx, collect_deep=True, deep_level=plan.deep_level,
-                             **cond_kw)
-            deep = to_frames(d)
-        elif plan.deepcache:
-            out_c = model(xw, t, win_ctx, deep_cache_in=deep[flat],
-                          deep_level=plan.deep_level, **cond_kw)
-        else:
-            out_c = model(xw, t, win_ctx, **cond_kw)
-        eps_c = to_eps(out_c, xw, t)
+            uc_kw = dict(uc=True, num_frames=W, **kv_kw)
+            if not plan.turbo:
+                if use_cfg:
+                    eps_uw = to_eps(model(xw, t, win_uctx, **uc_kw), xw, t)
+                    eps_c = eps_uw + scfg.cfg_scale * (eps_c - eps_uw)
+                eps = to_frames(eps_c)
+            else:
+                # the turbo path averages cond and uncond onto the frames apart
+                # and combines them there (the uncond eps is a frame-space cache)
+                eps = to_frames(eps_c)
+                if use_cfg:
+                    if plan.refresh[step]:
+                        if plan.uncond_deepcache and plan.udeep_refresh[step]:
+                            out_u, d = model(xw, t, win_uctx, collect_deep=True,
+                                             deep_level=plan.deep_level, **uc_kw)
+                            deep_u = to_frames(d)
+                        elif plan.uncond_deepcache:
+                            out_u = model(xw, t, win_uctx, deep_cache_in=deep_u[flat],
+                                          deep_level=plan.deep_level, **uc_kw)
+                        else:
+                            out_u = model(xw, t, win_uctx, **uc_kw)
+                        eps_u = to_frames(to_eps(out_u, xw, t))
+                    if plan.active[step]:
+                        eps = eps_u + scfg.cfg_scale * (eps - eps_u)
 
-        uc_kw = dict(uc=True, num_frames=W, **kv_kw)
-        if not plan.turbo:
-            if use_cfg:
-                eps_uw = to_eps(model(xw, t, win_uctx, **uc_kw), xw, t)
-                eps_c = eps_uw + scfg.cfg_scale * (eps_c - eps_uw)
-            eps = to_frames(eps_c)
-        else:
-            # the turbo path averages cond and uncond onto the frames apart
-            # and combines them there (the uncond eps is a frame-space cache)
-            eps = to_frames(eps_c)
-            if use_cfg:
-                if plan.refresh[step]:
-                    if plan.uncond_deepcache and plan.udeep_refresh[step]:
-                        out_u, d = model(xw, t, win_uctx, collect_deep=True,
-                                         deep_level=plan.deep_level, **uc_kw)
-                        deep_u = to_frames(d)
-                    elif plan.uncond_deepcache:
-                        out_u = model(xw, t, win_uctx, deep_cache_in=deep_u[flat],
-                                      deep_level=plan.deep_level, **uc_kw)
-                    else:
-                        out_u = model(xw, t, win_uctx, **uc_kw)
-                    eps_u = to_frames(to_eps(out_u, xw, t))
-                if plan.active[step]:
-                    eps = eps_u + scfg.cfg_scale * (eps - eps_u)
-
-        if scfg.eta > 0:
-            noise = torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
-        else:
-            noise = torch.zeros_like(x)
-        x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
-                         ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
+            if scfg.eta > 0:
+                noise = torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
+            else:
+                noise = torch.zeros_like(x)
+            x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
+                             ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
     return x
 
 

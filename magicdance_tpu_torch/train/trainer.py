@@ -108,6 +108,7 @@ from magicdance_tpu_torch.parallel.mesh import (
 )
 from magicdance_tpu_torch.pipeline import full_fp32
 from magicdance_tpu_torch.train.quant import should_quantize
+from magicdance_tpu_torch.utils.profiling import span
 
 # elements per bucket of the gradient all-reduce and the parameter all-gather
 BUCKET_ELEMS = 1 << 26
@@ -569,13 +570,14 @@ class Trainer:
         cfg = self.cfg
         chunk = cfg.vae_encode_chunk
         scale = cfg.model.vae.scale_factor
-        x0 = encode_to_latent(encode_sample_chunked(
-            self.vae, batch["image"], draws.vae_image, chunk), scale)
-        ref = None
-        if cfg.model.has_appearance:
-            ref = encode_to_latent(encode_sample_chunked(
-                self.vae, batch["reference"], draws.vae_reference, chunk), scale)
-        return x0, ref, self.clip(batch["input_ids"])
+        with span("md.train.encode"):
+            x0 = encode_to_latent(encode_sample_chunked(
+                self.vae, batch["image"], draws.vae_image, chunk), scale)
+            ref = None
+            if cfg.model.has_appearance:
+                ref = encode_to_latent(encode_sample_chunked(
+                    self.vae, batch["reference"], draws.vae_reference, chunk), scale)
+            return x0, ref, self.clip(batch["input_ids"])
 
     def loss_from_latents(self, x0: torch.Tensor, ref: Optional[torch.Tensor],
                           context: torch.Tensor, batch: Mapping[str, torch.Tensor],
@@ -625,15 +627,17 @@ class Trainer:
         with full_fp32():
             encoded = self.encode(batch, draws)  # VAE and CLIP under "auto"
             with attention_impl(self.cfg.attention_impl):
-                loss, metrics = self.loss_from_latents(*encoded, batch, draws)
-                loss.backward()
+                with span("md.train.forward"):
+                    loss, metrics = self.loss_from_latents(*encoded, batch, draws)
+                with span("md.train.backward"):
+                    loss.backward()
         grads = self.grads()
         metrics = self.average(grads, metrics)
         return metrics["loss"], metrics, grads
 
     def apply_update(self, grads: Mapping[str, torch.Tensor]) -> None:
         """Optimizer update and EMA; clears the gradients; counts the step."""
-        with full_fp32():
+        with full_fp32(), span("md.train.optimizer"):
             self.opt.update(self.train_params, grads)
             if self.ema_params is not None:
                 rate = self.cfg.optim.ema_rate
@@ -652,12 +656,13 @@ class Trainer:
         optimizer update, EMA. `draws` are the global batch's (default: from
         the trainer's generator). Returns the metrics of the global batch as
         0-d tensors on the device (no host sync)."""
-        batch = self.to_device(batch)
-        if draws is None:
-            draws = self.draw(batch)
-        _, metrics, grads = self.loss_and_grads(batch, draws)
-        metrics["grad_norm"] = global_norm(grads.values())
-        self.apply_update(grads)
+        with span("md.train.step", " i={}".format, self.step):
+            batch = self.to_device(batch)
+            if draws is None:
+                draws = self.draw(batch)
+            _, metrics, grads = self.loss_and_grads(batch, draws)
+            metrics["grad_norm"] = global_norm(grads.values())
+            self.apply_update(grads)
         return metrics
 
     # -- state ----------------------------------------------------------------

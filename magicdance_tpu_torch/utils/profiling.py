@@ -2,20 +2,27 @@
 
 Counterpart of `magicdance_tpu.utils.profiling`: `trace` records a
 `torch.profiler` trace (host and, when there is a GPU, device activity) and
-writes it as a Chrome trace; `annotate` names a region in it;
+writes it as a Chrome trace; `span` names a region of the program in it;
 `top_ops` ranks the device kernels by total time and
 `device_busy_ms` gives the device's busy time within its span;
 `device_memory_stats` reads the CUDA caching allocator's counters (an empty
-dict on the CPU, as the JAX package's on a backend without stats);
-`StepTimer` is a rolling wall-clock rate.
+dict on the CPU, as the JAX package's on a backend without stats).
+
+The program's spans (`md.` names) nest as: `md.request` (one
+`MagicPosePipeline.sample_frames` call) > `md.clip`, `md.vae.encode`,
+`md.ddim.step` > `md.pass.{bank_write, controlnet, unet_cond, unet_uncond,
+unet_fused}` > `md.attn`, and `md.vae.decode` a decode chunk; in training
+`md.train.step` > `md.train.{encode, forward, backward, optimizer}`, with
+`md.remat` around each recomputed block (in the forward and again in the
+backward's recompute) and `md.attn.bwd` in the attention Functions'
+backward, both on autograd's device thread. Attention spans carry their
+shapes in the name (`CrossAttention.span_detail`, `flash_vjp.bwd_detail`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Optional
 
 import torch
 
@@ -36,17 +43,6 @@ def device_memory_stats(device=None) -> dict:
             "bytes_limit": torch.cuda.get_device_properties(device).total_memory}
 
 
-def log_peak_memory(tag: str, logger=None) -> dict:
-    """One `[mem] tag: ...` line of `device_memory_stats` in GB; the peak also
-    goes to `logger` (a `utils.logging.MetricLogger`) when given."""
-    stats = device_memory_stats()
-    msg = f"[mem] {tag}: " + ", ".join(f"{k}={v / 1e9:.2f}GB" for k, v in stats.items())
-    print(msg, flush=True)
-    if logger is not None and "peak_bytes_in_use" in stats:
-        logger.log(0, {f"mem/{tag}": stats["peak_bytes_in_use"]})
-    return stats
-
-
 @contextlib.contextmanager
 def trace(log_dir: str, name: str = "trace"):
     """Profile the block with `torch.profiler` (CPU activity, and CUDA
@@ -64,9 +60,25 @@ def trace(log_dir: str, name: str = "trace"):
     prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))
 
 
-def annotate(name: str):
-    """A named region visible in profiler traces."""
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, detail=None, *args):
+    """A named region of the program in the profiler's trace, entered with
+    `with`: a `torch.profiler.record_function` (a host event on the device
+    trace's clock, also on autograd's device thread, which inherits the
+    caller's profiler state) while a profiler records (`torch.profiler`,
+    `trace`, `emit_nvtx`), else one shared null context, at the cost of one
+    check. `detail(*args)`, called only while recording, is appended to the
+    name: " key=value" fields such as shapes or an index."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name if detail is None else name + detail(*args))
+
+
+def dims(t: torch.Tensor) -> str:
+    """A tensor's shape as a span field value: "2x4096x320"."""
+    return "x".join(map(str, t.shape))
 
 
 def device_events(prof) -> list:
@@ -105,22 +117,3 @@ def top_ops(prof, n: int = 10) -> list[dict]:
     rows = sorted(totals.items(), key=lambda kv: -kv[1][0])[:n]
     return [dict(name=k, count=c, total_ms=t / 1e3, mean_ms=t / 1e3 / c)
             for k, (t, c) in rows]
-
-
-class StepTimer:
-    """Rolling wall-clock step timer."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._t: list[float] = []
-
-    def tick(self) -> None:
-        self._t.append(time.time())
-        if len(self._t) > self.window + 1:
-            self._t.pop(0)
-
-    @property
-    def steps_per_sec(self) -> Optional[float]:
-        if len(self._t) < 2:
-            return None
-        return (len(self._t) - 1) / (self._t[-1] - self._t[0])
