@@ -110,7 +110,8 @@ Phases, in order; every check raises, so any failure exits non-zero:
      modules: two requests of 16 pose maps at 512x512 through
      `sample_frames(video=True)` (one 16-frame window, default SampleConfig),
      finite (16, 512, 512, 3) outputs and exactly 36 self-attention + 15
-     two-source + 80 grouped launches per DDIM step (`serving_launch_plan`);
+     two-source + 80 grouped + 2 x 250 K8 launches per DDIM step
+     (`serving_launch_plan`);
      seconds per request, frames/s, peak memory, and one DDIM step's split.
   13. stage-3 training at full SD1.5 width: the stage3_motion() preset, one
      clip of 16 frames at 512x512 per step, remat on, 3 steps: finite losses,
@@ -122,20 +123,21 @@ Phases, in order; every check raises, so any failure exits non-zero:
      (256, 160), a batch-1 bank, cond gates 1 and uncond gates 0, and one
      case with gates of 0.5), kernels A and B at the pooled self-key lengths
      of the turbo stacks (S_k = 1024 and 256 at S = 4096), and K8 (fused
-     GroupNorm+SiLU: a statistics kernel over row chunks in clusters of 8,
-     then the apply kernel) at every (B, HW >= 256, C) where the appearance
-     UNet, the ControlNet and the main UNet call it, read from the model by
-     forward hooks, and at the 16-frame video request's first level (16,
-     4096, 320); each K8 case runs twice and must give the same bits; bf16
-     timed against the bound, the plain version and the library call (SDPA
-     over the concatenated keys with a boolean mask hiding the bank from
-     gate-0 rows; F.group_norm then F.silu).
+     GroupNorm with a SiLU or identity epilogue: a statistics kernel over
+     row chunks in clusters of 8, then the apply kernel) at every (B, HW >=
+     64, C, epilogue) where the appearance UNet, the ControlNet and the
+     main UNet call it, read from the model by forward hooks, and at the
+     16-frame video request's first level (16, 4096, 320); each K8 case runs
+     twice and must give the same bits; bf16 (a bf16 affine) timed against
+     the bound, the plain version and the library call (SDPA over the
+     concatenated keys with a boolean mask hiding the bank from gate-0 rows;
+     F.group_norm, then F.silu where the site has it).
   15. narrow models at 128x128, card vs CPU in fp32, each held to its launch
      plan: a fused-CFG sample, bench.py's `turbo` and `turbo_max` stacks, the
      `turbo` stack through the overlap sampler (temporal model), and an exact
-     sample with MAGICDANCE_FUSED_GN=1.
+     sample with MAGICDANCE_FUSED_GN=0 (the plain GroupNorm).
   16. full SD1.5 width, 2 requests x F = 2 at 512x512 each, in turns: the
-     exact recipe, fused_cfg=True (DDIM-50), MAGICDANCE_FUSED_GN=1 (DDIM-50),
+     exact recipe, fused_cfg=True (DDIM-50), MAGICDANCE_FUSED_GN=0 (DDIM-50),
      the `turbo` stack (DDIM-50), `turbo_max` (DDIM-20), the exact recipe
      again; every request held to its launch plan (`request_launch_plan`,
      from the sampler's own host masks); seconds per request, frames/s and
@@ -393,6 +395,9 @@ TRAIN_MODES = ("self_attention_lse", "two_source_attention_lse", "attention_dq",
                "attention_dq_two_source", "attention_dkv")
 SELF_PER_STEP = 36
 TWO_SOURCE_PER_STEP = 15
+# K8 per image DDIM step at 512x512: all 210 GroupNorm32 calls (H*W >= 64:
+# 155 with SiLU, 55 transformer norms), two launches each
+K8_PER_STEP = 2 * 210
 
 
 def log(msg: str) -> None:
@@ -967,16 +972,18 @@ def main_path(requests: int, frames: int, steps: int):
     launches = dict(K.LAUNCHES)
     expect = {**{mode: 0 for mode in K.LAUNCHES},
               "self_attention": SELF_PER_STEP * steps * requests,
-              "two_source_attention": TWO_SOURCE_PER_STEP * steps * requests}
+              "two_source_attention": TWO_SOURCE_PER_STEP * steps * requests,
+              "groupnorm_silu": K8_PER_STEP * steps * requests}
     if launches != expect:
         raise AssertionError(f"kernel launches {launches}, expected {expect} "
-                             f"({SELF_PER_STEP} + {TWO_SOURCE_PER_STEP} per DDIM step)")
+                             f"({SELF_PER_STEP} + {TWO_SOURCE_PER_STEP} + {K8_PER_STEP} per "
+                             f"DDIM step)")
     peak = torch.cuda.max_memory_allocated()
     log(f"  {requests} requests x {frames} frames, DDIM-{steps}, CFG {scfg.cfg_scale}: "
         f"seconds per request {[round(s, 3) for s in secs]}, frames/s "
         f"{[round(frames / s, 4) for s in secs]}, peak memory {peak / 2**30:.2f} GiB")
     log(f"  launches {launches} = {SELF_PER_STEP} self + {TWO_SOURCE_PER_STEP} "
-        f"two-source per DDIM step")
+        f"two-source + {K8_PER_STEP} K8 per DDIM step")
     return pipe, dict(seconds_per_request=secs, frames=frames, steps=steps,
                       frames_per_s=[frames / s for s in secs], peak_bytes=peak,
                       launches=launches)
@@ -1204,8 +1211,10 @@ def pass_sites(ucfg, latent: int, decoder: bool = True, shallow_level=None,
                pool_mid: bool = True):
     """The sites of one UNet (or, decoder=False, ControlNet) pass in
     traversal order: ("gn", hw, C) per GroupNorm+SiLU (each ResBlock's two
-    norms, the UNet's output norm), ("spatial", S, D, poolable) per
-    transformer block's self-attention, ("motion", hw, C) per motion module.
+    norms, the UNet's output norm), ("norm", hw, C) per GroupNorm without
+    SiLU (a spatial transformer's or a motion module's, before its other
+    sites), ("spatial", S, D, poolable) per transformer block's
+    self-attention, ("motion", hw, C) per motion module.
     `shallow_level`: the DeepCache shallow pass over levels 0..shallow_level
     (models/unet.py). `pool_mid`: whether the middle block's self keys may
     be pooled (the UNet's may, the ControlNet's never, as in JAX)."""
@@ -1219,8 +1228,13 @@ def pass_sites(ucfg, latent: int, decoder: bool = True, shallow_level=None,
         return (latent // ds) ** 2
 
     def spatial(ds, ch, poolable=True):
+        out.append(("norm", hw(ds), ch))
         out.extend([("spatial", hw(ds), ch // ucfg.num_heads, poolable)]
                    * ucfg.transformer_depth)
+
+    def motion(ds, ch):
+        if ucfg.use_motion_modules:
+            out.extend([("norm", hw(ds), ch), ("motion", hw(ds), ch)])
 
     def res(ds, cin, cout):
         out.extend([("gn", hw(ds), cin), ("gn", hw(ds), cout)])
@@ -1235,8 +1249,7 @@ def pass_sites(ucfg, latent: int, decoder: bool = True, shallow_level=None,
             ch = u["ch"]
             if u["attn"]:
                 spatial(u["ds"], ch)
-            if ucfg.use_motion_modules:
-                out.append(("motion", hw(u["ds"]), ch))
+            motion(u["ds"], ch)
     mid_ch = ucfg.model_channels * ucfg.channel_mult[-1]
     if not shallow:
         res(ds_mid, ch, mid_ch)
@@ -1250,15 +1263,14 @@ def pass_sites(ucfg, latent: int, decoder: bool = True, shallow_level=None,
                 res(u["ds"], ch + skip, u["ch"])
                 if u["attn"]:
                     spatial(u["ds"], u["ch"])
-                if ucfg.use_motion_modules:
-                    out.append(("motion", hw(u["ds"]), u["ch"]))
+                motion(u["ds"], u["ch"])
             ch = u["ch"]
         out.append(("gn", hw(1), ucfg.model_channels))
     return out
 
 
 def request_launch_plan(model_cfg, latent: int, batch: int, scfg, frames: int = 1,
-                        fused_gn: bool = False, video: bool = False) -> dict:
+                        fused_gn: bool = True, video: bool = False) -> dict:
     """Kernel launches of one request of the image sampler (frames = 1) or
     of the overlap sampler (frames = the window, batch = windows x window)
     under `scfg`, a reference and pose maps given, from the host masks the
@@ -1274,11 +1286,13 @@ def request_launch_plan(model_cfg, latent: int, batch: int, scfg, frames: int = 
     `video`: the overlap sampler (no fused CFG, a vanilla-SD uncond pass).
     Self keys are pooled at read/plain sites of at least self_kv_min_seq
     tokens (not in the write pass), bank entries at sites of at least
-    bank_downsample_min_seq. `fused_gn`: MAGICDANCE_FUSED_GN=1 (every
-    GN+SiLU with H*W >= 256 launches K8)."""
+    bank_downsample_min_seq. `fused_gn`: the card's default, every
+    GroupNorm with H*W >= layers.FUSED_GN_MIN_HW, with SiLU or without,
+    launches K8's two kernels; False: MAGICDANCE_FUSED_GN=0 (none does)."""
     from collections import Counter
 
     from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
+    from magicdance_tpu_torch.models.layers import FUSED_GN_MIN_HW
     from magicdance_tpu_torch.models.magicpose import appearance_unet_config
     from magicdance_tpu_torch.ops.attention import _kernel_site
     from magicdance_tpu_torch.ops.schedules import make_ddim_schedule, make_schedule
@@ -1316,9 +1330,9 @@ def request_launch_plan(model_cfg, latent: int, batch: int, scfg, frames: int = 
     def run(c, ucfg, kind, b, shallow_level=None, decoder=True, pool_mid=True):
         """kind: "write", "self" (ControlNet, uncond), "read", "gated"."""
         for site in pass_sites(ucfg, latent, decoder, shallow_level, pool_mid):
-            if site[0] == "gn":
-                if fused_gn and site[1] >= 256:
-                    c["groupnorm_silu"] += 1
+            if site[0] in ("gn", "norm"):
+                if fused_gn and site[1] >= FUSED_GN_MIN_HW:
+                    c["groupnorm_silu"] += 2
             elif site[0] == "motion":
                 c["grouped"] += _motion_launches(ucfg, site[1], site[2], b // frames, frames)
             else:
@@ -2526,25 +2540,27 @@ def check_fused_cfg_and_pooled_kernels(frames: int, fused_plan: dict, heads: int
 
 
 def groupnorm_sites(pipe, frames: int) -> list:
-    """Every (B, HW, C, groups, eps) at which the appearance UNet (B = 1),
-    the ControlNet and the main UNet (B = frames) call GroupNorm+SiLU with
-    HW >= 256 at 512x512, read from the model itself: forward hooks on its
-    GroupNorm32(act=True) modules over one call of each pass."""
+    """Every (B, HW, C, groups, eps, act) at which the appearance UNet
+    (B = 1), the ControlNet and the main UNet (B = frames) call GroupNorm
+    with HW >= layers.FUSED_GN_MIN_HW at 512x512, act "silu" (a ResBlock's,
+    the output norm) or None (a transformer's), read from the model itself:
+    forward hooks on its GroupNorm32 modules over one call of each pass."""
     import torch
 
-    from magicdance_tpu_torch.models.layers import GroupNorm32
+    from magicdance_tpu_torch.models.layers import FUSED_GN_MIN_HW, GroupNorm32
 
     seen = {}
 
     def hook(mod, inputs, _out):
         b, c, hh, ww = inputs[0].shape
-        if hh * ww >= 256:
-            key = (b, hh * ww, c, mod.norm.num_groups, mod.norm.eps)
+        if hh * ww >= FUSED_GN_MIN_HW:
+            key = (b, hh * ww, c, mod.norm.num_groups, mod.norm.eps,
+                   "silu" if mod.act else None)
             seen[key] = seen.get(key, 0) + 1
 
     m = pipe.model
     handles = [mod.register_forward_hook(hook) for mod in m.modules()
-               if isinstance(mod, GroupNorm32) and mod.act]
+               if isinstance(mod, GroupNorm32)]
     gen = torch.Generator(device="cuda").manual_seed(6)
     x = torch.randn(frames, 64, 64, 4, generator=gen, device="cuda")
     t = torch.full((frames,), 501, dtype=torch.int64, device="cuda")
@@ -2558,23 +2574,25 @@ def groupnorm_sites(pipe, frames: int) -> list:
     finally:
         for h in handles:
             h.remove()
-    return sorted(seen.items(), key=lambda kv: (-kv[0][1], kv[0][2], kv[0][0]))
+    return sorted(seen.items(), key=lambda kv: (-kv[0][1], kv[0][2], kv[0][0], str(kv[0][5])))
 
 
-# the first level of the 16-frame video request under MAGICDANCE_FUSED_GN=1:
-# K8's largest input (B, HW, C, groups, eps), timed beside the image sites
-GN_VIDEO_SITE = (16, 4096, 320, 32, 1e-5)
+# the first level of the 16-frame video request: K8's largest input (B, HW,
+# C, groups, eps, act), timed beside the image sites
+GN_VIDEO_SITE = (16, 4096, 320, 32, 1e-5, "silu")
 
 
 def check_groupnorm_kernel(sites, per_step: dict):
-    """Phase 14b: K8 against its plain version at every GN+SiLU site of the
-    model and at GN_VIDEO_SITE (bf16, timed, and fp32), each run twice on
-    the same input and required to give the same bits (no atomics, no
-    order that depends on scheduling). Bound: one read and one write of x
-    over the memory rate vs ~10 operations per element. Library:
-    F.group_norm then F.silu (two calls; no single PyTorch call computes
-    it). `per_step`: {(B, HW, C): launches per DDIM step under
-    MAGICDANCE_FUSED_GN=1}; the video site's rows carry 0 and path "video"."""
+    """Phase 14b: K8 against its plain version at every GroupNorm site of
+    the model, with its epilogue (SiLU or none), and at GN_VIDEO_SITE (bf16
+    with a bf16 affine, timed, and fp32), each run twice on the same input
+    and required to give the same bits (no atomics, no order that depends
+    on scheduling). Bound: one read and one write of x over the memory rate
+    vs ~10 operations per element. Library: F.group_norm, then F.silu where
+    the site has it. `per_step`: {(B, HW, C, act): K8 calls per DDIM step,
+    two launches each}; the rows' `launches_per_step` carry those calls (a
+    call's time covers both kernels), the video site's 0 and path
+    "video"."""
     import torch
     import torch.nn.functional as F
 
@@ -2584,16 +2602,18 @@ def check_groupnorm_kernel(sites, per_step: dict):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(99)
     errs, checked, rows = {}, {}, []
-    for (b, hw, c, groups, eps), n_calls in list(sites) + [(GN_VIDEO_SITE, 0)]:
-        w = torch.randn(c, generator=gen, device=dev) * 0.2 + 1
-        bias = torch.randn(c, generator=gen, device=dev) * 0.2
+    for (b, hw, c, groups, eps, act), n_calls in list(sites) + [(GN_VIDEO_SITE, 0)]:
+        w32 = torch.randn(c, generator=gen, device=dev) * 0.2 + 1
+        bias32 = torch.randn(c, generator=gen, device=dev) * 0.2
         for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            w, bias = w32.to(dtype), bias32.to(dtype)  # stored as the model stores them
             x = torch.randn(b, hw, c, generator=gen, device=dev).to(dtype)
-            label = f"{str(dtype)[6:]} B={b} HW={hw} C={c} groups={groups} eps={eps:g}"
-            got = GN.groupnorm_silu(x, w, bias, groups, eps)
+            label = (f"{str(dtype)[6:]} B={b} HW={hw} C={c} groups={groups} eps={eps:g} "
+                     f"act={act}")
+            got = GN.groupnorm_act(x, w, bias, groups, eps, act)
             check(errs, checked, "groupnorm_silu", got,
-                  GN.groupnorm_silu_ref(x, w, bias, groups, eps), tol, label)
-            again = GN.groupnorm_silu(x, w, bias, groups, eps)
+                  GN.groupnorm_silu_ref(x, w, bias, groups, eps, act), tol, label)
+            again = GN.groupnorm_act(x, w, bias, groups, eps, act)
             torch.cuda.synchronize()
             if not torch.equal(got, again):
                 raise AssertionError(f"groupnorm_silu {label}: two runs on the same input "
@@ -2602,32 +2622,36 @@ def check_groupnorm_kernel(sites, per_step: dict):
                 continue
             side = int(round(hw ** 0.5))
             xn = x.view(b, side, side, c).permute(0, 3, 1, 2)  # NCHW, channels_last
-            wb, bb = w.to(dtype), bias.to(dtype)
-            ms = device_time_ms(lambda: GN.groupnorm_silu(x, w, bias, groups, eps))
-            plain_ms = device_time_ms(lambda: GN.groupnorm_silu_ref(x, w, bias, groups, eps),
-                                      min_total_s=0.1, max_iters=10)
-            lib_ms = device_time_ms(lambda: F.silu(F.group_norm(xn, groups, wb, bb, eps)))
+            ms = device_time_ms(lambda: GN.groupnorm_act(x, w, bias, groups, eps, act))
+            plain_ms = device_time_ms(
+                lambda: GN.groupnorm_silu_ref(x, w, bias, groups, eps, act),
+                min_total_s=0.1, max_iters=10)
+            lib = (lambda: F.silu(F.group_norm(xn, groups, w, bias, eps))) if act else (
+                lambda: F.group_norm(xn, groups, w, bias, eps))
+            lib_ms = device_time_ms(lib)
             n = b * hw * c
             t_mem = 2 * n * x.element_size() / PEAK_BYTES * 1e3
             t_ops = 10.0 * n / PEAK_BF16_FLOPS * 1e3
             bound, by = (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
-            launches = per_step.get((b, hw, c), 0) if n_calls else 0
+            launches = per_step.get((b, hw, c, act), 0) if n_calls else 0
             rows.append(dict(kernel="groupnorm_silu", B=b, HW=hw, C=c, groups=groups, eps=eps,
+                             act=act or "none",
                              sites_per_pass=n_calls, launches_per_step=launches, kernel_ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
                              **({} if n_calls else {"path": "video"})))
             log(f"      kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                f"bound_ms={bound:.4f} ({by}) x{launches}/step")
+                f"bound_ms={bound:.4f} ({by}) x{launches} calls/step")
     return rows, errs, checked
 
 
 def gn_plan_by_shape(model_cfg, latent: int, frames: int) -> dict:
-    """K8 launches per DDIM step of the exact recipe under
-    MAGICDANCE_FUSED_GN=1, by (B, HW, C): write pass (B = 1), ControlNet,
+    """K8 calls (two launches each) per DDIM step of the exact recipe, by
+    (B, HW, C, act), act "silu" or None: write pass (B = 1), ControlNet,
     cond and uncond passes (B = frames)."""
     from collections import Counter
 
     from magicdance_tpu_torch.models.controlnet import controlnet_unet_config
+    from magicdance_tpu_torch.models.layers import FUSED_GN_MIN_HW
     from magicdance_tpu_torch.models.magicpose import appearance_unet_config
 
     c = Counter()
@@ -2635,8 +2659,8 @@ def gn_plan_by_shape(model_cfg, latent: int, frames: int) -> dict:
     for ucfg, b, decoder, passes in ((appearance_unet_config(model_cfg), 1, True, 1),
                                      (cn, frames, False, 1), (model_cfg.unet, frames, True, 2)):
         for site in pass_sites(ucfg, latent, decoder):
-            if site[0] == "gn" and site[1] >= 256:
-                c[b, site[1], site[2]] += passes
+            if site[0] in ("gn", "norm") and site[1] >= FUSED_GN_MIN_HW:
+                c[b, site[1], site[2], "silu" if site[0] == "gn" else None] += passes
     return dict(c)
 
 
@@ -2645,9 +2669,10 @@ def small_turbo_checks():
     (plain versions), fp32, the same weights and x_T: one fused-CFG sample,
     the `turbo` and `turbo_max` stacks (pooling thresholds at the narrow
     model's 256-token first level), the `turbo` stack through the overlap
-    sampler on the temporal model (F = 10, windows of 4, stride 3), and an
-    exact sample with MAGICDANCE_FUSED_GN=1. Each card run is held to its
-    launch plan (request_launch_plan, plus the reference's VAE encode)."""
+    sampler on the temporal model (F = 10, windows of 4, stride 3), all with
+    K8 at its sites (the default), and an exact sample with
+    MAGICDANCE_FUSED_GN=0 (no K8). Each card run is held to its launch plan
+    (request_launch_plan, plus the reference's VAE encode)."""
     import torch
 
     from magicdance_tpu_torch.config import SampleConfig
@@ -2664,12 +2689,12 @@ def small_turbo_checks():
         for name in ("model", "vae", "clip"):
             getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
         pipes[video] = (cfg, cpu, gpu)
-    cases = {"fused_cfg": (False, dict(steps=4, fused_cfg=True), False),
-             "turbo": (False, dict(steps=4, **TURBO, **NARROW_POOL), False),
-             "turbo_max": (False, dict(TURBO_MAX, steps=6, **NARROW_POOL), False),
+    cases = {"fused_cfg": (False, dict(steps=4, fused_cfg=True), True),
+             "turbo": (False, dict(steps=4, **TURBO, **NARROW_POOL), True),
+             "turbo_max": (False, dict(TURBO_MAX, steps=6, **NARROW_POOL), True),
              "video_turbo": (True, dict(steps=4, window=4, stride=3, **TURBO, **NARROW_POOL),
-                             False),
-             "fused_gn": (False, dict(steps=3), True)}
+                             True),
+             "plain_gn": (False, dict(steps=3), False)}
     for name, (video, kw, fused_gn) in cases.items():
         cfg, cpu, gpu = pipes[video]
         frames = 10 if video else 2
@@ -2683,8 +2708,8 @@ def small_turbo_checks():
             sk["window_offsets"] = [3, 7, 0, 5]
         want = cpu.sample_frames(pose, ref, scfg, **sk)
         saved = os.environ.get("MAGICDANCE_FUSED_GN")
-        if fused_gn:
-            os.environ["MAGICDANCE_FUSED_GN"] = "1"
+        if not fused_gn:
+            os.environ["MAGICDANCE_FUSED_GN"] = "0"
         try:
             K.reset_launches()
             got = gpu.sample_frames(pose, ref, scfg, **sk).cpu()
@@ -2713,11 +2738,12 @@ def small_turbo_checks():
 
 
 def serve_requests(pipe, scfg, requests: int, frames: int, plan: dict, label: str,
-                   video: bool = False, fused_gn: bool = False, image_hints: bool = False):
+                   video: bool = False, fused_gn: bool = True, image_hints: bool = False):
     """`requests` full-width requests of `frames` pose maps at 512x512 under
     `scfg` (with as many image hints for the DUAL_CONTROL variant when
-    `image_hints`), each held to `plan` (launches per request); seconds per
-    request, frames/s and peak memory."""
+    `image_hints`; with MAGICDANCE_FUSED_GN=0 unless `fused_gn`), each held
+    to `plan` (launches per request); seconds per request, frames/s and
+    peak memory."""
     import torch
 
     from magicdance_tpu_torch.ops import kernels as K
@@ -2729,8 +2755,8 @@ def serve_requests(pipe, scfg, requests: int, frames: int, plan: dict, label: st
                else None)
               for _ in range(requests)]
     saved = os.environ.get("MAGICDANCE_FUSED_GN")
-    if fused_gn:
-        os.environ["MAGICDANCE_FUSED_GN"] = "1"
+    if not fused_gn:
+        os.environ["MAGICDANCE_FUSED_GN"] = "0"
     torch.cuda.reset_peak_memory_stats()
     secs, per_request = [], []
     try:
@@ -5133,31 +5159,31 @@ def main(argv=None) -> int:
         if site[0] == "spatial" and site[1] >= 256:
             fused_plan[site[1], site[2]] = fused_plan.get((site[1], site[2]), 0) + 1
     phase("== phase 14: kernel B gated (fused CFG) and pooled key lengths; K8 (fused "
-        "GroupNorm+SiLU) at every site of the model")
+        "GroupNorm, SiLU or identity) at every site of the model")
     fused_rows, fused_errs, fused_checked = check_fused_cfg_and_pooled_kernels(frames, fused_plan)
     pipe = MagicPosePipeline(model_cfg, device="cuda")
     pipe.init_params(seed=0)
     gn_sites = groupnorm_sites(pipe, frames)
     gn_per_step = gn_plan_by_shape(model_cfg, 64, frames)
-    if {key[:3] for key, _ in gn_sites} != set(gn_per_step):
-        raise AssertionError(f"GN+SiLU sites of the model {[k for k, _ in gn_sites]} differ "
+    if {(*key[:3], key[5]) for key, _ in gn_sites} != set(gn_per_step):
+        raise AssertionError(f"GroupNorm sites of the model {[k for k, _ in gn_sites]} differ "
                              f"from the launch plan's {sorted(gn_per_step)}")
     gn_rows, gn_errs, gn_checked = check_groupnorm_kernel(gn_sites, gn_per_step)
 
-    phase("== phase 15: small-input references of fused CFG, the turbo stacks and the fused "
+    phase("== phase 15: small-input references of fused CFG, the turbo stacks and the plain "
         "GroupNorm (narrow models, card vs CPU)")
     small_turbo = small_turbo_checks()
 
-    phase(f"== phase 16: fused CFG, turbo, turbo_max and fused GroupNorm requests (full SD1.5 "
+    phase(f"== phase 16: fused CFG, turbo, turbo_max and plain-GroupNorm requests (full SD1.5 "
         f"width, {requests} x {frames} frames at 512x512), in turns with the exact recipe")
     served = {}
     for label, scfg, fused_gn in (
-            ("exact", SampleConfig(steps=steps), False),
-            ("fused_cfg", SampleConfig(steps=steps, fused_cfg=True), False),
-            ("fused_gn", SampleConfig(steps=steps), True),
-            ("turbo", SampleConfig(steps=steps, **TURBO), False),
-            ("turbo_max", SampleConfig(steps=20, **TURBO_MAX), False),
-            ("exact_again", SampleConfig(steps=steps), False)):
+            ("exact", SampleConfig(steps=steps), True),
+            ("fused_cfg", SampleConfig(steps=steps, fused_cfg=True), True),
+            ("plain_gn", SampleConfig(steps=steps), False),
+            ("turbo", SampleConfig(steps=steps, **TURBO), True),
+            ("turbo_max", SampleConfig(steps=20, **TURBO_MAX), True),
+            ("exact_again", SampleConfig(steps=steps), True)):
         plan = request_launch_plan(model_cfg, 64, frames, scfg, fused_gn=fused_gn)
         served[label] = serve_requests(pipe, scfg, requests, frames, plan, label,
                                        fused_gn=fused_gn)
@@ -5308,9 +5334,9 @@ def main(argv=None) -> int:
                 **({"mma_sync_ms": per_step(main_rows, "mma_sync_ms"),
                     "hopper_body": hopper["two_source_attention"]}
                    if name.startswith("two") else {}),
-                per="one DDIM step of the image serving path with "
-                    + ("fused_cfg=True" if name.startswith("two") else "MAGICDANCE_FUSED_GN=1")
-                    + " (sum over its launches)",
+                per="one DDIM step of the image serving path"
+                    + (" with fused_cfg=True" if name.startswith("two") else "")
+                    + " (sum over its calls)",
                 check=f"{n_checked} comparisons within tolerance"))
             video_gn = [r for r in main_rows if r.get("path") == "video"]
             if video_gn:

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import math
 import os
+from collections import Counter
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -94,7 +95,7 @@ from magicdance_tpu_torch.ops.attention import (
     bank_read_attention_packed,
     current_impl,
 )
-from magicdance_tpu_torch.ops.kernels.groupnorm import groupnorm_silu
+from magicdance_tpu_torch.ops.kernels.groupnorm import groupnorm_act
 from magicdance_tpu_torch.models.quant import param_at
 from magicdance_tpu_torch.utils.profiling import dims, span
 
@@ -102,8 +103,18 @@ from magicdance_tpu_torch.utils.profiling import dims, span
 def _block_name(fn) -> str:
     return f" block={type(fn).__name__}"
 
-# devices on which `GroupNorm32` may take the fused GroupNorm+SiLU kernel
+# devices on which `GroupNorm32` may take the fused GroupNorm kernel K8
 FUSED_GN_DEVICES = ("cuda",)
+# the smallest grid (H*W) that takes K8. Timed on an H100 at every grid the
+# SD1.5 UNets give at 512x512 (64-4096 positions, B = 1 and 16, C up to
+# 2560): K8 ran 2.7-10.3x faster than the plain path everywhere, and at the
+# 8x8 grids 1.5-1.9x faster with the 3x3 convolution that follows the norm
+# (PERF.md, kernel table row 13). JAX's TPU threshold is 256; smaller grids
+# were not timed and stay plain.
+FUSED_GN_MIN_HW = 64
+# `GroupNorm32` calls by the path they took, "k8" or "plain" (host-side; one
+# increment a call; reset with GN_SITES.clear())
+GN_SITES: Counter = Counter()
 
 
 def layer_norm_f32(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -133,11 +144,15 @@ class GroupNorm32(nn.Module):
     followed by SiLU in the input dtype. When C % 32 != 0 the group count is
     gcd(C, 32), as in the JAX package.
 
-    With ``MAGICDANCE_FUSED_GN=1`` (the JAX package's opt-in switch),
-    GroupNorm+SiLU runs as one kernel (`ops.kernels.groupnorm`, SiLU on the
-    fp32 affine output) where the JAX package's conditions hold
-    (`fused_site`): act=True, a tensor on the card, no gradient asked for,
-    H*W >= 256."""
+    On the card the norm and its SiLU (or none) run as kernel K8
+    (`ops.kernels.groupnorm`, the epilogue on the fp32 affine output) where
+    `fused_site` holds: grad mode off (an inference pass: training steps
+    keep the plain path, every frozen block included), H*W >=
+    FUSED_GN_MIN_HW, the groups dividing C. K8 takes the channels_last
+    activations as rows of channels and returns channels_last; any other
+    layout raises rather than being copied. ``MAGICDANCE_FUSED_GN=0`` keeps
+    every call on the plain path (parity runs against the JAX package,
+    whose switch it is)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, act: bool = False,
                  num_groups: int = 32):
@@ -147,25 +162,24 @@ class GroupNorm32(nn.Module):
         self.act = act
 
     def fused_site(self, x: torch.Tensor) -> bool:
-        gn = self.norm
-        return (self.act and x.dim() == 4
-                and os.environ.get("MAGICDANCE_FUSED_GN", "0") == "1"
+        return (x.dim() == 4
+                and os.environ.get("MAGICDANCE_FUSED_GN") != "0"
                 and x.device.type in FUSED_GN_DEVICES
-                and not (torch.is_grad_enabled()
-                         and (x.requires_grad or gn.weight.requires_grad
-                              or gn.bias.requires_grad))
-                and x.shape[2] * x.shape[3] >= 256
-                and x.shape[1] % gn.num_groups == 0)
+                and not torch.is_grad_enabled()
+                and x.shape[2] * x.shape[3] >= FUSED_GN_MIN_HW
+                and x.shape[1] % self.norm.num_groups == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused_site(x):
+            GN_SITES["k8"] += 1
             b, c, hh, ww = x.shape
             # (B, HW, C) rows of channels: a view of channels_last activations
             # (any other layout fails the kernel's unit channel stride)
             rows = x.permute(0, 2, 3, 1).view(b, hh * ww, c)
-            y = groupnorm_silu(rows, self.norm.weight, self.norm.bias,
-                               self.norm.num_groups, self.norm.eps)
+            y = groupnorm_act(rows, self.norm.weight, self.norm.bias, self.norm.num_groups,
+                              self.norm.eps, "silu" if self.act else None)
             return y.view(b, hh, ww, c).permute(0, 3, 1, 2)
+        GN_SITES["plain"] += 1
         h = group_norm_f32(self.norm, x).to(x.dtype)
         return F.silu(h) if self.act else h
 

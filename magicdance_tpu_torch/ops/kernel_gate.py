@@ -208,7 +208,7 @@ def _groupnorm_case(case: Case, dev: torch.device, seed: int):
     bias = 0.1 * _randn((c,), seed + 2, torch.float32, dev)
     eps = 1e-5
     with torch.no_grad():
-        got = groupnorm.groupnorm_silu(x, w, bias, groups, eps)
+        got = groupnorm.groupnorm_act(x, w, bias, groups, eps, "silu")
         want = F.silu(F.group_norm(x.float().transpose(1, 2), groups, w, bias, eps)).transpose(1, 2)
     return [(f"{case.label}_fwd", got, want, False)]
 

@@ -8,7 +8,8 @@ D (`flash_vjp.attention_dkv`) the backward. Kernel B with a `bank_mask` is
 the gated forward of fused classifier-free guidance. Kernel G
 (`grouped_attention`, `grouped.grouped_attention_bwd`) replaces the Pallas
 grouped (temporal) attention kernel and its backward on the video path, and
-K8 (`groupnorm.groupnorm_silu`) the fused GroupNorm+SiLU. K9
+K8 (`groupnorm.groupnorm_act`) the fused GroupNorm with a SiLU or identity
+epilogue. K9
 (`packed.packed_attention`) is the head-packed attention of the
 head-packing probe. Sources are under
 `csrc/`; `build` compiles them with nvcc at first use.

@@ -49,8 +49,8 @@ from magicdance_tpu_torch.ops.kernels import build
 # one counter per kernel mode: A and B plain (serving) and with the LSE
 # output (training forward), C with one or two sources, D, the grouped
 # (temporal) kernel's forward and backward (`ops.kernels.grouped`), B gated
-# by a bank mask (fused CFG), the fused GroupNorm+SiLU
-# (`ops.kernels.groupnorm`) and the head-packed attention of the head-packing
+# by a bank mask (fused CFG), the fused GroupNorm (`ops.kernels.groupnorm`,
+# both of its kernels counted) and the head-packed attention of the head-packing
 # probe (`ops.kernels.packed`)
 LAUNCHES = {
     "self_attention": 0,

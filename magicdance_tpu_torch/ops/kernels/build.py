@@ -138,9 +138,11 @@ _SIGNATURES = {
     "grouped_attention_bwd": ("md_grouped_attention_bwd",
                               [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _STRIDES,
                                _I, _I, _I, _I, _F, _VP]),
-    # dtype, x, gamma, beta, y, workspace, strides, B, HW, C, G, eps, stream
+    # dtype, affine dtype, act, x, gamma, beta, y, workspace, strides, B, HW, C,
+    # G, eps, stream
     "groupnorm_silu": ("md_groupnorm_silu",
-                       [_I, _VP, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _F, _VP]),
+                       [_I, _I, _I, _VP, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _F,
+                        _VP]),
     # dtype, body, q, k, v, o, strides, BG, GD, Sq, S, G, scale, stream
     "packed_attention": ("md_packed_attention",
                          [_I, _I, _VP, _VP, _VP, _VP, _STRIDES, _I, _I, _I, _I, _I, _F, _VP]),

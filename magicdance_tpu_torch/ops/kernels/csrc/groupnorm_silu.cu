@@ -1,9 +1,11 @@
-// Kernel K8: fused GroupNorm + SiLU forward, y = SiLU(GN(x) * gamma + beta),
-// with fp32 statistics and an fp32 affine, written in x's type.
+// Kernel K8: fused GroupNorm forward with an activation epilogue,
+// y = act(GN(x) * gamma + beta), act SiLU or the identity, with fp32
+// statistics and an fp32 affine, written in x's type.
 //
 // Replaces magicdance_tpu/ops/pallas/groupnorm.py::_gn_silu_kernel (reached
-// through groupnorm_silu, the opt-in MAGICDANCE_FUSED_GN=1 path of
-// models/layers.py::GroupNorm32 with act=True).
+// through groupnorm_act from models/layers.py::GroupNorm32, which takes it on
+// the card in every pass that asks for no gradient: SiLU after a ResBlock's
+// norms and the UNet's output norm, the identity after the transformers').
 //
 // What bounds it on an H100. The work is a few operations per element, so it
 // is bound by device memory: the least it can move is one read and one write
@@ -41,8 +43,11 @@
 //   M2 = sum M2_k + n_k (mean_k - mean)^2) by one fixed xor tree, then each
 //   thread reads its rows again (x is 0.6-42 MB at the model's sites against
 //   a 50 MB L2, so mostly from L2), computes
-//   (x - mean) * rsqrt(var + eps) * gamma + beta and SiLU in fp32, and
-//   writes 16-byte pieces.
+//   (x - mean) * rsqrt(var + eps) * gamma + beta and the epilogue in fp32
+//   (a template argument: the identity's instantiation carries no SiLU
+//   code), and writes 16-byte pieces. gamma and beta are read in the dtype
+//   they are stored in (bf16 or fp32) and widened as they are loaded, so a
+//   call casts no weights.
 //
 //   Where the time goes: at most sites x is a few MB, which the card reads
 //   in about a microsecond, so a call is paced by its chain of latencies
@@ -59,7 +64,8 @@
 //
 // Plain C interface, loaded with ctypes. x and y are (B, HW, C) with unit
 // channel stride; strides[0..3] = x (batch, row), y (batch, row) in elements.
-// gamma, beta: (C,) fp32. ws: B * MAX_CLUSTERS * G * 2 fp32 of scratch.
+// gamma, beta: (C,) contiguous, fp32 (wdtype 0) or bf16 (wdtype 1). act: 0 the
+// identity, 1 SiLU. ws: B * MAX_CLUSTERS * G * 2 fp32 of scratch.
 // Returns cudaGetLastError() of the launches (0 on success), or
 // cudaErrorInvalidValue for a call the kernels do not take.
 
@@ -80,15 +86,17 @@ constexpr int CL = 8;             // blocks per cluster of gn_stats
 constexpr int UNROLL = 4;         // rows in flight per thread
 constexpr int MAX_CLUSTERS = 32;  // per batch row (a warp's lanes); groupnorm.py: GN_MAX_CLUSTERS
 constexpr size_t MAX_SMEM = 232448;
+constexpr int ACT_NONE = 0, ACT_SILU = 1;  // gn_apply's epilogue; groupnorm.py: ACTS
 
 struct Params {
   const void* x;
   void* y;
-  const float* gamma;
-  const float* beta;
+  const void* gamma;  // (C,), fp32 or bf16 (w_bf16)
+  const void* beta;
   float* ws;  // (B, nch / CL, G) x (mean, M2)
   long long x_sb, x_ss, y_sb, y_ss;
   int HW, C, G;
+  int w_bf16;  // gamma and beta stored in bf16
   int rows;  // rows per chunk
   int nch;   // chunks per batch row, a multiple of CL
   float eps;
@@ -96,6 +104,12 @@ struct Params {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// One affine parameter of channel c, widened from its stored dtype.
+__device__ __forceinline__ float affine_at(const void* w, int bf16, int c) {
+  return bf16 ? __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(w) + c))
+              : __ldg(static_cast<const float*>(w) + c);
+}
 
 // One load of VEC channels, kept packed (4 registers for 8 bf16) until
 // unpack() turns it into floats where it is used.
@@ -329,7 +343,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT) gn_stats(const 
   cluster.sync();  // the other ranks' shared memory stays until rank 0 has read it
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int ACT>
 __global__ void __launch_bounds__(NT) gn_apply(const Params p) {
   extern __shared__ __align__(16) float stat[];  // [G] x (mean, rstd)
   const int b = blockIdx.y;
@@ -355,8 +369,8 @@ __global__ void __launch_bounds__(NT) gn_apply(const Params p) {
   float gam[VEC], bet[VEC];
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
-    gam[e] = active ? __ldg(p.gamma + cv.col0 * VEC + e) : 0.f;
-    bet[e] = active ? __ldg(p.beta + cv.col0 * VEC + e) : 0.f;
+    gam[e] = active ? affine_at(p.gamma, p.w_bf16, cv.col0 * VEC + e) : 0.f;
+    bet[e] = active ? affine_at(p.beta, p.w_bf16, cv.col0 * VEC + e) : 0.f;
   }
   asm volatile("griddepcontrol.wait;" ::: "memory");  // gn_stats done, ws visible
 
@@ -405,8 +419,8 @@ __global__ void __launch_bounds__(NT) gn_apply(const Params p) {
       const int c = col * VEC + e;
       const int g = c / cgp;
       if (col != cv.col0) {
-        gam[e] = p.gamma[c];
-        bet[e] = p.beta[c];
+        gam[e] = affine_at(p.gamma, p.w_bf16, c);
+        bet[e] = affine_at(p.beta, p.w_bf16, c);
       }
       mu[e] = stat[2 * g];
       a[e] = stat[2 * g + 1] * gam[e];
@@ -427,7 +441,10 @@ __global__ void __launch_bounds__(NT) gn_apply(const Params p) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           const float t = fmaf(v[e] - mu[e], a[e], bet[e]);
-          v[e] = __fdividef(t, 1.f + __expf(-t));  // -> -0 for t < -87
+          if constexpr (ACT == ACT_SILU)
+            v[e] = __fdividef(t, 1.f + __expf(-t));  // -> -0 for t < -87
+          else
+            v[e] = t;
         }
         store_vec<T, VEC>(yc + (long long)(r + u * cv.RP) * p.y_ss, v);
       }
@@ -457,7 +474,7 @@ inline void plan_chunks(Params& p, int B) {
   p.nch = (nch + CL - 1) / CL * CL;
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int ACT>
 cudaError_t launch(Params p, int B, cudaStream_t stream) {
   const size_t smem_s = stats_smem(p.C, p.G, VEC);
   const size_t smem_a = sizeof(float) * 2 * (size_t)p.G;
@@ -466,7 +483,7 @@ cudaError_t launch(Params p, int B, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_s);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gn_apply<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(gn_apply<T, VEC, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_a);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.nch, B);
@@ -485,30 +502,31 @@ cudaError_t launch(Params p, int B, cudaStream_t stream) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gn_apply<T, VEC>, p);
+  err = cudaLaunchKernelEx(&cfg, gn_apply<T, VEC, ACT>, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // 16-byte pieces when every row start and the channel count allow them.
-template <typename T>
+template <typename T, int ACT>
 cudaError_t launch_any(const Params& p, int B, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const bool vec_ok = p.C % VEC == 0 && p.x_sb % VEC == 0 && p.x_ss % VEC == 0 &&
                       p.y_sb % VEC == 0 && p.y_ss % VEC == 0 &&
                       reinterpret_cast<uintptr_t>(p.x) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(p.y) % 16 == 0;
-  return vec_ok ? launch<T, VEC>(p, B, stream) : launch<T, 1>(p, B, stream);
+  return vec_ok ? launch<T, VEC, ACT>(p, B, stream) : launch<T, 1, ACT>(p, B, stream);
 }
 
 }  // namespace gn
 }  // namespace md
 
-extern "C" int md_groupnorm_silu(int dtype, const void* x, const float* gamma,
-                                 const float* beta, void* y, float* ws,
+extern "C" int md_groupnorm_silu(int dtype, int wdtype, int act, const void* x,
+                                 const void* gamma, const void* beta, void* y, float* ws,
                                  const long long* strides, int B, int HW,
                                  int C, int G, float eps, void* stream) {
-  if (B < 1 || HW < 1 || G < 1 || C < G || C % G != 0 || B > 65535)
+  if (B < 1 || HW < 1 || G < 1 || C < G || C % G != 0 || B > 65535 ||
+      (wdtype != 0 && wdtype != 1) || (act != md::gn::ACT_NONE && act != md::gn::ACT_SILU))
     return static_cast<int>(cudaErrorInvalidValue);
   md::gn::Params p = {};
   p.x = x;
@@ -522,11 +540,19 @@ extern "C" int md_groupnorm_silu(int dtype, const void* x, const float* gamma,
   p.C = C;
   p.G = G;
   p.eps = eps;
+  p.w_bf16 = wdtype;
   md::gn::plan_chunks(p, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(md::gn::launch_any<float>(p, B, s));
-  if (dtype == 1) return static_cast<int>(md::gn::launch_any<__nv_bfloat16>(p, B, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  using md::gn::ACT_SILU;
+  using md::gn::launch_any;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0)
+    err = act == ACT_SILU ? launch_any<float, ACT_SILU>(p, B, s)
+                          : launch_any<float, md::gn::ACT_NONE>(p, B, s);
+  else if (dtype == 1)
+    err = act == ACT_SILU ? launch_any<__nv_bfloat16, ACT_SILU>(p, B, s)
+                          : launch_any<__nv_bfloat16, md::gn::ACT_NONE>(p, B, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* md_error_string(int err) {

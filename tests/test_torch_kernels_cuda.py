@@ -482,13 +482,14 @@ def test_gated_bank_read_dispatch(cuda):
 
 # every (HW, C) where the SD1.5 UNets and the ControlNet call GN+SiLU at
 # 512x512 with HW >= 256 (B = 2), plus a gcd group count and a ragged group;
-# the 16-frame video sites (B = 16); row counts no chunk size divides; and
+# the 16-frame sites (B = 16) and 8x8 ones (B = 16 and 1); row counts no
+# chunk size divides; and
 # channels that are not whole 16-byte pieces (one channel per load)
 GN_SHAPES = [(2, hw, c) for hw, c in (
     (4096, 320), (4096, 640), (4096, 960), (1024, 320), (1024, 640), (1024, 960),
     (1024, 1280), (1024, 1920), (256, 640), (256, 1280), (256, 1920), (256, 2560),
     (300, 48), (256, 80))] + [
-    (16, 4096, 320), (16, 1024, 640),
+    (16, 4096, 320), (16, 1024, 640), (16, 64, 1280), (1, 64, 2560),
     (2, 997, 320), (1, 4099, 960), (3, 251, 2560),
     (2, 300, 36)]
 
@@ -503,9 +504,40 @@ def test_groupnorm_silu_matches_plain(cuda, dtype, b, hw, c):
     w = _rand(cuda, c, dtype=torch.float32, seed=81) * 0.2 + 1
     bias = _rand(cuda, c, dtype=torch.float32, seed=82) * 0.2
     K.reset_launches()
-    _close(GN.groupnorm_silu(x, w, bias, groups, 1e-5),
+    _close(GN.groupnorm_act(x, w, bias, groups, 1e-5, "silu"),
            GN.groupnorm_silu_ref(x, w, bias, groups, 1e-5), dtype)
-    assert K.LAUNCHES["groupnorm_silu"] == 1
+    assert K.LAUNCHES["groupnorm_silu"] == 2  # gn_stats and gn_apply
+
+
+@pytest.mark.parametrize("affine", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hw,c", [(2, 4096, 320), (16, 1024, 640), (1, 256, 1280),
+                                    (3, 300, 48), (2, 300, 36)])
+def test_groupnorm_identity_matches_fp32(cuda, dtype, affine, b, hw, c):
+    """K8's identity epilogue (the transformers' norms) on channels_last
+    activations, the affine stored in bf16 or fp32 and read as stored,
+    against the fp32 group norm of the same (rounded) inputs: exactly two
+    launches, nothing cast."""
+    from magicdance_tpu_torch.ops.kernels import groupnorm as GN
+
+    import math
+
+    groups = math.gcd(c, 32)
+    side = math.isqrt(hw - 1) + 1  # a ragged hw reads the first hw of side**2 rows
+    x4 = (_rand(cuda, b, c, side, side, dtype=torch.float32, seed=83) * 3 + 1).to(dtype)
+    x4 = x4.contiguous(memory_format=torch.channels_last)
+    x = x4.permute(0, 2, 3, 1).reshape(b, side * side, c)  # a view: rows of channels
+    assert x.data_ptr() == x4.data_ptr() and x.stride(2) == 1
+    x = x[:, :hw]
+    w = (_rand(cuda, c, dtype=torch.float32, seed=84) * 0.2 + 1).to(affine)
+    bias = (_rand(cuda, c, dtype=torch.float32, seed=85) * 0.2).to(affine)
+    want = torch.nn.functional.group_norm(x.float().transpose(1, 2), groups, w.float(),
+                                          bias.float(), 1e-6).transpose(1, 2)
+    K.reset_launches()
+    got = GN.groupnorm_act(x, w, bias, groups, 1e-6, None)
+    assert got.dtype == dtype and got.is_contiguous()
+    _close(got, want, dtype)
+    assert K.LAUNCHES == {**{name: 0 for name in K.LAUNCHES}, "groupnorm_silu": 2}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -517,8 +549,8 @@ def test_groupnorm_silu_unaligned_view(cuda, dtype):
     x = wide[:, :, 1:321]
     w = _rand(cuda, 320, dtype=torch.float32, seed=87) * 0.2 + 1
     bias = _rand(cuda, 320, dtype=torch.float32, seed=88) * 0.2
-    _close(GN.groupnorm_silu(x, w, bias, 32, 1e-5), GN.groupnorm_silu_ref(x, w, bias, 32, 1e-5),
-           dtype)
+    _close(GN.groupnorm_act(x, w, bias, 32, 1e-5, "silu"),
+           GN.groupnorm_silu_ref(x, w, bias, 32, 1e-5), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -531,33 +563,39 @@ def test_groupnorm_silu_is_deterministic(cuda, dtype, b, hw, c):
     x = (_rand(cuda, b, hw, c, dtype=torch.float32, seed=89) * 3 + 1).to(dtype)
     w = _rand(cuda, c, dtype=torch.float32, seed=90) * 0.2 + 1
     bias = _rand(cuda, c, dtype=torch.float32, seed=91) * 0.2
-    first = GN.groupnorm_silu(x, w, bias, 32, 1e-5)
-    second = GN.groupnorm_silu(x, w, bias, 32, 1e-5)
+    first = GN.groupnorm_act(x, w, bias, 32, 1e-5, "silu")
+    second = GN.groupnorm_act(x, w, bias, 32, 1e-5, "silu")
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 
 
 def test_fused_groupnorm_dispatch(cuda, monkeypatch):
-    """MAGICDANCE_FUSED_GN=1: GroupNorm32(act=True) on channels_last
-    activations with HW >= 256 and no gradient takes K8; a smaller grid, a
-    gradient, act=False or the switch off take the plain norm."""
+    """By default GroupNorm32 on channels_last activations with HW >= 64
+    and grad mode off takes K8, with SiLU (act=True) or without; a smaller
+    grid, grad mode on or MAGICDANCE_FUSED_GN=0 take the plain norm."""
     from magicdance_tpu_torch.models.layers import GroupNorm32
 
     gn = GroupNorm32(320, act=True).to(cuda)
+    norm_only = GroupNorm32(320, eps=1e-6).to(cuda)
     x = _rand(cuda, 2, 320, 64, 64, dtype=torch.float32, seed=90).contiguous(
         memory_format=torch.channels_last)
+    monkeypatch.delenv("MAGICDANCE_FUSED_GN", raising=False)
     with torch.no_grad():
-        plain = gn(x)
-        monkeypatch.setenv("MAGICDANCE_FUSED_GN", "1")
+        monkeypatch.setenv("MAGICDANCE_FUSED_GN", "0")
+        plain, plain_norm = gn(x), norm_only(x)
+        monkeypatch.delenv("MAGICDANCE_FUSED_GN")
         K.reset_launches()
         fused = gn(x)
-        gn(x[:, :, :8, :8])
-        GroupNorm32(320).to(cuda)(x)
-    assert K.LAUNCHES["groupnorm_silu"] == 1
+        gn(x[:, :, :7, :9])
+        fused_norm = norm_only(x)
+    assert K.LAUNCHES["groupnorm_silu"] == 4
     _close(fused, plain, torch.float32)
+    _close(fused_norm, plain_norm, torch.float32)
     assert fused.is_contiguous(memory_format=torch.channels_last)
+    assert fused_norm.is_contiguous(memory_format=torch.channels_last)
+    gn(x)  # grad mode on: the plain norm, also with nothing asking for a gradient
     gn(x.requires_grad_())
-    assert K.LAUNCHES["groupnorm_silu"] == 1
+    assert K.LAUNCHES["groupnorm_silu"] == 4
     with torch.no_grad(), pytest.raises(ValueError):  # NCHW-contiguous: not rows of channels
         gn(x.detach().contiguous())
 

@@ -30,12 +30,12 @@ def count_calls(monkeypatch) -> dict:
     LAUNCHES mode it counts under there."""
     calls = {}
 
-    def counting(module, name, mode_of):
+    def counting(module, name, mode_of, launches=1):
         real = getattr(module, name)
 
         def wrapped(*a, **kw):
             mode = mode_of(a, kw)
-            calls[mode] = calls.get(mode, 0) + 1
+            calls[mode] = calls.get(mode, 0) + launches
             return real(*a, **kw)
         monkeypatch.setattr(module, name, wrapped)
 
@@ -51,9 +51,9 @@ def count_calls(monkeypatch) -> dict:
     counting(A, "two_source_attention", lambda a, kw: "two_source_attention_gated"
              if kw.get("bank_mask") is not None else "two_source_attention")
     counting(A, "grouped_attention", lambda a, kw: "grouped")
-    # the fused GroupNorm: reached on the CPU once "cpu" is a fused device
+    # K8, two kernels a call: reached on the CPU once "cpu" is a fused device
     monkeypatch.setattr(layers, "FUSED_GN_DEVICES", ("cuda", "cpu"))
-    counting(layers, "groupnorm_silu", lambda a, kw: "groupnorm_silu")
+    counting(layers, "groupnorm_act", lambda a, kw: "groupnorm_silu", launches=2)
     counting(V, "grouped_attention", lambda a, kw: "grouped")
     counting(V, "attention_dq", dq_mode)
     return calls
@@ -62,12 +62,16 @@ def count_calls(monkeypatch) -> dict:
 def test_full_width_plans():
     temporal = T.ModelConfig(variant=T.ModelVariant.APPEARANCE_POSE_TEMPORAL,
                              unet=T.UNetConfig(use_motion_modules=True))
-    # a 16-frame window at 512x512: 20 motion modules x 2 units x 2 passes
+    # a 16-frame window at 512x512: 20 motion modules x 2 units x 2 passes;
+    # K8 at the image model's 210 GroupNorm calls and the 20 motion modules'
+    # norms of the cond and uncond passes, 2 launches a call
     assert chip_smoke.serving_launch_plan(temporal, 64, 16, 16) == {
-        "self_attention": 36, "two_source_attention": 15, "grouped": 80}
+        "self_attention": 36, "two_source_attention": 15, "grouped": 80,
+        "groupnorm_silu": 2 * (210 + 2 * 20)}
     assert chip_smoke.serving_launch_plan(T.ModelConfig(), 64, 2, 1) == {
         "self_attention": chip_smoke.SELF_PER_STEP,
-        "two_source_attention": chip_smoke.TWO_SOURCE_PER_STEP}
+        "two_source_attention": chip_smoke.TWO_SOURCE_PER_STEP,
+        "groupnorm_silu": chip_smoke.K8_PER_STEP}
     assert chip_smoke.stage3_launch_plan(T.stage3_motion(), 512, 1) == {
         "self_attention": 21, "two_source_attention": 1, "two_source_attention_lse": 28,
         "attention_dq_two_source": 14, "attention_dkv": 14, "grouped": 80,
@@ -94,9 +98,12 @@ def test_video_serving_plan_matches_counted_calls(monkeypatch):
     plan = chip_smoke.serving_launch_plan(cfg, 16, 16, 4)
     assert calls == plan
     # write pass 3 + ControlNet 1 + uncond 3; 3 bank reads; 6 motion
-    # modules x 2 units x (cond + uncond)
+    # modules x 2 units x (cond + uncond); K8 at every GroupNorm (both
+    # levels have 64 positions or more): the write pass's 17 SiLU and 7
+    # transformer norms, the ControlNet's 8 + 3, the cond and the uncond
+    # pass's 17 + 7 and 6 motion-module norms, two launches a call
     assert plan == {"self_attention": 3 + 1 + 3, "two_source_attention": 3,
-                    "grouped": 6 * 2 * 2}
+                    "grouped": 6 * 2 * 2, "groupnorm_silu": 2 * (24 + 11 + 2 * 30)}
 
 
 def test_stage3_plan_matches_counted_calls(monkeypatch):
@@ -128,12 +135,13 @@ NARROW_POOL = dict(bank_downsample_min_seq=256, self_kv_min_seq=256)
 
 
 @pytest.mark.parametrize("case", ["fused_cfg", "turbo", "turbo_max", "fused_gn",
-                                  "video_turbo"])
+                                  "video_turbo", "plain_gn"])
 def test_request_plans_match_counted_calls(monkeypatch, case):
     """One narrow request at 128x128 (two frames; the video case ten frames
     in windows of 4, stride 3) under each SampleConfig of chip_smoke.py's
-    phases 15-17: the plan derived from the sampler's host masks meets the
-    wrapper calls."""
+    phases 15-17, K8 at its sites by default ("fused_gn": the exact recipe)
+    and none under MAGICDANCE_FUSED_GN=0 ("plain_gn"): the plan derived
+    from the sampler's host masks meets the wrapper calls."""
     video = case == "video_turbo"
     cfg = chip_smoke.narrow_temporal_config() if video else chip_smoke.narrow_model_config()
     pipe = MagicPosePipeline(cfg, device="cpu")
@@ -148,11 +156,14 @@ def test_request_plans_match_counted_calls(monkeypatch, case):
           "turbo": dict(steps=4, **TURBO, **NARROW_POOL),
           "turbo_max": dict(steps=6, **TURBO_MAX, **NARROW_POOL),
           "fused_gn": dict(steps=1),
-          "video_turbo": dict(steps=4, window=4, stride=3, **TURBO, **NARROW_POOL)}[case]
+          "video_turbo": dict(steps=4, window=4, stride=3, **TURBO, **NARROW_POOL),
+          "plain_gn": dict(steps=1)}[case]
     scfg = T.SampleConfig(**kw)
     calls = count_calls(monkeypatch)
-    if case == "fused_gn":
-        monkeypatch.setenv("MAGICDANCE_FUSED_GN", "1")
+    if case == "plain_gn":
+        monkeypatch.setenv("MAGICDANCE_FUSED_GN", "0")
+    else:
+        monkeypatch.delenv("MAGICDANCE_FUSED_GN", raising=False)
     sampler = ddim_sample_video if video else ddim_sample
     extra = dict(window_offsets=[1, 6, 0, 9]) if video else {}
     out = sampler(pipe.model, pipe.sched, make_ddim_schedule(pipe.sched, scfg.steps), scfg,
@@ -161,18 +172,20 @@ def test_request_plans_match_counted_calls(monkeypatch, case):
     n_win = 4 if video else 1
     plan = chip_smoke.request_launch_plan(cfg, 16, n_win * 4 if video else frames, scfg,
                                           frames=4 if video else 1,
-                                          fused_gn=case == "fused_gn", video=video)
+                                          fused_gn=case != "plain_gn", video=video)
     assert calls == plan
     mode = {"fused_cfg": "two_source_attention_gated", "fused_gn": "groupnorm_silu"}.get(case)
     assert mode is None or plan[mode] > 0
+    assert ("groupnorm_silu" in plan) == (case != "plain_gn")
 
 
 def test_full_width_dual_control_plan():
     """DUAL_CONTROL at SD1.5 width: no bank write and no bank read; per DDIM
     step two ControlNets (6 kernel sites each), the cond and the uncond pass
-    (15 each), all self-attention."""
+    (15 each), all self-attention; K8 at each ControlNet's 20 SiLU and 7
+    transformer norms and each pass's 45 and 16, two launches a call."""
     assert chip_smoke.serving_launch_plan(chip_smoke.dual_model_config(), 64, 2, 1) == {
-        "self_attention": 6 + 6 + 15 + 15}
+        "self_attention": 6 + 6 + 15 + 15, "groupnorm_silu": 2 * (27 + 27 + 61 + 61)}
 
 
 @pytest.mark.parametrize("case", ["dual_exact", "dual_turbo", "dual_fused", "plms", "dpmpp_2m",
@@ -213,6 +226,6 @@ def test_dual_control_and_sampler_plans_match_counted_calls(monkeypatch, case):
     plan = chip_smoke.request_launch_plan(cfg, 16, 2, scfg)
     assert calls == plan
     if dual:
-        assert set(plan) == {"self_attention"}
+        assert set(plan) == {"self_attention", "groupnorm_silu"}
     else:
         assert plan == {m: 3 * n for m, n in chip_smoke.serving_launch_plan(cfg, 16, 2, 1).items()}
