@@ -7,11 +7,13 @@ fault's, on each seed given.
     python3 port_bench/control.py --workload <cell> --seeds 1 2 3 [--fault half_batch]
 
 Serving compares request 0 (the latents: the trajectory in fp8; the
-decode: the VAE in TF32 on the program's latents); a training cell its
-first `check_steps` steps. `--fault half_batch` (training)
-puts the reference in the program's place with the second half of every
-batch left out, the mean taken over the rest. Prints one JSON line per seed.
-The benchmark's own runs never run this.
+decode: the VAE in TF32 on the program's latents), over the frames a run's
+check recomputes; a training cell its first `check_steps` steps.
+`--fault half_batch` (training) puts the reference in the program's place
+with the second half of every batch left out (half the clips; of a batch of
+one clip, half its frames), the mean taken over the rest. The reference is
+the configuration's family (`harness.spec.reference_family`). Prints one
+JSON line per seed. The benchmark's own runs never run this.
 """
 
 from __future__ import annotations
@@ -32,46 +34,51 @@ def serve_readings(cell, seed: int, device: str, decode_only: bool = False) -> d
     from port_bench.harness import weights as W
     from port_bench.harness.serve import ServeCell
     from port_bench.reference.model import Numerics
-    from port_bench.reference.sample import decode
 
     drv = ServeCell(cell.config, cell.traffic, seed, device)
     drv.setup()
-    images = drv.request(0, cell.traffic["steps"]).float().cpu()
+    rows = drv.check_rows(0)
+    images = check.rows_of(drv.request(0, cell.traffic["steps"]).float().cpu(), rows)
     latents = drv._latents.float().cpu()
     drv.release()
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     # the decode stage on the program's latents: fp32, and one precision lower (TF32)
-    vae = W.reference_on(drv.model_cfg, seed, device)["vae"]
-    lat = latents.to(device)
-    ref_img = decode(vae, lat, drv.model_cfg, Numerics()).float().cpu()
-    tf32 = decode(vae, lat, drv.model_cfg, Numerics("fp8")).float().cpu()
+    vae = W.reference_on(drv.config, seed, device)["vae"]
+    lat = check.rows_of(latents, rows).to(device)
+    ref_img = drv.family.decode(vae, lat, drv.model_cfg, Numerics()).float().cpu()
+    tf32 = drv.family.decode(vae, lat, drv.model_cfg, Numerics("fp8")).float().cpu()
     del vae
     out = {"program": {"decode_gap": check.frame_gap(images, ref_img)},
            "control": {"decode_gap": check.frame_gap(tf32, ref_img)}}
     if not decode_only:
-        ref_lat, _ = drv.reference(0, Numerics())
-        c_lat, _ = drv.reference(0, Numerics("fp8"))
-        out["program"]["latent_gap"] = check.frame_gap(latents, ref_lat)
+        ref_lat, _, _ = drv.reference(0, Numerics())
+        c_lat, _, _ = drv.reference(0, Numerics("fp8"))
+        out["program"]["latent_gap"] = check.frame_gap(check.rows_of(latents, rows), ref_lat)
         out["control"]["latent_gap"] = check.frame_gap(c_lat, ref_lat)
     return out
 
 
-def halved(drv):
-    """`drv.inputs` with the second half of each batch left out."""
-    full = drv.inputs
+def halve(drv) -> None:
+    """Leave the second half of each of `drv`'s batches out: half the
+    clips, or of a batch of one clip the second half of its frames (its
+    reference then trains on clips of that many frames)."""
+    full, f = drv.inputs, drv.frames
+    clips = drv.batch_rows // f
+    if clips > 1:
+        clips //= 2
+    else:
+        f //= 2
+        drv.train_cfg = {**drv.train_cfg, "video_frames": f}
+    cut = {"reference": clips, "vae_reference": clips}
 
     def inputs(i, device=None):
         batch, draws = full(i, device)
-        f = drv.frames
-        keep = max(f, (batch["image"].shape[0] // f // 2) * f)
-        clips = keep // f
-        cut = {"reference": clips, "vae_reference": clips}
-        return ({k: v[:cut.get(k, keep)] for k, v in batch.items()},
-                {k: v[:cut.get(k, keep)] for k, v in draws.items()})
+        return ({k: v[:cut.get(k, clips * f)] for k, v in batch.items()},
+                {k: v[:cut.get(k, clips * f)] for k, v in draws.items()})
 
-    return inputs
+    drv.inputs = inputs
 
 
 def train_readings(cell, seed: int, device: str, fault: str = "") -> dict:
@@ -92,7 +99,7 @@ def train_readings(cell, seed: int, device: str, fault: str = "") -> dict:
     out = {"program": check.train_numbers(got, want),
            "control": check.train_numbers(drv.reference(Numerics("fp8", remat=True)), want)}
     if fault == "half_batch":
-        drv.inputs = halved(drv)
+        halve(drv)
         out["half_batch"] = check.train_numbers(drv.reference(Numerics(remat=True)), want)
     return out
 

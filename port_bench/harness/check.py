@@ -4,7 +4,8 @@ plain reference's, each held to a limit that the traffic file states.
 Serving: over the requests of the check's sample, the widest relative gap
 of a frame, ||x - reference|| / ||reference||, of the latents the sampler
 handed to the VAE decode, and of the images against the reference's decode
-of those latents. Training: the
+of those latents, over the frames the reference recomputed (all, or the
+traffic's `check_frames`). Training: the
 widest relative gap of a step's loss; and, by the worst leaf, the gap
 between the program's and the reference's norm of a leaf's first clipped
 gradient and of its change after the first steps, each against the larger
@@ -27,16 +28,24 @@ def frame_gap(images: torch.Tensor, reference: torch.Tensor) -> float:
     return float((diff / reference.double().flatten(1).norm(dim=1)).max())
 
 
+def rows_of(x: torch.Tensor, rows) -> torch.Tensor:
+    """The frames `rows` of x (None: all of them)."""
+    return x if rows is None else x[rows]
+
+
 def serve_numbers(items) -> dict:
     """Over the checked requests, each (program images, program latents,
-    reference latents, the reference's decode of the program's latents):
-    the widest frame gap of the latents (the trajectory from the start) and
-    of the images against the decode of the program's own latents (the last
-    stage, from the program's state)."""
+    reference latents, the reference's decode of the program's latents,
+    the frames the reference recomputed or None for all): the widest frame
+    gap of the latents (the trajectory from the start) and of the images
+    against the decode of the program's own latents (the last stage, from
+    the program's state)."""
     if not items:
         return {"latent_gap": float("nan"), "decode_gap": float("nan")}
-    return {"latent_gap": max(frame_gap(lat, ref_lat) for _, lat, ref_lat, _ in items),
-            "decode_gap": max(frame_gap(img, ref_img) for img, _, _, ref_img in items)}
+    return {"latent_gap": max(frame_gap(rows_of(lat, rows), ref_lat)
+                              for _, lat, ref_lat, _, rows in items),
+            "decode_gap": max(frame_gap(rows_of(img, rows), ref_img)
+                              for img, _, _, ref_img, rows in items)}
 
 
 def leaf_gap(got: dict, want: dict, keys) -> float:

@@ -5,7 +5,12 @@ image, sampled at the exact recipe (DDIM, classifier-free guidance,
 `controlnet_important`, one x_T shared by the frames) through the program's
 entry `MagicPosePipeline.sample_frames`, images or (`video`) the overlap
 windows. Request i's inputs come from a generator of its own seeded from
-the run's seed, so a request can be made again for the check.
+the run's seed, so a request can be made again for the check. The check
+recomputes every frame of a checked request in the configuration's
+reference family, or, where an image traffic gives `check_frames` = k, k
+of its frames drawn from the seed: an image request's frames share only
+the bank and x_T, so each frame's trajectory is exact on its own (a video
+window mixes frames, so a video traffic may not give the key).
 """
 
 from __future__ import annotations
@@ -15,22 +20,31 @@ import time
 import torch
 
 from port_bench.harness import weights as W
+from port_bench.harness.check import rows_of
+from port_bench.harness.spec import reference_family
 from port_bench.harness.tracing import Spans, profile_segment
 from port_bench.reference.model import Numerics
-from port_bench.reference.sample import decode as reference_decode
-from port_bench.reference.sample import sample as reference_sample
 
 INPUT_STREAM = 1000
+CHECK_FRAMES_STREAM = 3000
 
 
 class ServeCell:
     def __init__(self, config: dict, traffic: dict, seed: int, device):
-        self.model_cfg = config["model"]
+        self.config, self.model_cfg = config, config["model"]
+        self.family = reference_family(config)
         self.t = traffic
         self.seed, self.device = seed, torch.device(device)
         self.frames = traffic["frames"]
         self.size = self.model_cfg["latent_size"] * 8
         self.video = bool(traffic.get("video", False))
+        self.check_frames = traffic.get("check_frames")
+        if self.check_frames is not None:
+            if self.video:
+                raise ValueError("check_frames is for image traffic: a video window mixes "
+                                 "frames, so a subset of them is not exact")
+            if not 1 <= self.check_frames <= self.frames:
+                raise ValueError(f"check_frames {self.check_frames} is not in 1..{self.frames}")
         self.records: list = []    # (seconds, frames) of each request of the window
         self.outputs: dict = {}    # request index -> (images, latents) on the host
         self._latents = None       # the latents the last request handed to its decode
@@ -68,7 +82,7 @@ class ServeCell:
         self.pipe = MagicPosePipeline(from_dict(ModelConfig, self.model_cfg), device=self.device)
         self.sync()
         t1 = time.perf_counter()
-        states = W.seeded_states(self.model_cfg, self.seed, self.device, self.setup_parts,
+        states = W.seeded_states(self.config, self.seed, self.device, self.setup_parts,
                                   self.cache_dir)
         self.sync()
         t2 = time.perf_counter()
@@ -149,27 +163,38 @@ class ServeCell:
         k = min(self.t["check_requests"], n_done)
         return sorted(torch.randperm(n_done, generator=gen)[:k].tolist())
 
+    def check_rows(self, i: int):
+        """The frames of request i that the check recomputes: None for all,
+        or `check_frames` of them drawn from the seed, in order."""
+        if self.check_frames is None:
+            return None
+        gen = torch.Generator().manual_seed(W.sub_seed(self.seed, CHECK_FRAMES_STREAM + i))
+        return sorted(torch.randperm(self.frames, generator=gen)[:self.check_frames].tolist())
+
     def reference(self, i: int, num: Numerics, latents=None):
-        """The plain reference's latents for request i, with the weights made
-        again from the seed, in the precision `num` gives; and its decode
-        of `latents` (the program's) when given."""
-        nets = W.reference_on(self.model_cfg, self.seed, self.device, num)
+        """(latents, images, rows): the plain reference's latents for the
+        checked frames `rows` of request i (None: all of them), with the
+        weights made again from the seed, in the precision `num` gives; and
+        its decode of those rows of `latents` (the program's) when given."""
+        nets = W.reference_on(self.config, self.seed, self.device, num)
         pose, ref, x_T, offsets = self.inputs(i)
-        lat = reference_sample(nets["model"], nets["vae"], nets["clip"], self.model_cfg, pose,
-                               ref, x_T, self.t["steps"], self.t["cfg_scale"], num,
-                               video=self.video, offsets=offsets,
-                               window=self.t.get("window", 16), stride=self.t.get("stride", 12))
+        rows = self.check_rows(i)
+        pose, x_T = rows_of(pose, rows), rows_of(x_T, rows)
+        lat = self.family.sample(nets, self.model_cfg, pose, ref, x_T, self.t["steps"],
+                                 self.t["cfg_scale"], num, video=self.video, offsets=offsets,
+                                 window=self.t.get("window", 16),
+                                 stride=self.t.get("stride", 12))
         images = None
         if latents is not None:
-            images = reference_decode(nets["vae"], latents.to(self.device), self.model_cfg,
-                                      num).float().cpu()
-        return lat.float().cpu(), images
+            images = self.family.decode(nets["vae"], rows_of(latents, rows).to(self.device),
+                                        self.model_cfg, num).float().cpu()
+        return lat.float().cpu(), images, rows
 
     def flops_per_request(self) -> float:
         """Model FLOPs of one request, counted on the reference (meta)."""
         from port_bench.harness.yardstick import count_flops
 
-        nets = W.reference_networks(self.model_cfg)
+        nets = W.reference_networks(self.config)
         f, s, h = self.frames, self.size, self.model_cfg["latent_size"]
         meta = torch.device("meta")
         pose = torch.empty(f, s, s, 3, device=meta)
@@ -178,12 +203,11 @@ class ServeCell:
         steps = self.t["steps"]
 
         def one(k):
-            lat = reference_sample(nets["model"], nets["vae"], nets["clip"], self.model_cfg,
-                                   pose, ref, x_T, k, self.t["cfg_scale"], Numerics(),
-                                   video=self.video, offsets=[0] * k,
-                                   window=self.t.get("window", 16),
-                                   stride=self.t.get("stride", 12))
-            reference_decode(nets["vae"], lat, self.model_cfg, Numerics())
+            lat = self.family.sample(nets, self.model_cfg, pose, ref, x_T, k,
+                                     self.t["cfg_scale"], Numerics(), video=self.video,
+                                     offsets=[0] * k, window=self.t.get("window", 16),
+                                     stride=self.t.get("stride", 12))
+            self.family.decode(nets["vae"], lat, self.model_cfg, Numerics())
 
         one_step = count_flops(one, 1)
         two_steps = count_flops(one, 2)

@@ -1,13 +1,16 @@
 """What a run measures, found by name: the cell in `BENCHMARK.json`, its
-configuration (`port_bench/configs/<config>.json`), its traffic mix
-(`port_bench/traffic/<traffic>.json`) and one reader per metric
-(`port_bench/metrics/<metric>.py`). A cell, mix or metric is added by adding
-files and entries; nothing here names one."""
+configuration (`port_bench/configs/<config>.json`), the plain reference
+that configuration names (`port_bench/reference/<family>.py`), its traffic
+mix (`port_bench/traffic/<traffic>.json`) and one reader per metric
+(`port_bench/metrics/<metric>.py`). A cell, mix, metric or reference family
+is added by adding files and entries; nothing here names one."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
@@ -63,4 +66,40 @@ def metric_reader(name: str) -> ModuleType:
         raise FileNotFoundError(f"no reader for metric {name!r} at {path}")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+DEFAULT_FAMILY = "sd15"
+FAMILY_API = ("networks", "sample", "decode", "ReferenceTrainer")
+
+
+def _family(name) -> ModuleType | None:
+    """The module `port_bench.reference.<name>` if it offers `FAMILY_API`."""
+    if not isinstance(name, str) or not re.fullmatch(r"[a-z0-9_]+", name):
+        return None
+    module = f"port_bench.reference.{name}"
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        return None
+    return mod if all(hasattr(mod, a) for a in FAMILY_API) else None
+
+
+def reference_family(config: dict) -> ModuleType:
+    """The plain reference a configuration file is held to: the module
+    `port_bench/reference/<config["reference"]>.py`, by default `sd15`
+    (the SD1.5 MagicPose networks). It offers `networks(model_cfg, num)`
+    ({"model", "vae", "clip"} on the meta device, named by the program's
+    state-dict keys), `sample(nets, model_cfg, pose, ref_image, x_T, steps,
+    scale, num, video=, offsets=, window=, stride=)`, `decode(vae, latents,
+    model_cfg, num)` and `ReferenceTrainer`."""
+    name = config.get("reference", DEFAULT_FAMILY)
+    mod = _family(name)
+    if mod is None:
+        known = [p.stem for p in sorted((BENCH_DIR / "reference").glob("*.py"))
+                 if _family(p.stem) is not None]
+        raise KeyError(f"no reference family {name!r} under port_bench/reference "
+                       f"(has: {', '.join(known)})")
     return mod

@@ -18,10 +18,10 @@ import time
 import torch
 
 from port_bench.harness import weights as W
+from port_bench.harness.spec import reference_family
 from port_bench.harness.tracing import Spans, profile_segment
 from port_bench.reference.model import Numerics
 from port_bench.reference.sample import empty_ids
-from port_bench.reference.train import ReferenceTrainer
 
 BATCH_STREAM = 2000
 
@@ -34,7 +34,8 @@ def leaf_norms(tensors: dict) -> dict:
 
 class TrainCell:
     def __init__(self, config: dict, traffic: dict, seed: int, device):
-        self.model_cfg, self.train_cfg = config["model"], config["train"]
+        self.config, self.model_cfg, self.train_cfg = config, config["model"], config["train"]
+        self.family = reference_family(config)
         self.t = traffic
         self.seed, self.device = seed, torch.device(device)
         self.temporal = self.model_cfg["variant"] == "appearance_pose_temporal"
@@ -81,7 +82,7 @@ class TrainCell:
         self.sync()
         t1 = time.perf_counter()
         self.setup_parts["build_s"] = t1 - t0
-        st = W.seeded_states(self.model_cfg, self.seed, self.device, self.setup_parts,
+        st = W.seeded_states(self.config, self.seed, self.device, self.setup_parts,
                                 self.cache_dir)
         self.sync()
         t2 = time.perf_counter()
@@ -107,7 +108,7 @@ class TrainCell:
     @torch.no_grad()
     def change_norms(self) -> dict:
         """Each trainable leaf's distance from its seeded start."""
-        shapes = W.layout(self.model_cfg, self.cache_dir)["model"]
+        shapes = W.layout(self.config, self.cache_dir)["model"]
         start = W.seeded_state(shapes, self.seed, 0, self.device)
         out = {k: (p.detach().float() - start[k].float()).norm()
                for k, p in self.tr.train_params.items()}
@@ -170,9 +171,9 @@ class TrainCell:
     def reference(self, num: Numerics) -> dict:
         """The plain reference through the same first steps: losses, first
         clipped gradient norms per leaf, change norms per leaf."""
-        nets = W.reference_on(self.model_cfg, self.seed, self.device, num)
-        ref = ReferenceTrainer(nets["model"], nets["vae"], nets["clip"], self.model_cfg,
-                               self.train_cfg, num)
+        nets = W.reference_on(self.config, self.seed, self.device, num)
+        ref = self.family.ReferenceTrainer(nets["model"], nets["vae"], nets["clip"],
+                                           self.model_cfg, self.train_cfg, num)
         start = {k: p.detach().clone() for k, p in ref.params.items()}
         losses, grad1 = [], None
         for i in range(self.t["check_steps"]):
@@ -192,9 +193,9 @@ class TrainCell:
         recomputed), counted on the reference (meta)."""
         from port_bench.harness.yardstick import count_flops
 
-        nets = W.reference_networks(self.model_cfg, Numerics())
-        ref = ReferenceTrainer(nets["model"], nets["vae"], nets["clip"], self.model_cfg,
-                               self.train_cfg, Numerics())
+        nets = W.reference_networks(self.config, Numerics())
+        ref = self.family.ReferenceTrainer(nets["model"], nets["vae"], nets["clip"],
+                                           self.model_cfg, self.train_cfg, Numerics())
         batch, draws = self.inputs(0, device=torch.device("cpu"))
         meta = {k: torch.empty_like(v, device="meta") if v.is_floating_point() else v.to("meta")
                 for k, v in {**batch, **draws}.items()}

@@ -1,5 +1,9 @@
 """Seeded weights and the plain reference's networks.
 
+`reference_networks`, `layout`, `seeded_states` and `reference_on` take the
+configuration file (`{"model": ..., ...}`), whose reference family
+(`harness.spec.reference_family`) builds the networks.
+
 Every leaf of the three networks is drawn from N(0, 0.02^2) (the output and
 zero convolutions too, so every branch shows in the result), on the device,
 in bf16 (the denoiser's serving type; the VAE and CLIP hold these values in
@@ -18,7 +22,8 @@ from pathlib import Path
 
 import torch
 
-from port_bench.reference.model import VAE, CLIPText, MagicPose, Numerics
+from port_bench.harness.spec import reference_family
+from port_bench.reference.model import Numerics
 
 NETWORKS = ("model", "vae", "clip")
 SCALE = 0.02
@@ -29,25 +34,30 @@ def sub_seed(seed: int, stream: int) -> int:
     return (seed * 1_000_003 + stream * 7_919 + 17) % (1 << 63)
 
 
-def reference_networks(model_cfg: dict, num: Numerics = Numerics()) -> dict:
+def reference_networks(config: dict, num: Numerics = Numerics()) -> dict:
     """The reference's networks on the meta device."""
-    return {"model": MagicPose(model_cfg, num), "vae": VAE(model_cfg["vae"]),
-            "clip": CLIPText(model_cfg["clip"])}
+    return reference_family(config).networks(config["model"], num)
 
 
-def layout(model_cfg: dict, cache_dir=None) -> dict:
+def layout_key(config: dict) -> str:
+    """The layout cache's key: the model configuration, and the reference
+    family where the file names one."""
+    keyed = [config["reference"], config["model"]] if "reference" in config else config["model"]
+    return hashlib.sha256(json.dumps(keyed, sort_keys=True).encode()).hexdigest()[:16]
+
+
+def layout(config: dict, cache_dir=None) -> dict:
     """{network: [(key, shape)]} in the reference's parameter order. Built
     on the meta device (whose first use imports PyTorch's meta kernels, some
-    seconds); with `cache_dir` kept there as JSON, keyed by the
-    configuration, so only a checkout's first run builds it."""
+    seconds); with `cache_dir` kept there as JSON, keyed by `layout_key`,
+    so only a checkout's first run builds it."""
     path = None
     if cache_dir is not None:
-        key = hashlib.sha256(json.dumps(model_cfg, sort_keys=True).encode()).hexdigest()[:16]
-        path = Path(cache_dir) / "layout" / f"{key}.json"
+        path = Path(cache_dir) / "layout" / f"{layout_key(config)}.json"
         if path.is_file():
             return {n: [(k, tuple(s)) for k, s in v]
                     for n, v in json.loads(path.read_text()).items()}
-    nets = reference_networks(model_cfg)
+    nets = reference_networks(config)
     out = {n: [(k, tuple(p.shape)) for k, p in nets[n].named_parameters()] for n in NETWORKS}
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -73,10 +83,10 @@ def seeded_state(shapes, seed: int, stream: int, device) -> dict:
     return out
 
 
-def seeded_states(model_cfg: dict, seed: int, device, times: dict | None = None,
+def seeded_states(config: dict, seed: int, device, times: dict | None = None,
                   cache_dir=None) -> dict:
     t0 = time.perf_counter()
-    shapes = layout(model_cfg, cache_dir)
+    shapes = layout(config, cache_dir)
     t1 = time.perf_counter()
     out = {n: seeded_state(shapes[n], seed, i, device) for i, n in enumerate(NETWORKS)}
     if times is not None:
@@ -91,9 +101,9 @@ def materialize(net: torch.nn.Module, state: dict, device) -> torch.nn.Module:
     return net.to(device).eval()
 
 
-def reference_on(model_cfg: dict, seed: int, device, num: Numerics = Numerics()) -> dict:
+def reference_on(config: dict, seed: int, device, num: Numerics = Numerics()) -> dict:
     """The reference's networks with the run's seeded weights, fp32."""
-    nets = reference_networks(model_cfg, num)
+    nets = reference_networks(config, num)
     return {n: materialize(nets[n], seeded_state(
         [(k, p.shape) for k, p in nets[n].named_parameters()], seed, i, device), device)
         for i, n in enumerate(NETWORKS)}

@@ -27,8 +27,9 @@ def test_serving_control_fails_where_the_program_passes(cuda, cell):
     assert any(v > limits[k] for k, v in r["control"].items()), r
 
 
-def test_training_control_and_half_batch_fail(cuda):
-    c = load_cell("sd15-pose.train-stage2-b8")
+@pytest.mark.parametrize("cell", ["sd15-pose.train-stage2-b8", "sd15-pose-mm.train-stage3"])
+def test_training_control_and_half_batch_fail(cuda, cell):
+    c = load_cell(cell)
     r = control.train_readings(c, 62, cuda, fault="half_batch")
     limits = c.traffic["limits"]
     assert all(v <= limits[k] for k, v in r["program"].items()), r

@@ -32,9 +32,10 @@ def test_served_request_matches_reference(cell):
     drv.setup()
     images = drv.request(0, c.traffic["steps"]).float()
     latents = drv._latents.float()
-    ref_lat, ref_img = drv.reference(0, Numerics(), latents)
-    gap = check.serve_numbers([(images, latents, ref_lat, ref_img)])
-    c_lat, _ = drv.reference(0, Numerics("fp8"))
+    ref_lat, ref_img, rows = drv.reference(0, Numerics(), latents)
+    assert rows is None, "no check_frames: every frame is checked"
+    gap = check.serve_numbers([(images, latents, ref_lat, ref_img, rows)])
+    c_lat, _, _ = drv.reference(0, Numerics("fp8"))
     assert gap["latent_gap"] < 1e-4, "the fp32 program is the reference's arithmetic"
     assert gap["decode_gap"] < 1e-5
     assert check.frame_gap(c_lat, ref_lat) > 10 * gap["latent_gap"], "fp8 operands must show"
@@ -57,9 +58,9 @@ def test_reference_takes_the_bf16_weights_in_fp32():
     drv = ServeCell(c.config, c.traffic, SEED, "cpu")
     from port_bench.harness import weights as W
 
-    nets = W.reference_on(drv.model_cfg, SEED, "cpu")
+    nets = W.reference_on(drv.config, SEED, "cpu")
     w = nets["model"].unet.conv_in.weight
     assert w.dtype == torch.float32
     assert torch.equal(w, w.bfloat16().float())
-    cfg = copy.deepcopy(drv.model_cfg)
+    cfg = copy.deepcopy(drv.config)
     assert W.reference_networks(cfg)["model"].unet.conv_in.weight.is_meta

@@ -30,6 +30,13 @@ def test_every_cell_loads(cell):
         assert m["moves"] in e2e, f"{m['name']} moves a metric the cell does not report"
 
 
+@pytest.mark.parametrize("conf", BENCH["configs"], ids=lambda c: c["name"])
+def test_every_configuration_names_a_reference_family_that_resolves(conf):
+    config = spec.load_json(spec.ROOT / conf["file"])
+    family = spec.reference_family(config)
+    assert all(callable(getattr(family, a)) for a in spec.FAMILY_API)
+
+
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],
                          ids=lambda m: m["name"])
 def test_every_metric_has_a_reader(metric):

@@ -85,29 +85,40 @@ def test_an_altered_answer_is_caught(monkeypatch):
     assert not out["correct"], out["check"]
 
 
-def test_a_step_that_keeps_its_state_is_caught(monkeypatch):
+TRAINING = ["sd15-pose.train-stage2-b8", "sd15-pose-mm.train-stage3"]
+
+
+@pytest.mark.parametrize("cell", TRAINING)
+def test_a_step_that_keeps_its_state_is_caught(monkeypatch, cell):
     from magicdance_tpu_torch.train import trainer
 
     monkeypatch.setattr(trainer.Optimizer, "update", lambda self, params, grads: True)
-    out = run.measure(tiny_cell("sd15-pose.train-stage2-b8"), SEED, 0.2, trace=False,
-                      device="cpu")
+    out = run.measure(tiny_cell(cell, frames=4), SEED, 0.2, trace=False, device="cpu")
     assert not out["correct"]
     assert out["check"]["change_gap"]["value"] == pytest.approx(1.0)
 
 
-def test_half_a_batch_is_caught(monkeypatch):
+@pytest.mark.parametrize("cell", TRAINING)
+def test_half_a_batch_is_caught(monkeypatch, cell):
+    """Half the clips (stage 2: images) left out, or of stage 3's one clip
+    the second half of its frames, the mean taken over the rest."""
     from magicdance_tpu_torch.train import trainer
 
     loss_and_grads = trainer.Trainer.loss_and_grads
 
     def half(self, batch, draws):
-        n = batch["image"].shape[0] // 2
-        batch = {k: v[:n] for k, v in batch.items()}
+        f = self.num_frames
+        clips = batch["image"].shape[0] // f
+        if clips > 1:
+            clips //= 2
+        else:
+            f = self.num_frames = f // 2
+        n = clips * f
+        batch = {k: v[:clips if k == "reference" else n] for k, v in batch.items()}
         draws = trainer.Draws(draws.t[:n], draws.noise[:n], draws.vae_image[:n],
-                              draws.vae_reference[:n])
+                              draws.vae_reference[:clips])
         return loss_and_grads(self, batch, draws)
 
     monkeypatch.setattr(trainer.Trainer, "loss_and_grads", half)
-    out = run.measure(tiny_cell("sd15-pose.train-stage2-b8"), SEED, 0.2, trace=False,
-                      device="cpu")
+    out = run.measure(tiny_cell(cell, frames=4), SEED, 0.2, trace=False, device="cpu")
     assert not out["correct"], out["check"]

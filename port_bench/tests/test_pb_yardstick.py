@@ -134,7 +134,7 @@ def test_layout_cache_matches_the_reference(tmp_path):
     from port_bench.harness import weights as W
     from port_bench.tests.tiny import tiny_cell
 
-    cfg = tiny_cell("sd15-pose-mm.serve-video16").config["model"]
+    cfg = tiny_cell("sd15-pose-mm.serve-video16").config
     fresh = W.layout(cfg)
     assert W.layout(cfg, tmp_path) == fresh
     assert len(list(tmp_path.rglob("*.json"))) == 1

@@ -11,18 +11,10 @@ TINY_UNET = dict(model_channels=32, channel_mult=[1, 2], num_res_blocks=1,
                  attention_resolutions=[1, 2], num_heads=2, context_dim=16)
 
 
-def stage3_cell() -> Cell:
-    """The stage-3 recipe (the temporal configuration's training section)
-    under the stage-2 traffic: no cell of `BENCHMARK.json` yet, but the
-    reference's motion-only training is held to the program here."""
-    cell = load_cell("sd15-pose.train-stage2-b8")
-    video = load_cell("sd15-pose-mm.serve-video16")
-    cell.name, cell.config = "sd15-pose-mm.train-stage3", video.config
-    return cell
-
-
 def tiny_cell(name: str, frames: int = 2, steps: int = 2) -> Cell:
-    cell = stage3_cell() if name == "sd15-pose-mm.train-stage3" else load_cell(name)
+    """A training cell takes at most two samples a step: stage 2 two images,
+    stage 3 its configuration's one clip, of `frames` frames."""
+    cell = load_cell(name)
     config = copy.deepcopy(cell.config)
     m = config["model"]
     m["unet"].update(TINY_UNET, motion_num_heads=2)
@@ -35,8 +27,9 @@ def tiny_cell(name: str, frames: int = 2, steps: int = 2) -> Cell:
         traffic.update(window=frames, stride=max(1, frames - 1))
     if traffic["kind"] == "train":
         traffic["image_size"] = 64
-        config["train"].update(batch_size_per_device=2 if "video" not in name else 1,
-                               video_frames=frames)
-        config["train"]["optim"]["warmup_steps"] = 1
+        train = config["train"]
+        train.update(batch_size_per_device=min(2, train["batch_size_per_device"]),
+                     video_frames=frames)
+        train["optim"]["warmup_steps"] = 1
     cell.config, cell.traffic = config, traffic
     return cell
