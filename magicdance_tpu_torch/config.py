@@ -5,7 +5,13 @@ variant enum, the UNet / ControlNet / VAE / CLIP / diffusion configs,
 `ModelConfig`, the DDIM `SampleConfig`, the freeze regimes, `OptimConfig`,
 `TrainConfig` and the three stage presets, plus `from_dict` / `to_dict` /
 `load_json` / `load_yaml` / `save_json`. Field names and defaults are those
-of the JAX package, so one JSON config drives either.
+of the JAX package, so one JSON config of the SD1.5 family drives either.
+The SDXL fields (per-level transformer depth, `num_head_channels`,
+`use_linear_in_transformer`, `adm_in_channels`, the text tower's
+activation, output layer, projection and pad id, and `ModelConfig.clip_g`)
+are the port's own: the JAX package has no
+SDXL, and `to_dict` leaves them out while they hold their defaults, so an
+SD1.5 configuration's dict is the JAX package's.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import enum
 import json
 import typing
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 
 class ModelVariant(str, enum.Enum):
@@ -43,9 +49,42 @@ class Parameterization(str, enum.Enum):
     V = "v"
 
 
+def port_only(default):
+    """A field the JAX package lacks (the SDXL family): `to_dict` leaves it
+    out while it holds `default`."""
+    return field(default=default, metadata={"port_only": True})
+
+
+class _SpatialArch:
+    """What the UNet, its appearance copy and the ControlNet derive from
+    the transformer fields alike: the depth at each level and in the middle
+    block, and the heads at a width."""
+
+    def depth_at(self, level: int) -> int:
+        """Transformer blocks a site of `level` holds (an int depth holds
+        for every level)."""
+        d = self.transformer_depth
+        return d if isinstance(d, int) else d[level]
+
+    @property
+    def depth_middle(self) -> int:
+        """The middle block's depth: the deepest level's (SDXL 10)."""
+        return self.depth_at(len(self.channel_mult) - 1)
+
+    def heads_at(self, channels: int) -> tuple[int, int]:
+        """(heads, head width) of a transformer of `channels` channels:
+        `num_head_channels` wide heads when set (SDXL), else `num_heads`
+        heads (SD1.5)."""
+        if self.num_head_channels > 0:
+            return channels // self.num_head_channels, self.num_head_channels
+        return self.num_heads, channels // self.num_heads
+
+
 @dataclass(frozen=True)
-class UNetConfig:
-    """SD1.5 UNet (ref: ldm/modules/diffusionmodules/openaimodel.py:432)."""
+class UNetConfig(_SpatialArch):
+    """SD1.5 UNet (ref: ldm/modules/diffusionmodules/openaimodel.py:432);
+    with the port's own SDXL fields, the SDXL UNet (Stability-AI
+    generative-models sgm/modules/diffusionmodules/openaimodel.py)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -55,7 +94,7 @@ class UNetConfig:
     # downsample factors at which SpatialTransformers are inserted
     attention_resolutions: tuple[int, ...] = (4, 2, 1)
     num_heads: int = 8
-    transformer_depth: int = 1
+    transformer_depth: Union[int, tuple[int, ...]] = 1
     context_dim: int = 768
     dropout: float = 0.0
     # AnimateDiff-style temporal motion modules interleaved after spatial
@@ -71,15 +110,28 @@ class UNetConfig:
     # recompute blocks in the backward pass (training only; kept so one
     # config file serves both packages)
     remat: bool = True
+    # ---- the SDXL fields (the port's own) ----
+    # transformer_depth may also be one depth per level (SDXL [1, 2, 10]);
+    # the middle block takes the deepest level's
+    # heads of this width (SDXL 64); -1: `num_heads` heads at every level
+    num_head_channels: int = port_only(-1)
+    # a transformer's proj_in / proj_out as linear layers on the tokens
+    # (SDXL) instead of 1x1 convolutions (SD1.5)
+    use_linear_in_transformer: bool = port_only(False)
+    # width of the added vector y (SDXL 2816: the pooled text and six size
+    # sinusoids); > 0 adds `label_emb`, Linear-SiLU-Linear, to the time
+    # embedding. 0: no vector (SD1.5)
+    adm_in_channels: int = port_only(0)
 
     @property
     def head_dim_at(self) -> dict[int, int]:
-        return {m: self.model_channels * m // self.num_heads for m in self.channel_mult}
+        return {m: self.heads_at(self.model_channels * m)[1] for m in self.channel_mult}
 
 
 @dataclass(frozen=True)
-class ControlNetConfig:
-    """Pose ControlNet (ref: cldm/cldm.py:500)."""
+class ControlNetConfig(_SpatialArch):
+    """Pose ControlNet (ref: cldm/cldm.py:500); the SDXL fields as the
+    UNet's."""
 
     hint_channels: int = 3
     # architecture mirrors the UNet encoder; these are validated against the
@@ -89,9 +141,12 @@ class ControlNetConfig:
     num_res_blocks: int = 2
     attention_resolutions: tuple[int, ...] = (4, 2, 1)
     num_heads: int = 8
-    transformer_depth: int = 1
+    transformer_depth: Union[int, tuple[int, ...]] = 1
     context_dim: int = 768
     remat: bool = True
+    num_head_channels: int = port_only(-1)
+    use_linear_in_transformer: bool = port_only(False)
+    adm_in_channels: int = port_only(0)
 
 
 @dataclass(frozen=True)
@@ -123,6 +178,18 @@ class CLIPTextConfig:
     max_length: int = 77
     bos_token_id: int = 49406
     eos_token_id: int = 49407
+    # ---- the SDXL towers' fields (the port's own) ----
+    # the MLP's activation: "quick_gelu" (OpenAI CLIP) or "gelu" (OpenCLIP)
+    hidden_act: str = port_only("quick_gelu")
+    # the hidden state returned: "last" (after the final LayerNorm) or
+    # "penultimate" (the input of the last layer, no final norm: SDXL)
+    output_layer: str = port_only("last")
+    # > 0: also a pooled embedding, the final LayerNorm's output at the
+    # EOT token times `text_projection` (hidden_size x projection_dim, no
+    # bias); 0: none
+    projection_dim: int = port_only(0)
+    # the id after the EOT token (OpenCLIP pads with 0); None: the EOS id
+    pad_token_id: Optional[int] = port_only(None)
 
 
 @dataclass(frozen=True)
@@ -158,6 +225,11 @@ class ModelConfig:
     latent_size: int = 64  # 512px / 8
     # compute dtype for UNet/control branches ("bfloat16" | "float32")
     dtype: str = "bfloat16"
+    # ---- the SDXL fields (the port's own) ----
+    # the second text tower (OpenCLIP ViT-bigG/14); with it the context is
+    # both towers' hidden states side by side and `clip_g`'s pooled
+    # embedding starts the added vector. None: one tower (SD1.5)
+    clip_g: Optional[CLIPTextConfig] = port_only(None)
 
     @property
     def has_appearance(self) -> bool:
@@ -183,6 +255,11 @@ class ModelConfig:
     @property
     def has_temporal(self) -> bool:
         return self.variant is ModelVariant.APPEARANCE_POSE_TEMPORAL
+
+    @property
+    def has_vector(self) -> bool:
+        """The denoisers take an added vector y (SDXL micro-conditioning)."""
+        return self.unet.adm_in_channels > 0
 
 
 @dataclass(frozen=True)
@@ -395,9 +472,12 @@ def from_dict(cls, d: dict[str, Any]):
 
 
 def to_dict(cfg) -> dict[str, Any]:
+    """A plain dict of a config; the port's own fields are left out while
+    they hold their defaults."""
     def _convert(obj):
         if dataclasses.is_dataclass(obj):
-            return {f.name: _convert(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+            return {f.name: _convert(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                    if not (f.metadata.get("port_only") and getattr(obj, f.name) == f.default)}
         if isinstance(obj, enum.Enum):
             return obj.value
         if isinstance(obj, tuple):

@@ -5,7 +5,10 @@ the rendered skeleton map into latent resolution, the UNet encoder and middle
 block run on `conv_in(x) + hint`, and 13 1x1 "zero" convolutions (zero at
 initialisation in training) tap the residual stream: one per encoder skip
 (12 at SD1.5 width) plus one after the middle block. The 13 residuals are
-returned NHWC in fp32, in the order `UNet(pose_residuals=...)` consumes them.
+returned NHWC in fp32, in the order `UNet(pose_residuals=...)` consumes them
+(SDXL's three levels: 9 skip residuals and the middle one). The SDXL fields
+(per-level depth, head width, linear projections, `label_emb` over the added
+vector `y`) are the UNet's.
 Compute dtype and `remat` as in `models.unet`; `self_kv_pool` /
 `self_kv_min_seq` pool the encoder sites' self keys/values as the UNet's do
 (the middle block stays exact, as in JAX).
@@ -63,6 +66,9 @@ def controlnet_unet_config(cfg: ControlNetConfig, in_channels: int) -> UNetConfi
         num_heads=cfg.num_heads,
         transformer_depth=cfg.transformer_depth,
         context_dim=cfg.context_dim,
+        num_head_channels=cfg.num_head_channels,
+        use_linear_in_transformer=cfg.use_linear_in_transformer,
+        adm_in_channels=cfg.adm_in_channels,
     )
 
 
@@ -74,8 +80,14 @@ class PoseControlNet(nn.Module):
         self.ucfg = controlnet_unet_config(cfg, in_channels)
         mc = cfg.model_channels
         emb_dim = 4 * mc
-        heads, depth, ctx_dim = cfg.num_heads, cfg.transformer_depth, cfg.context_dim
+
+        def st(ch, depth):
+            return SpatialTransformer(ch, *cfg.heads_at(ch), depth, cfg.context_dim,
+                                      cfg.use_linear_in_transformer)
+
         self.time_embed = TimestepEmbedMLP(mc)
+        if cfg.adm_in_channels > 0:
+            self.label_emb = TimestepEmbedMLP(mc, cfg.adm_in_channels)
         self.hint_encoder = HintEncoder(cfg.hint_channels, mc)
         self.conv_in = conv3x3(in_channels, mc)
         self.zero_conv_0 = conv1x1(mc, mc, zero_init=True)
@@ -87,8 +99,7 @@ class PoseControlNet(nn.Module):
                 ch = u["ch"]
                 res_i += 1
                 if u["attn"]:
-                    self.add_module(f"enc_attn_{attn_i}",
-                                    SpatialTransformer(ch, heads, ch // heads, depth, ctx_dim))
+                    self.add_module(f"enc_attn_{attn_i}", st(ch, u["depth"]))
                     attn_i += 1
             else:
                 self.add_module(f"enc_down_{down_i}", Downsample(ch))
@@ -96,19 +107,27 @@ class PoseControlNet(nn.Module):
             self.add_module(f"zero_conv_{zc}", conv1x1(ch, ch, zero_init=True))
         mid_ch = mc * cfg.channel_mult[-1]
         self.mid_res_0 = ResBlock(ch, mid_ch, emb_dim)
-        self.mid_attn = SpatialTransformer(mid_ch, heads, mid_ch // heads, depth, ctx_dim)
+        self.mid_attn = st(mid_ch, cfg.depth_middle)
         self.mid_res_1 = ResBlock(mid_ch, mid_ch, emb_dim)
         self.zero_conv_mid = conv1x1(mid_ch, mid_ch, zero_init=True)
 
     def forward(self, x: torch.Tensor, hint: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor], self_kv_pool: int = 1,
-                self_kv_min_seq: int = 4096) -> Tuple[torch.Tensor, ...]:
+                self_kv_min_seq: int = 4096, y: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ...]:
         """x: (B, h, w, 4) noisy latent; hint: (B, 8h, 8w, 3) pose map in
-        [0, 1]. Returns the 13 zero-conv residuals, NHWC, fp32."""
+        [0, 1]; y: (B, adm_in_channels), the added vector of a configuration
+        that takes one. Returns the zero-conv residuals (13 at SD1.5 width),
+        NHWC, fp32."""
+        if (y is not None) != (self.cfg.adm_in_channels > 0):
+            raise ValueError(f"adm_in_channels {self.cfg.adm_in_channels} takes "
+                             f"{'an' if self.cfg.adm_in_channels > 0 else 'no'} added vector y")
         dtype = self.compute_dtype or self.conv_in.weight.dtype
         rm = self.cfg.remat
         emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels,
                                                  dtype=dtype))
+        if y is not None:
+            emb = emb + self.label_emb(y.to(dtype))
         if context is not None:
             context = context.to(dtype)
         # contiguous NHWC inputs keep the activations channels_last (as the UNet's)

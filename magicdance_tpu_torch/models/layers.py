@@ -193,12 +193,14 @@ def conv1x1(cin: int, cout: int, zero_init: bool = False) -> Conv2d:
 
 
 class TimestepEmbedMLP(nn.Module):
-    """model_channels -> 4*model_channels MLP over the sinusoidal embedding."""
+    """model_channels -> 4*model_channels MLP over the sinusoidal embedding;
+    with `in_features`, the same MLP over another input (SDXL's `label_emb`
+    over the added vector)."""
 
-    def __init__(self, model_channels: int):
+    def __init__(self, model_channels: int, in_features: Optional[int] = None):
         super().__init__()
         d = model_channels * 4
-        self.fc1 = Linear(model_channels, d)
+        self.fc1 = Linear(in_features or model_channels, d)
         self.fc2 = Linear(d, d)
 
     def forward(self, t_sinusoid: torch.Tensor) -> torch.Tensor:
@@ -364,29 +366,42 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm -> 1x1 proj_in -> transformer blocks over (B, HW, C) ->
-    1x1 proj_out -> residual."""
+    """GroupNorm -> proj_in -> transformer blocks over (B, HW, C) ->
+    proj_out -> residual. The projections are 1x1 convolutions (SD1.5) or,
+    with `use_linear` (SDXL), linear layers on the tokens: the channels_last
+    activations seen as (B, HW, C) rows, so neither way copies."""
 
     def __init__(self, channels: int, num_heads: int, head_dim: int, depth: int,
-                 context_dim: int):
+                 context_dim: int, use_linear: bool = False):
         super().__init__()
         inner = num_heads * head_dim
         self.depth = depth
+        self.use_linear = use_linear
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = conv1x1(channels, inner)
+        if use_linear:
+            self.proj_in = Linear(channels, inner)
+        else:
+            self.proj_in = conv1x1(channels, inner)
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(inner, context_dim,
                                                                 num_heads, head_dim))
-        self.proj_out = conv1x1(inner, channels, zero_init=True)
+        if use_linear:
+            self.proj_out = Linear(inner, channels, zero_init=True)
+        else:
+            self.proj_out = conv1x1(inner, channels, zero_init=True)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 bank_entries: Optional[Sequence[torch.Tensor]] = None,
                 collect: bool = False, bank_mask: Optional[torch.Tensor] = None,
                 kv_pool: int = 1):
-        b, _, hh, ww = x.shape
-        z = self.proj_in(self.norm(x))
-        inner = z.shape[1]
-        z = z.permute(0, 2, 3, 1).reshape(b, hh * ww, inner)
+        b, c, hh, ww = x.shape
+        if self.use_linear:
+            z = self.proj_in(self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+            inner = z.shape[-1]
+        else:
+            z = self.proj_in(self.norm(x))
+            inner = z.shape[1]
+            z = z.permute(0, 2, 3, 1).reshape(b, hh * ww, inner)
         written = []
         for i in range(self.depth):
             entry = bank_entries[i] if bank_entries is not None else None
@@ -395,6 +410,9 @@ class SpatialTransformer(nn.Module):
                                                  kv_pool=kv_pool, hw=(hh, ww))
             if collect:
                 written.append(w_i)
+        if self.use_linear:
+            z = self.proj_out(z)
+            return x + z.reshape(b, hh, ww, c).permute(0, 3, 1, 2), tuple(written)
         z = z.reshape(b, hh, ww, inner).permute(0, 3, 1, 2)
         return x + self.proj_out(z), tuple(written)
 

@@ -16,6 +16,10 @@ UNet and the ControlNet stay per frame, and one reference per clip serves its
 frames. The sampler's turbo levers reach the networks through `forward`
 (cached `pose_residuals`, DeepCache, self-KV pooling) and `cfg_fused_eps`
 (cond and uncond rows in one batch, the bank gated per row).
+An SDXL configuration (`ModelConfig.has_vector`) gives every pass the
+added vector `y` beside the context: the write pass, the ControlNet, the
+cond and the uncond pass; the paths that cannot carry it (fused CFG,
+DUAL_CONTROL) refuse such a configuration (`refuse_vector`).
 VAE and CLIP live outside (applied once per request, or once per training
 batch). The networks compute in `cfg.dtype` whatever dtype their weights are
 stored in (a trainer holds fp32 trainable masters beside frozen weights in
@@ -24,6 +28,7 @@ stored in (a trainer holds fp32 trainable masters beside frozen weights in
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -41,14 +46,16 @@ def appearance_unet_config(cfg: ModelConfig) -> UNetConfig:
     channels: its input has the latent's channels (`out_channels`), as the
     JAX module's conv_in takes them from its input."""
     u = cfg.unet
-    return UNetConfig(
-        in_channels=u.out_channels, out_channels=u.out_channels,
-        model_channels=u.model_channels, channel_mult=u.channel_mult,
-        num_res_blocks=u.num_res_blocks,
-        attention_resolutions=u.attention_resolutions, num_heads=u.num_heads,
-        transformer_depth=u.transformer_depth, context_dim=u.context_dim,
-        dropout=u.dropout, use_motion_modules=False, remat=u.remat,
-    )
+    return dataclasses.replace(u, in_channels=u.out_channels, use_motion_modules=False)
+
+
+def refuse_vector(cfg: ModelConfig, path: str) -> None:
+    """A path that does not carry the added vector refuses a configuration
+    that takes one, rather than dropping it."""
+    if cfg.has_vector:
+        raise NotImplementedError(
+            f"{path} does not carry the added vector y of an SDXL configuration "
+            f"(adm_in_channels {cfg.unet.adm_in_channels})")
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -67,6 +74,11 @@ class MagicPoseModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        if cfg.has_image_control:
+            refuse_vector(cfg, "DUAL_CONTROL")
+        if cfg.has_pose and cfg.pose_control.adm_in_channels != cfg.unet.adm_in_channels:
+            raise ValueError(f"pose_control.adm_in_channels {cfg.pose_control.adm_in_channels} "
+                             f"!= unet.adm_in_channels {cfg.unet.adm_in_channels}")
         self.cfg = cfg
         self.unet = UNet(cfg.unet)
         if cfg.has_appearance:
@@ -86,27 +98,29 @@ class MagicPoseModel(nn.Module):
                 net.compute_dtype = model_dtype(cfg)
 
     def compute_bank(self, reference_noisy: torch.Tensor, timesteps: torch.Tensor,
-                     context: torch.Tensor) -> Bank:
+                     context: torch.Tensor, y: Optional[torch.Tensor] = None) -> Bank:
         """Appearance UNet in write mode; its eps output is discarded."""
         with span("md.pass.bank_write"):
-            _, bank = self.appearance_unet(reference_noisy, timesteps, context,
+            _, bank = self.appearance_unet(reference_noisy, timesteps, context, y=y,
                                            collect_bank=True)
         return bank
 
     def compute_pose_residuals(self, x_noisy: torch.Tensor, pose_hint: torch.Tensor,
                                timesteps: torch.Tensor, context: torch.Tensor,
-                               self_kv_pool: int = 1, self_kv_min_seq: int = 4096
+                               self_kv_pool: int = 1, self_kv_min_seq: int = 4096,
+                               y: Optional[torch.Tensor] = None
                                ) -> Tuple[torch.Tensor, ...]:
-        """The pose branch alone: its 13 residuals."""
+        """The pose branch alone: its residuals (13 at SD1.5 width)."""
         return self.pose_control(x_noisy, pose_hint, timesteps, context,
-                                 self_kv_pool, self_kv_min_seq)
+                                 self_kv_pool, self_kv_min_seq, y=y)
 
     def compute_control_residuals(self, x_noisy: torch.Tensor,
                                   pose_hint: Optional[torch.Tensor],
                                   timesteps: torch.Tensor,
                                   context: torch.Tensor, self_kv_pool: int = 1,
                                   self_kv_min_seq: int = 4096,
-                                  image_hint: Optional[torch.Tensor] = None
+                                  image_hint: Optional[torch.Tensor] = None,
+                                  y: Optional[torch.Tensor] = None
                                   ) -> Optional[Tuple[torch.Tensor, ...]]:
         """Every residual branch summed position by position: the pose
         ControlNet's 13 residuals plus, under DUAL_CONTROL with an
@@ -117,7 +131,7 @@ class MagicPoseModel(nn.Module):
         with span("md.pass.controlnet"):
             if self.cfg.has_pose and pose_hint is not None:
                 res = self.compute_pose_residuals(x_noisy, pose_hint, timesteps, context,
-                                                  self_kv_pool, self_kv_min_seq)
+                                                  self_kv_pool, self_kv_min_seq, y=y)
             if self.cfg.has_image_control and image_hint is not None:
                 ir = self.image_control_model(x_noisy, image_hint, timesteps, context,
                                               self_kv_pool, self_kv_min_seq)
@@ -126,6 +140,7 @@ class MagicPoseModel(nn.Module):
 
     def forward(self, x_noisy: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor, *,
+                y: Optional[torch.Tensor] = None,
                 reference_noisy: Optional[torch.Tensor] = None,
                 pose_hint: Optional[torch.Tensor] = None,
                 image_hint: Optional[torch.Tensor] = None,
@@ -140,8 +155,9 @@ class MagicPoseModel(nn.Module):
         """eps prediction (B, h, w, 4) fp32. Pass `reference_noisy` (bank
         computed inline: the training path, one reference per sample, per
         clip, or one for every frame) or a precomputed `bank`; `uc=True` is
-        the CFG uncond vanilla-SD pass. `num_frames`: frames per clip for the
-        motion modules. `image_hint` (B, H, W, 3): the DUAL_CONTROL image
+        the CFG uncond vanilla-SD pass. `y` (B, adm_in_channels): the added
+        vector of an SDXL configuration, given to every pass. `num_frames`:
+        frames per clip for the motion modules. `image_hint` (B, H, W, 3): the DUAL_CONTROL image
         ControlNet's hint. `concat_cond` (B, h, w, C'): channels concatenated
         onto x_noisy. `pose_residuals`, if given, replace every control
         branch (the turbo cache holds their sum); `collect_deep` /
@@ -156,7 +172,8 @@ class MagicPoseModel(nn.Module):
             x_noisy = torch.cat([x_noisy, concat_cond.to(x_noisy.dtype)], dim=-1)
         if uc:
             with span("md.pass.unet_uncond"):
-                res = self.unet(x_noisy, timesteps, context, num_frames=num_frames, **deep_kw)
+                res = self.unet(x_noisy, timesteps, context, y=y, num_frames=num_frames,
+                                **deep_kw)
             return (res[0], res[2]) if collect_deep else res[0]
         b = x_noisy.shape[0]
         if bank is not None and len(bank) and bank[0].shape[0] not in (1, b):
@@ -169,18 +186,20 @@ class MagicPoseModel(nn.Module):
             t_ref = timesteps
             if n != timesteps.shape[0]:
                 t_ref = timesteps[::timesteps.shape[0] // n]
-            ctx_ref = context
+            ctx_ref, y_ref = context, y
             if context.shape[0] != n:
                 ctx_ref = context[::max(1, context.shape[0] // n)][:n]
-            bank = self.compute_bank(reference_noisy, t_ref, ctx_ref)
+            if y is not None and y.shape[0] != n:
+                y_ref = y[::max(1, y.shape[0] // n)][:n]
+            bank = self.compute_bank(reference_noisy, t_ref, ctx_ref, y_ref)
             if bank[0].shape[0] not in (1, b):
                 bank = _repeat_bank(bank, b)
         if pose_residuals is None:
             pose_residuals = self.compute_control_residuals(
                 x_noisy, pose_hint, timesteps, context, self_kv_pool, self_kv_min_seq,
-                image_hint=image_hint)
+                image_hint=image_hint, y=y)
         with span("md.pass.unet_cond"):
-            res = self.unet(x_noisy, timesteps, context, bank=bank,
+            res = self.unet(x_noisy, timesteps, context, y=y, bank=bank,
                             pose_residuals=pose_residuals, num_frames=num_frames, **deep_kw)
         return (res[0], res[2]) if collect_deep else res[0]
 
@@ -195,6 +214,7 @@ class MagicPoseModel(nn.Module):
         of 0 (exactly plain self-attention) and get zero control residuals:
         the `controlnet_important` uncond pass, whatever `control_mode` asks for
         (as in JAX). Returns (eps_cond, eps_uncond), each (B, h, w, 4)."""
+        refuse_vector(self.cfg, "fused CFG")
         b = x_noisy.shape[0]
         xx = torch.cat([x_noisy, x_noisy])
         tt = torch.cat([timesteps, timesteps])

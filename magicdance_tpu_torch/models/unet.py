@@ -1,5 +1,5 @@
-"""SD1.5 UNet with appearance-bank, pose-ControlNet and motion-module hooks
-(PyTorch).
+"""SD1.5 / SDXL UNet with appearance-bank, pose-ControlNet and motion-module
+hooks (PyTorch).
 
 Counterpart of `magicdance_tpu.models.unet.UNet`:
 
@@ -17,6 +17,12 @@ Counterpart of `magicdance_tpu.models.unet.UNet`:
     (`dec_motion_i`), none in the middle block: 20 at SD1.5 width. The batch
     holds clips of `num_frames` frames, clip major; with num_frames = 1 the
     modules still run, over one frame, as in JAX.
+  * `y` (B, adm_in_channels) -- SDXL's added vector, through `label_emb`
+    (Linear-SiLU-Linear) into the time embedding; only a configuration with
+    `adm_in_channels` > 0 takes it and has `label_emb`. The SDXL fields
+    also give each level its own transformer depth (and the middle block
+    its own), heads of `num_head_channels` channels, and linear transformer
+    projections.
   * `bank_mask` (B,) -- a gate on the bank per batch row (fused CFG: cond
     rows 1, uncond rows 0, exactly plain self-attention).
   * `self_kv_pool` / `self_kv_min_seq` -- self-attention keys/values
@@ -64,7 +70,8 @@ def unet_plan(cfg: UNetConfig):
     """Static encoder plan shared by the UNet and the pose ControlNet.
 
     Returns (enc_units, skip_channels, final_ds); each unit is a dict
-    {kind: "res"|"down", ch, attn, level, ds}."""
+    {kind: "res"|"down", ch, attn, level, ds, depth}, depth the transformer
+    blocks of its site."""
     units = []
     skip_ch = [cfg.model_channels]
     ch = cfg.model_channels
@@ -73,11 +80,11 @@ def unet_plan(cfg: UNetConfig):
         out_ch = cfg.model_channels * mult
         for _ in range(cfg.num_res_blocks):
             units.append(dict(kind="res", ch=out_ch, attn=ds in cfg.attention_resolutions,
-                              level=level, ds=ds))
+                              level=level, ds=ds, depth=cfg.depth_at(level)))
             ch = out_ch
             skip_ch.append(ch)
         if level != len(cfg.channel_mult) - 1:
-            units.append(dict(kind="down", ch=ch, attn=False, level=level, ds=ds))
+            units.append(dict(kind="down", ch=ch, attn=False, level=level, ds=ds, depth=0))
             ds *= 2
             skip_ch.append(ch)
     return units, skip_ch, ds
@@ -85,9 +92,9 @@ def unet_plan(cfg: UNetConfig):
 
 def decoder_plan(cfg: UNetConfig):
     """Decoder units in traversal order (deepest level first) with their
-    module names: {level, ch, attn, ds, upsample, name_res, name_attn,
-    name_mm, name_up}. The forward loop and `num_bank_entries` both derive
-    from it."""
+    module names: {level, ch, attn, ds, depth, upsample, name_res,
+    name_attn, name_mm, name_up}. The forward loop and `num_bank_entries`
+    both derive from it."""
     units = []
     ds = max(1, 2 ** (len(cfg.channel_mult) - 1))
     attn_i = up_i = 0
@@ -101,6 +108,7 @@ def decoder_plan(cfg: UNetConfig):
                 ch=cfg.model_channels * cfg.channel_mult[level],
                 attn=attn,
                 ds=ds,
+                depth=cfg.depth_at(level),
                 upsample=upsample,
                 name_res=f"dec_res_{idx}",
                 name_attn=f"dec_attn_{attn_i}" if attn else None,
@@ -117,10 +125,11 @@ def decoder_plan(cfg: UNetConfig):
 
 
 def num_bank_entries(cfg: UNetConfig) -> int:
-    """Bank sites in traversal order: encoder + middle + decoder."""
-    enc = sum(1 for u in unet_plan(cfg)[0] if u["attn"])
-    dec = sum(1 for u in decoder_plan(cfg) if u["attn"])
-    return (enc + 1 + dec) * cfg.transformer_depth
+    """Bank entries, one a transformer block, in traversal order: encoder +
+    middle + decoder."""
+    enc = sum(u["depth"] for u in unet_plan(cfg)[0] if u["attn"])
+    dec = sum(u["depth"] for u in decoder_plan(cfg) if u["attn"])
+    return enc + cfg.depth_middle + dec
 
 
 def shallow_plan(cfg: UNetConfig, deep_level: int = 0):
@@ -128,11 +137,10 @@ def shallow_plan(cfg: UNetConfig, deep_level: int = 0):
     n_dec_bank), the bank entries its encoder and decoder attention sites
     consume (the first n_enc_bank and the last n_dec_bank of the bank)."""
     enc_units, _, _ = unet_plan(cfg)
-    n_enc = sum(1 for u in enc_units
+    n_enc = sum(u["depth"] for u in enc_units
                 if u["kind"] == "res" and u["attn"] and u["level"] <= deep_level)
-    n_dec = sum(1 for u in decoder_plan(cfg) if u["level"] <= deep_level and u["attn"])
-    d = cfg.transformer_depth
-    return n_enc * d, n_dec * d
+    n_dec = sum(u["depth"] for u in decoder_plan(cfg) if u["level"] <= deep_level and u["attn"])
+    return n_enc, n_dec
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -151,10 +159,10 @@ class UNet(nn.Module):
         self.compute_dtype: Optional[torch.dtype] = None
         mc = cfg.model_channels
         emb_dim = 4 * mc
-        heads, depth, ctx_dim = cfg.num_heads, cfg.transformer_depth, cfg.context_dim
 
-        def st(ch):
-            return SpatialTransformer(ch, heads, ch // heads, depth, ctx_dim)
+        def st(ch, depth):
+            return SpatialTransformer(ch, *cfg.heads_at(ch), depth, cfg.context_dim,
+                                      cfg.use_linear_in_transformer)
 
         def add_motion(name, ch):
             if cfg.use_motion_modules:
@@ -163,6 +171,8 @@ class UNet(nn.Module):
                     cfg.motion_attn_blocks))
 
         self.time_embed = TimestepEmbedMLP(mc)
+        if cfg.adm_in_channels > 0:
+            self.label_emb = TimestepEmbedMLP(mc, cfg.adm_in_channels)
         self.conv_in = conv3x3(cfg.in_channels, mc)
         units, skip_ch, _ = unet_plan(cfg)
         ch = mc
@@ -172,7 +182,7 @@ class UNet(nn.Module):
                 self.add_module(f"enc_res_{res_i}", ResBlock(ch, u["ch"], emb_dim))
                 ch = u["ch"]
                 if u["attn"]:
-                    self.add_module(f"enc_attn_{attn_i}", st(ch))
+                    self.add_module(f"enc_attn_{attn_i}", st(ch, u["depth"]))
                     attn_i += 1
                 add_motion(f"enc_motion_{res_i}", ch)
                 res_i += 1
@@ -181,7 +191,7 @@ class UNet(nn.Module):
                 down_i += 1
         mid_ch = mc * cfg.channel_mult[-1]
         self.mid_res_0 = ResBlock(ch, mid_ch, emb_dim)
-        self.mid_attn = st(mid_ch)
+        self.mid_attn = st(mid_ch, cfg.depth_middle)
         self.mid_res_1 = ResBlock(mid_ch, mid_ch, emb_dim)
         ch = mid_ch
         skips = list(skip_ch)
@@ -189,7 +199,7 @@ class UNet(nn.Module):
             self.add_module(u["name_res"], ResBlock(ch + skips.pop(), u["ch"], emb_dim))
             ch = u["ch"]
             if u["attn"]:
-                self.add_module(u["name_attn"], st(ch))
+                self.add_module(u["name_attn"], st(ch, u["depth"]))
             add_motion(u["name_mm"], ch)
             if u["upsample"]:
                 self.add_module(u["name_up"], Upsample(ch))
@@ -202,6 +212,7 @@ class UNet(nn.Module):
         timesteps: torch.Tensor,
         context: Optional[torch.Tensor],
         *,
+        y: Optional[torch.Tensor] = None,
         bank: Optional[Bank] = None,
         collect_bank: bool = False,
         pose_residuals: Optional[Sequence[torch.Tensor]] = None,
@@ -214,7 +225,8 @@ class UNet(nn.Module):
         self_kv_min_seq: int = 4096,
     ):
         """x: (B, h, w, C), B = clips x num_frames; timesteps: (B,); context:
-        (B, 77, context_dim); bank: entries (Bb, S_i, C_i), Bb in {1, B};
+        (B, 77, context_dim); y: (B, adm_in_channels), the added vector of a
+        configuration that takes one; bank: entries (Bb, S_i, C_i), Bb in {1, B};
         pose_residuals: 13 NHWC tensors, [0..11] per encoder skip, [12] middle.
         Returns (eps (B, h, w, out_channels) fp32, bank_written), and the deep
         feature (NCHW, compute dtype) third when `collect_deep`."""
@@ -231,8 +243,10 @@ class UNet(nn.Module):
         if bank is not None and len(bank) != num_bank_entries(cfg):
             raise ValueError(f"bank has {len(bank)} entries, expected "
                              f"{num_bank_entries(cfg)}")
+        if (y is not None) != (cfg.adm_in_channels > 0):
+            raise ValueError(f"adm_in_channels {cfg.adm_in_channels} takes "
+                             f"{'an' if cfg.adm_in_channels > 0 else 'no'} added vector y")
         dtype = self.compute_dtype or self.conv_in.weight.dtype
-        depth = cfg.transformer_depth
         if bank is not None and shallow:
             # the shallow levels' sites: the first entries (encoder) and the
             # last (decoder)
@@ -251,7 +265,7 @@ class UNet(nn.Module):
                 return self_kv_pool
             return 1
 
-        def take_bank():
+        def take_bank(depth):
             if bank_read is None:
                 return None
             return tuple(bank_read.pop(0) for _ in range(depth))
@@ -266,11 +280,13 @@ class UNet(nn.Module):
 
         emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels,
                                                  dtype=dtype))
+        if y is not None:
+            emb = emb + self.label_emb(y.to(dtype))
         if context is not None:
             context = context.to(dtype)
 
-        def attention(name, h):
-            h, written = remat(cfg.remat, getattr(self, name), h, context, take_bank(),
+        def attention(name, h, depth):
+            h, written = remat(cfg.remat, getattr(self, name), h, context, take_bank(depth),
                                collect_bank, bank_mask, kv_pool_at(h))
             bank_written.extend(written)
             return h
@@ -289,7 +305,7 @@ class UNet(nn.Module):
             if u["kind"] == "res":
                 h = remat(cfg.remat, getattr(self, f"enc_res_{res_i}"), h, emb)
                 if u["attn"]:
-                    h = attention(f"enc_attn_{attn_i}", h)
+                    h = attention(f"enc_attn_{attn_i}", h, u["depth"])
                     attn_i += 1
                 h = motion(h, f"enc_motion_{res_i}")
                 res_i += 1
@@ -300,7 +316,7 @@ class UNet(nn.Module):
 
         if not shallow:
             h = remat(cfg.remat, self.mid_res_0, h, emb)
-            h = attention("mid_attn", h)
+            h = attention("mid_attn", h, cfg.depth_middle)
             h = remat(cfg.remat, self.mid_res_1, h, emb)
             if pose_residuals is not None:
                 h = h + residual(-1).to(h.dtype)
@@ -319,7 +335,7 @@ class UNet(nn.Module):
             h = remat(cfg.remat, getattr(self, u["name_res"]),
                       torch.cat([h, skip], dim=1), emb)
             if u["attn"]:
-                h = attention(u["name_attn"], h)
+                h = attention(u["name_attn"], h, u["depth"])
             h = motion(h, u["name_mm"])
             if u["upsample"]:
                 h = getattr(self, u["name_up"])(h)

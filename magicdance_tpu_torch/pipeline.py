@@ -12,6 +12,13 @@ With a `mesh` (its 'data' axis) a request is served across ranks: the
 images' frames split over the ranks (frame-parallel), the video's windows
 per step (window-parallel, `sampling.overlap`), and every rank returns the
 whole result.
+An SDXL configuration (`ModelConfig.clip_g`, `adm_in_channels`) encodes
+its prompts with both towers (`models.clip.DualCLIPTextEncoder`: the context
+and the pooled embedding) and builds each request's added vector from the
+pooled embedding and the request's image size (`added_vector`), which the
+sampler hands to every pass; the uncond pass takes the empty prompt's
+context and vector, as the SD1.5 recipe's ("controlnet_important"), not
+the zeroed negative embeddings of diffusers' SDXL pipeline.
 Runs on the GPU unless the caller passes device="cpu"; the denoiser runs in
 `cfg.dtype`, VAE in
 `cfg.vae.compute_dtype`, CLIP in fp32. The pipeline owns that precision:
@@ -31,15 +38,34 @@ from magicdance_tpu_torch.config import ModelConfig, SampleConfig
 from magicdance_tpu_torch.data.tokenizer import CLIPTokenizer, empty_prompt_ids
 from magicdance_tpu_torch.device import full_fp32, resolve_device
 from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPoseModel
+from magicdance_tpu_torch.models.clip import DualCLIPTextEncoder
 from magicdance_tpu_torch.models.magicpose import model_dtype
 from magicdance_tpu_torch.models.vae import encode_to_latent, latent_to_decoder_input
-from magicdance_tpu_torch.ops.schedules import make_ddim_schedule, make_schedule
+from magicdance_tpu_torch.ops.schedules import (
+    make_ddim_schedule,
+    make_schedule,
+    timestep_embedding,
+)
 from magicdance_tpu_torch.parallel.mesh import as_axis
 from magicdance_tpu_torch.sampling.ddim import ddim_sample
 from magicdance_tpu_torch.sampling.overlap import ddim_sample_video
 from magicdance_tpu_torch.utils.profiling import span
 
 DECODE_CHUNK = 8
+# width of each size sinusoid of SDXL's added vector (sd_xl_base.yaml's
+# ConcatTimestepEmbedderND outdim)
+SIZE_EMBED_DIM = 256
+
+
+def added_vector(pooled: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """SDXL's added vector (B, P + 6 x 256) fp32, in the order of
+    sd_xl_base.yaml's embedders: the pooled text embedding (B, P), then
+    256-wide sinusoids of original_size (height, width),
+    crop_coords_top_left (0, 0) and target_size (height, width)."""
+    sizes = torch.tensor([height, width, 0, 0, height, width], dtype=torch.float32,
+                         device=pooled.device)
+    emb = timestep_embedding(sizes, SIZE_EMBED_DIM).reshape(1, -1)
+    return torch.cat([pooled.float(), emb.expand(pooled.shape[0], -1)], dim=1)
 
 
 class MagicPosePipeline:
@@ -47,13 +73,17 @@ class MagicPosePipeline:
 
     def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cuda",
                  tokenizer: Optional[CLIPTokenizer] = None):
+        if (cfg.clip_g is not None) != cfg.has_vector:
+            raise ValueError("a second text tower (clip_g) and an added vector "
+                             "(unet.adm_in_channels) come together")
         self.cfg = cfg
         self.device = resolve_device(device)
         vae_dtype = torch.bfloat16 if cfg.vae.compute_dtype == "bfloat16" else torch.float32
         with self.device:  # built where it runs: no host-side default init
             self.model = MagicPoseModel(cfg).to(self.device, model_dtype(cfg))
             self.vae = AutoencoderKL(cfg.vae).to(self.device, vae_dtype)
-            self.clip = CLIPTextEncoder(cfg.clip).to(self.device)
+            self.clip = (DualCLIPTextEncoder(cfg.clip, cfg.clip_g) if cfg.clip_g is not None
+                         else CLIPTextEncoder(cfg.clip)).to(self.device)
         for m in (self.model, self.vae, self.clip):
             m.eval().requires_grad_(False)
         self.sched = make_schedule(cfg.diffusion)
@@ -95,16 +125,18 @@ class MagicPosePipeline:
             load_flax_params(getattr(self, name), params[name])
 
     # -- encoders ----------------------------------------------------------
+    # encode_text / encode_empty give the context (B, 77, context_dim), or
+    # with two towers (SDXL) the pair (context, pooled embedding)
     @torch.inference_mode()
     @full_fp32()
-    def encode_text(self, prompts: list[str]) -> torch.Tensor:
+    def encode_text(self, prompts: list[str]):
         ids = self.tokenizer(prompts, self.cfg.clip.max_length)
         with span("md.clip"):
             return self.clip(torch.from_numpy(ids).to(self.device))
 
     @torch.inference_mode()
     @full_fp32()
-    def encode_empty(self, batch: int = 1) -> torch.Tensor:
+    def encode_empty(self, batch: int = 1):
         ids = empty_prompt_ids(batch, self.cfg.clip.max_length)
         with span("md.clip"):
             return self.clip(torch.from_numpy(ids).to(self.device))
@@ -181,6 +213,13 @@ class MagicPosePipeline:
             latent = H // 8
             ctx = self.encode_text(prompts) if prompts else self.encode_empty(1)
             uctx = self.encode_empty(1)
+            vectors = {}
+            if cfg.has_vector:
+                (ctx, pooled), (uctx, upooled) = ctx, uctx
+                width = pose_maps.shape[2] if pose_maps is not None else H
+                with span("md.cond.vector"):
+                    vectors = dict(y=added_vector(pooled, H, width),
+                                   uncond_y=added_vector(upooled, H, width))
             use_ref = reference_image is not None and cfg.has_appearance
             ref_latent = self.encode_reference(reference_image) if use_ref else None
             if x_T is None:
@@ -202,7 +241,7 @@ class MagicPosePipeline:
                 share = {k: (v[f0:f1] if k in ("pose_hint", "image_hint") and v is not None else v)
                          for k, v in kw.items()}
                 lat = (ddim_sample(self.model, self.sched, ddim, scfg, x_T[f0:f1], ctx, uctx,
-                                   rows=(f0, F), **share) if f1 > f0 else x_T[f0:f1])
+                                   rows=(f0, F), **share, **vectors) if f1 > f0 else x_T[f0:f1])
             if decode:
                 up = 2 ** (len(cfg.vae.channel_mult) - 1)
                 lat = (self.decode_latents(lat) if f1 > f0

@@ -23,6 +23,10 @@ CFG, so `fused_cfg` and `cfg_interval` do nothing; `fused_cfg` with
 feeds the second ControlNet in every branch; the `pose_every` cache holds
 the summed residuals of both ControlNets.
 
+An SDXL configuration's added vectors (`y` with the context, `uncond_y`
+with the uncond context) reach every pass of the exact recipe; the turbo
+levers and fused CFG do not carry them and refuse such a configuration.
+
 `make_eps_fn` is the per-step conditioning of the exact path (bank write
 pass, control branches, cond pass, CFG against a vanilla-SD uncond pass)
 as one eps closure: the PLMS and DPM-Solver++ samplers build on it.
@@ -37,6 +41,7 @@ import torch
 
 from magicdance_tpu_torch.config import Parameterization, SampleConfig
 from magicdance_tpu_torch.models.diffusion import output_to_eps
+from magicdance_tpu_torch.models.magicpose import refuse_vector
 from magicdance_tpu_torch.ops.schedules import DDIMSchedule, DiffusionSchedule, q_sample
 from magicdance_tpu_torch.utils.profiling import span
 
@@ -202,6 +207,8 @@ def ddim_sample(
     parameterization: Parameterization = Parameterization.EPS,
     generator: Optional[torch.Generator] = None,
     rows: Optional[tuple[int, int]] = None,
+    y: Optional[torch.Tensor] = None,
+    uncond_y: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sample latents x_0 from x_T.
 
@@ -212,7 +219,9 @@ def ddim_sample(
     wonoise is off; with the default recipe the sampler draws nothing.
     `rows` = (first row, total rows): x_T is that share of a larger batch
     (frame-parallel serving), and the per-step noise is drawn for the whole
-    batch and cut to the share, as one device would draw it."""
+    batch and cut to the share, as one device would draw it. y / uncond_y:
+    (1 or B, adm_in_channels), the added vectors that go with context and
+    uncond_context (SDXL); the bank write pass takes y's first row."""
     check_control_mode(scfg)
     if scfg.self_kv_downsample > 1 and scfg.fused_cfg:
         raise ValueError("self_kv_downsample needs separate cond/uncond passes (the "
@@ -225,6 +234,8 @@ def ddim_sample(
     plan = TurboPlan(scfg, sched, ddim, use_cfg, has_appearance, has_controls, scfg.fused_cfg)
     kv_kw = self_kv_kwargs(scfg)
     fused = use_cfg and scfg.fused_cfg
+    if fused or plan.turbo or kv_kw or scfg.bank_downsample > 1:
+        refuse_vector(model.cfg, "a turbo lever or fused CFG")
 
     def tile(c):
         if c is None:
@@ -235,7 +246,10 @@ def ddim_sample(
         return output_to_eps(parameterization, sched, out, x, t)
 
     ctx, uctx = tile(context), tile(uncond_context)
+    ykw = {} if y is None else dict(y=tile(y))
+    uykw = {} if uncond_y is None else dict(y=tile(uncond_y))
     ref_ctx = context[:1]
+    ref_y = None if y is None else y[:1]
     S = ddim.num_steps
     x = x_T.float()
     # caches: each is refreshed by the schedules at its first use (JAX
@@ -257,7 +271,7 @@ def ddim_sample(
                     ref_noise = torch.randn(reference_latent.shape, generator=generator,
                                             device=x.device, dtype=reference_latent.dtype)
                     ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
-                bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
+                bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx, ref_y),
                                        scfg.bank_downsample, scfg.bank_downsample_min_seq)
 
             if fused:
@@ -273,7 +287,7 @@ def ddim_sample(
                                                                    image_hint=image_hint, **kv_kw)
                     pose_kw = dict(pose_residuals=pose_res)
                 cond_kw = dict(bank=bank, pose_hint=pose_hint, image_hint=image_hint, **pose_kw,
-                               **kv_kw)
+                               **kv_kw, **ykw)
                 if plan.deepcache and plan.deep_refresh[step]:
                     out_c, deep = model(x, t, ctx, collect_deep=True,
                                         deep_level=plan.deep_level, **cond_kw)
@@ -287,7 +301,7 @@ def ddim_sample(
                     if scfg.control_mode == "balance":
                         # the uncond pass keeps both control branches and swaps
                         # only the text conditioning
-                        out_u = model(x, t, uctx, **cond_kw)
+                        out_u = model(x, t, uctx, **{**cond_kw, **uykw})
                     elif plan.uncond_deepcache and plan.udeep_refresh[step]:
                         out_u, deep_u = model(x, t, uctx, uc=True, collect_deep=True,
                                               deep_level=plan.deep_level, **kv_kw)
@@ -295,7 +309,7 @@ def ddim_sample(
                         out_u = model(x, t, uctx, uc=True, deep_cache_in=deep_u,
                                       deep_level=plan.deep_level, **kv_kw)
                     else:  # controlnet_important: vanilla SD uncond
-                        out_u = model(x, t, uctx, uc=True, **kv_kw)
+                        out_u = model(x, t, uctx, uc=True, **kv_kw, **uykw)
                     eps_u = to_eps(out_u, x, t)
                 if plan.active[step]:
                     eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
@@ -325,6 +339,7 @@ def make_eps_fn(model, sched: DiffusionSchedule, scfg: SampleConfig, batch: int,
     model outputs are turned into eps for V-parameterized models. One
     function for the PLMS and DPM-Solver++ samplers, as the JAX package's
     `eps_at` / `x0_at` closures are one recipe."""
+    refuse_vector(model.cfg, "the PLMS and DPM-Solver++ samplers")
     use_cfg = scfg.cfg_scale != 1.0 and uncond_context is not None
     has_appearance = reference_latent is not None and model.cfg.has_appearance
 

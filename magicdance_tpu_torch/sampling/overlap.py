@@ -42,6 +42,7 @@ import torch
 
 from magicdance_tpu_torch.config import Parameterization, SampleConfig
 from magicdance_tpu_torch.models.diffusion import output_to_eps
+from magicdance_tpu_torch.models.magicpose import refuse_vector
 from magicdance_tpu_torch.ops.schedules import DDIMSchedule, DiffusionSchedule, q_sample
 from magicdance_tpu_torch.parallel.mesh import MeshAxis, as_axis
 from magicdance_tpu_torch.sampling.ddim import (
@@ -112,6 +113,7 @@ def ddim_sample_video(
     if offsets.shape != (S,):
         raise ValueError(f"window_offsets: expected {S} offsets, got {tuple(offsets.shape)}")
     use_cfg = scfg.cfg_scale != 1.0 and uncond_context is not None
+    refuse_vector(model.cfg, "the overlap-window video sampler")
     has_appearance = reference_latent is not None and model.cfg.has_appearance
     has_controls = (pose_hint is not None and model.cfg.has_pose) or (
         image_hint is not None and model.cfg.has_image_control)

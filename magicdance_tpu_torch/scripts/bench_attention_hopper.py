@@ -21,15 +21,27 @@ by every batch ("Dshared"). Where `dkv_split` splits D's query walk, D's
 Hopper body is also timed unsplit ("wgmma_nosplit"). The delta and LSE are
 random: the time does not depend on them.
 
+SDXL (`--kernels SDXL`). A and B at the 64-wide heads of the
+`magicpose-sdxl` UNet at 1024x1024, 8 rows: the bank read at 64x64 (4096
+queries over 4096 self keys and a batch-1 bank of 4096, 10 heads) and at
+32x32 (1024 + 1024, 20 heads), the self-attention of the write, ControlNet
+and uncond passes at both, and the cross-attention over the prompt's 77
+keys (the plain path serves it: fewer than 256 keys). Beside both bodies:
+the plain version, one `F.scaled_dot_product_attention` call (the
+library), and the least time (matmul FLOPs over 989 TFLOP/s or each input
+read and the output written once over 3.35 TB/s; the exponentials, one a
+logit, 16 per SM and clock on 132 SMs at 1.98 GHz).
+
 The bodies run in turns (a, b, b, a) on one card and each reports its mean,
 so that a drift of the card's clock falls on both alike. Each row also names
 the body that `attention_body` picks there. Correctness is `chip_smoke.py`'s
-job; here each call is only checked to have launched its kernel once.
+job (the SDXL shapes: phase 27); here each call is only checked to have
+launched its kernel once.
 
 Usage, on a machine with an NVIDIA GPU, from the root of a checkout:
 
     python -m magicdance_tpu_torch.scripts.bench_attention_hopper [--json PATH]
-        [--kernels AB,CD]
+        [--kernels AB,CD,SDXL]
 """
 
 from __future__ import annotations
@@ -38,12 +50,18 @@ import argparse
 import json
 
 import torch
+import torch.nn.functional as F
 
 from magicdance_tpu_torch.device import resolve_device
 from magicdance_tpu_torch.ops import kernels as K
 from magicdance_tpu_torch.ops.kernels import build
 from magicdance_tpu_torch.ops.kernels import flash_vjp as V
-from magicdance_tpu_torch.ops.kernels.attention import WGMMA_MAX_DKV, attention_body
+from magicdance_tpu_torch.ops.kernels.attention import (
+    WGMMA_MAX_DKV,
+    attention_body,
+    self_attention_ref,
+    two_source_attention_ref,
+)
 from magicdance_tpu_torch.utils.timing import card_line, device_time_ms
 
 SITES = ((40, 4096), (80, 1024), (160, 256))  # (D, image length S)
@@ -55,6 +73,12 @@ BWD_QUERY_LENGTHS = (16, 64, 256, 1024, 4096)
 BWD_KEY_COUNTS = (16, 64, 77, 256, 1024, 4096)
 BWD_FRAMES = (2, 16)  # B = frames x S / Sq
 BWD_MIN_S = 0.1  # seconds of work a timing
+# (kernel, B, Sq, Sk, bank keys, H) at D = 64: the sdxl-pose.serve-f4 shapes
+SDXL_D = 64
+SDXL_SHAPES = (("B", 8, 4096, 4096, 4096, 10), ("B", 8, 1024, 1024, 1024, 20),
+               ("A", 8, 4096, 4096, 0, 10), ("A", 8, 1024, 1024, 0, 20),
+               ("A", 8, 4096, 77, 0, 10), ("A", 8, 1024, 77, 0, 20))
+PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_EXP = 989e12, 3.35e12, 132 * 16 * 1.98e9
 
 
 def grid():
@@ -102,7 +126,64 @@ def run(kernels=("AB", "CD")) -> dict:
     rows = forward_rows(rnd) if "AB" in kernels else []
     if "CD" in kernels:
         rows += backward_rows(rnd)
+    if "SDXL" in kernels:
+        rows += sdxl_rows(rnd)
     return dict(card=card, rows=rows)
+
+
+def bound_ms(b, sq, h, d, keys) -> tuple:
+    """(least time of the work, what bounds it, least time of the
+    exponentials) in ms; `keys`: (batch, length) of each K/V source."""
+    flops = sum(4.0 * b * h * sq * sk * d for _, sk in keys)
+    nbytes = 2 * h * d * (2 * b * sq + sum(2 * bb * sk for bb, sk in keys))
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    exp = b * h * sq * sum(sk for _, sk in keys) / PEAK_EXP * 1e3
+    return (t_ops, "operations", exp) if t_ops >= t_mem else (t_mem, "bytes", exp)
+
+
+def sdxl_rows(rnd) -> list:
+    rows = []
+    d = SDXL_D
+    for kernel, b, sq, sk, bank, h in SDXL_SHAPES:
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
+        keys = ((b, sk),)
+        if bank:
+            kb, vb = rnd(1, bank, h, d), rnd(1, bank, h, d)
+            keys += ((1, bank),)
+
+            def fn(body, q=q, k=k, v=v, kb=kb, vb=vb):
+                return K.two_source_attention(q, k, v, kb, vb, body=body)
+
+            def plain(q=q, k=k, v=v, kb=kb, vb=vb):
+                return two_source_attention_ref(q, k, v, kb, vb)
+
+            kk = torch.cat([k, kb.expand(b, -1, -1, -1)], dim=1).transpose(1, 2)
+            vv = torch.cat([v, vb.expand(b, -1, -1, -1)], dim=1).transpose(1, 2)
+        else:
+            def fn(body, q=q, k=k, v=v):
+                return K.self_attention(q, k, v, body=body)
+
+            def plain(q=q, k=k, v=v):
+                return self_attention_ref(q, k, v)
+
+            kk, vv = k.transpose(1, 2), v.transpose(1, 2)
+        qq = q.transpose(1, 2)
+        t = in_turns({body: (lambda body=body: fn(body)) for body in ("wgmma", "mma_sync")})
+        plain_ms = device_time_ms(plain, min_total_s=0.1, max_iters=5)
+        lib_ms = device_time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv))
+        bound, by, exp = bound_ms(b, sq, h, d, keys)
+        chosen = attention_body(torch.bfloat16, d, rows=sq, keys=tuple(n for _, n in keys))
+        rows.append(dict(kernel=kernel, B=b, Sq=sq, Sk=sk, bank=bank, H=h, D=d,
+                         wgmma_ms=t["wgmma"], mma_sync_ms=t["mma_sync"], plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by, exp_bound_ms=exp,
+                         chosen=chosen))
+        print(f"SDXL {kernel} B={b} Sq={sq} Sk={sk}+{bank} H={h} D={d}  wgmma "
+              f"{t['wgmma']:.4f} ms  mma_sync {t['mma_sync']:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"library {lib_ms:.4f} ms  bound {bound:.4f} ms ({by}; exp {exp:.4f})  "
+              f"chosen {chosen}", flush=True)
+        del q, k, v, kk, vv, qq
+        torch.cuda.empty_cache()
+    return rows
 
 
 def forward_rows(rnd) -> list:
@@ -186,7 +267,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", default=None, help="also write the rows to this path")
     ap.add_argument("--kernels", default="AB,CD",
-                    help="AB (forward), CD (backward) or both, comma-separated")
+                    help="AB (forward), CD (backward), SDXL (the sdxl cell's forward "
+                         "shapes), comma-separated")
     args = ap.parse_args(argv)
     res = run(tuple(args.kernels.split(",")))
     if args.json:

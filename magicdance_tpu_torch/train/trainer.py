@@ -96,6 +96,7 @@ from magicdance_tpu_torch.device import resolve_device
 from magicdance_tpu_torch.models import AutoencoderKL, CLIPTextEncoder, MagicPoseModel, quant
 from magicdance_tpu_torch.models.diffusion import diffusion_loss, draw_timesteps_and_noise
 from magicdance_tpu_torch.models.init import flax_init_
+from magicdance_tpu_torch.models.magicpose import refuse_vector
 from magicdance_tpu_torch.models.vae import encode_sample_chunked, encode_to_latent
 from magicdance_tpu_torch.ops.attention import IMPLS, attention_impl
 from magicdance_tpu_torch.ops.schedules import make_schedule
@@ -384,6 +385,7 @@ class Trainer:
         else none (one process). Under a group, "cuda" is the rank's card
         (`parallel.multihost.initialize_distributed` sets it)."""
         ocfg = cfg.optim
+        refuse_vector(cfg.model, "training")
         if ocfg.frozen_dtype not in _FROZEN_DTYPES:
             raise ValueError(f"unknown frozen_dtype {ocfg.frozen_dtype!r}")
         if "data" not in tuple(cfg.mesh_axes):

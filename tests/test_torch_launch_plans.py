@@ -229,3 +229,53 @@ def test_dual_control_and_sampler_plans_match_counted_calls(monkeypatch, case):
         assert set(plan) == {"self_attention", "groupnorm_silu"}
     else:
         assert plan == {m: 3 * n for m, n in chip_smoke.serving_launch_plan(cfg, 16, 2, 1).items()}
+
+
+def sdxl_config(latent=None) -> T.ModelConfig:
+    """`magicpose-sdxl` at its published widths, or cut to `tiny_sdxl_model`
+    at `latent`."""
+    import json
+
+    from torch_port_util import SDXL_CONFIG, tiny_sdxl_model
+
+    if latent is not None:
+        return T.from_dict(T.ModelConfig, tiny_sdxl_model(latent))
+    with open(SDXL_CONFIG) as f:
+        return T.from_dict(T.ModelConfig, json.load(f)["model"])
+
+
+def test_full_width_sdxl_plan():
+    """One DDIM step of `sdxl-pose.serve-f4` (1024x1024, 4 frames): 70
+    transformer blocks a UNet pass (64x64: 4 + 6, 32x32: 20 + 10 + 30), 34 in
+    the ControlNet, all kernel sites; the write pass, the ControlNet and the
+    uncond pass self-attention, the cond pass reads the bank. K8 at every
+    GroupNorm (the smallest grid is 32x32): a UNet pass's 35 SiLU and 11
+    transformer norms, the ControlNet's 16 and 5, two launches a call. SD1.5's
+    plan (`test_full_width_plans`) is the same as before."""
+    assert chip_smoke.serving_launch_plan(sdxl_config(), 128, 4, 1) == {
+        "self_attention": 70 + 34 + 70, "two_source_attention": 70,
+        "groupnorm_silu": 2 * (3 * (35 + 11) + 16 + 5)}
+
+
+def test_sdxl_step_matches_counted_calls(monkeypatch):
+    """One exact DDIM step of the narrow SDXL model at 512x512 (latents 64,
+    attention at 32x32 and 16x16: kernel sites), two frames, the added
+    vectors given to every pass."""
+    cfg = sdxl_config(64)
+    pipe = MagicPosePipeline(cfg, device="cpu")
+    pipe.init_params(seed=0, scale=0.1)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 64, 64, 4, generator=g)
+    ctx = torch.randn(1, 77, 32, generator=g)
+    y = torch.randn(1, cfg.unet.adm_in_channels, generator=g)
+    calls = count_calls(monkeypatch)
+    out = ddim_sample(pipe.model, pipe.sched, make_ddim_schedule(pipe.sched, 1),
+                      T.SampleConfig(steps=1), x, ctx, ctx,
+                      reference_latent=torch.randn(1, 64, 64, 4, generator=g),
+                      pose_hint=torch.rand(2, 512, 512, 3, generator=g), y=y, uncond_y=y)
+    assert torch.isfinite(out).all()
+    plan = chip_smoke.serving_launch_plan(cfg, 64, 2, 1)
+    assert calls == plan
+    # 28 blocks a UNet pass, 13 in the ControlNet
+    assert plan == {"self_attention": 28 + 13 + 28, "two_source_attention": 28,
+                    "groupnorm_silu": 2 * (3 * (35 + 11) + 16 + 5)}

@@ -81,6 +81,32 @@ def tiny_temporal_cfg_jax() -> jcfg.ModelConfig:
         unet=dataclasses.replace(cfg.unet, use_motion_modules=True, motion_num_heads=2))
 
 
+SDXL_CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "port_bench", "configs", "magicpose-sdxl.json")
+# the tiny cut of magicpose-sdxl: channels 32 x [1, 2, 4], depth [1, 2, 3] (3 in
+# the middle), 8-wide heads, both towers 2 layers 16 wide (context 32, pooled 16)
+TINY_SDXL = dict(model_channels=32, channel_mult=[1, 2, 4], transformer_depth=[1, 2, 3],
+                 num_head_channels=8, context_dim=32,
+                 adm_in_channels=16 + 6 * 256)
+
+
+def tiny_sdxl_model(latent_size: int = 16) -> dict:
+    """The `magicpose-sdxl` configuration file's model dict cut to
+    `TINY_SDXL`, in fp32; every other field as in the file."""
+    import copy
+    import json
+
+    with open(SDXL_CONFIG) as f:
+        m = copy.deepcopy(json.load(f)["model"])
+    m["unet"].update(TINY_SDXL)
+    m["pose_control"].update(TINY_SDXL)
+    m["clip"].update(hidden_size=16, num_layers=2, num_heads=2)
+    m["clip_g"].update(hidden_size=16, num_layers=2, num_heads=2, projection_dim=16)
+    m["vae"].update(base_channels=32, channel_mult=[1, 1, 2, 2], num_res_blocks=1)
+    m.update(latent_size=latent_size, dtype="float32")
+    return m
+
+
 def port_cfg(cfg):
     """The same configuration as the port's dataclass (via to_dict/from_dict)."""
     return tcfg.from_dict(getattr(tcfg, type(cfg).__name__), jcfg.to_dict(cfg))
