@@ -196,6 +196,7 @@ def main(argv=None) -> None:
         from magicdance_tpu_torch.data.transforms import from_model_range
         from magicdance_tpu_torch.pipeline import MagicPosePipeline
         from magicdance_tpu_torch.models.quant import dequantize_state_dict
+        from magicdance_tpu_torch.sampling import step_graph
         from magicdance_tpu_torch.utils.video import save_image_grid
 
         if pipe is None:
@@ -211,6 +212,7 @@ def main(argv=None) -> None:
                                  video=cfg.model.has_temporal,
                                  generator=torch.Generator(device=device).manual_seed(it))
         gen = gen.cpu().numpy()
+        step_graph.release(pipe.model)  # the captured step's memory goes back to training
         rows = []
         for i in range(n):
             row = [from_model_range(batch["image"][i].cpu().numpy())]

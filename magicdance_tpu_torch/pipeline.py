@@ -203,11 +203,10 @@ class MagicPosePipeline:
         with span("md.request", " i={}".format, next(self._request_ids)):
             cfg = self.cfg
             video = video and cfg.has_temporal
-            if image_hints is not None:
-                image_hints = image_hints.to(self.device)
+            # the maps go to the card in the sampler, into the step graph's
+            # static buffers where it replays one
             if pose_maps is not None:
                 F, H = pose_maps.shape[0], pose_maps.shape[1]
-                pose_maps = pose_maps.to(self.device)
             else:
                 F, H = 1, cfg.latent_size * 8
             latent = H // 8

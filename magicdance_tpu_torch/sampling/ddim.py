@@ -43,6 +43,7 @@ from magicdance_tpu_torch.config import Parameterization, SampleConfig
 from magicdance_tpu_torch.models.diffusion import output_to_eps
 from magicdance_tpu_torch.models.magicpose import refuse_vector
 from magicdance_tpu_torch.ops.schedules import DDIMSchedule, DiffusionSchedule, q_sample
+from magicdance_tpu_torch.sampling import step_graph as SG
 from magicdance_tpu_torch.utils.profiling import span
 
 
@@ -209,6 +210,7 @@ def ddim_sample(
     rows: Optional[tuple[int, int]] = None,
     y: Optional[torch.Tensor] = None,
     uncond_y: Optional[torch.Tensor] = None,
+    step_graph: bool = True,
 ) -> torch.Tensor:
     """Sample latents x_0 from x_T.
 
@@ -221,7 +223,11 @@ def ddim_sample(
     (frame-parallel serving), and the per-step noise is drawn for the whole
     batch and cut to the share, as one device would draw it. y / uncond_y:
     (1 or B, adm_in_channels), the added vectors that go with context and
-    uncond_context (SDXL); the bank write pass takes y's first row."""
+    uncond_context (SDXL); the bank write pass takes y's first row.
+
+    On the card the exact recipe's steps replay one captured CUDA graph
+    (`sampling.step_graph`: the same bits as the eager steps; a replay calls
+    no Python forward hook); `step_graph=False` runs every step eagerly."""
     check_control_mode(scfg)
     if scfg.self_kv_downsample > 1 and scfg.fused_cfg:
         raise ValueError("self_kv_downsample needs separate cond/uncond passes (the "
@@ -234,8 +240,20 @@ def ddim_sample(
     plan = TurboPlan(scfg, sched, ddim, use_cfg, has_appearance, has_controls, scfg.fused_cfg)
     kv_kw = self_kv_kwargs(scfg)
     fused = use_cfg and scfg.fused_cfg
-    if fused or plan.turbo or kv_kw or scfg.bank_downsample > 1:
+    levers = fused or plan.turbo or bool(kv_kw) or scfg.bank_downsample > 1
+    if levers:
         refuse_vector(model.cfg, "a turbo lever or fused CFG")
+
+    run = SG.bind(model, sched, ddim, dict(
+        x=x_T.float(), context=context, uncond_context=uncond_context,
+        reference_latent=reference_latent if has_appearance else None,
+        pose_hint=pose_hint, image_hint=image_hint, y=y, uncond_y=uncond_y), B,
+        "image", scfg.cfg_scale, scfg.control_mode, parameterization, graph=step_graph,
+        turbo=levers, noise=scfg.eta > 0 or (has_appearance and not scfg.wonoise),
+        sharded=rows is not None and rows[1] != B)
+    inp, sched = run.inputs, run.sched
+    reference_latent, pose_hint, image_hint = (
+        inp.get(k) for k in ("reference_latent", "pose_hint", "image_hint"))
 
     def tile(c):
         if c is None:
@@ -245,86 +263,89 @@ def ddim_sample(
     def to_eps(out, x, t):
         return output_to_eps(parameterization, sched, out, x, t)
 
-    ctx, uctx = tile(context), tile(uncond_context)
+    ctx, uctx = tile(inp["context"]), tile(inp.get("uncond_context"))
+    y, uncond_y = inp.get("y"), inp.get("uncond_y")
     ykw = {} if y is None else dict(y=tile(y))
     uykw = {} if uncond_y is None else dict(y=tile(uncond_y))
-    ref_ctx = context[:1]
+    ref_ctx = inp["context"][:1]
     ref_y = None if y is None else y[:1]
-    S = ddim.num_steps
-    x = x_T.float()
     # caches: each is refreshed by the schedules at its first use (JAX
     # carries zeros before that and never reads them)
-    eps_u = torch.zeros_like(x)
+    eps_u = torch.zeros_like(run.x)
     bank = pose_res = deep = deep_u = None
+
+    def one_step(x, step, v: SG.StepValues):
+        """The step at schedule position `step` from x, with its t and DDIM
+        coefficients from `v`."""
+        nonlocal eps_u, bank, pose_res, deep, deep_u
+        t = v.t
+        if has_appearance and plan.bank_refresh[step]:
+            t_ref = t[:reference_latent.shape[0]]
+            if scfg.wonoise:
+                ref_noisy = reference_latent
+            else:
+                ref_noise = torch.randn(reference_latent.shape, generator=generator,
+                                        device=x.device, dtype=reference_latent.dtype)
+                ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
+            bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx, ref_y),
+                                   scfg.bank_downsample, scfg.bank_downsample_min_seq)
+
+        if fused:
+            out_c, out_u = model.cfg_fused_eps(x, t, ctx, uctx, bank=bank,
+                                               pose_hint=pose_hint, image_hint=image_hint)
+            eps_c, eps_u = to_eps(out_c, x, t), to_eps(out_u, x, t)
+            eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
+        else:
+            pose_kw = {}
+            if plan.pose_reuse:
+                if plan.pose_refresh[step]:
+                    pose_res = model.compute_control_residuals(x, pose_hint, t, ctx,
+                                                               image_hint=image_hint, **kv_kw)
+                pose_kw = dict(pose_residuals=pose_res)
+            cond_kw = dict(bank=bank, pose_hint=pose_hint, image_hint=image_hint, **pose_kw,
+                           **kv_kw, **ykw)
+            if plan.deepcache and plan.deep_refresh[step]:
+                out_c, deep = model(x, t, ctx, collect_deep=True,
+                                    deep_level=plan.deep_level, **cond_kw)
+            elif plan.deepcache:
+                out_c = model(x, t, ctx, deep_cache_in=deep, deep_level=plan.deep_level,
+                              **cond_kw)
+            else:
+                out_c = model(x, t, ctx, **cond_kw)
+            eps_c = to_eps(out_c, x, t)
+            if use_cfg and plan.refresh[step]:
+                if scfg.control_mode == "balance":
+                    # the uncond pass keeps both control branches and swaps
+                    # only the text conditioning
+                    out_u = model(x, t, uctx, **{**cond_kw, **uykw})
+                elif plan.uncond_deepcache and plan.udeep_refresh[step]:
+                    out_u, deep_u = model(x, t, uctx, uc=True, collect_deep=True,
+                                          deep_level=plan.deep_level, **kv_kw)
+                elif plan.uncond_deepcache:
+                    out_u = model(x, t, uctx, uc=True, deep_cache_in=deep_u,
+                                  deep_level=plan.deep_level, **kv_kw)
+                else:  # controlnet_important: vanilla SD uncond
+                    out_u = model(x, t, uctx, uc=True, **kv_kw, **uykw)
+                eps_u = to_eps(out_u, x, t)
+            if plan.active[step]:
+                eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
+            else:
+                eps = eps_c
+
+        if scfg.eta > 0:
+            first, total = rows if rows is not None else (0, B)
+            noise = torch.randn((total,) + tuple(x.shape[1:]), generator=generator,
+                                device=x.device, dtype=x.dtype)[first:first + B]
+        else:
+            noise = torch.zeros_like(x)
+        return SG.ddim_step_table(x, eps, v.coef, noise)
+
+    S = ddim.num_steps
     for i in range(S):
         with span("md.ddim.step", " i={}".format, i):
             step = S - 1 - i  # descending t
-            t_scalar = int(ddim.timesteps[step])
-            t = torch.full((B,), t_scalar, dtype=torch.int64, device=x.device)
-
-            if has_appearance and plan.bank_refresh[step]:
-                t_ref = torch.full((reference_latent.shape[0],), t_scalar,
-                                   dtype=torch.int64, device=x.device)
-                if scfg.wonoise:
-                    ref_noisy = reference_latent
-                else:
-                    ref_noise = torch.randn(reference_latent.shape, generator=generator,
-                                            device=x.device, dtype=reference_latent.dtype)
-                    ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
-                bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx, ref_y),
-                                       scfg.bank_downsample, scfg.bank_downsample_min_seq)
-
-            if fused:
-                out_c, out_u = model.cfg_fused_eps(x, t, ctx, uctx, bank=bank,
-                                                   pose_hint=pose_hint, image_hint=image_hint)
-                eps_c, eps_u = to_eps(out_c, x, t), to_eps(out_u, x, t)
-                eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
-            else:
-                pose_kw = {}
-                if plan.pose_reuse:
-                    if plan.pose_refresh[step]:
-                        pose_res = model.compute_control_residuals(x, pose_hint, t, ctx,
-                                                                   image_hint=image_hint, **kv_kw)
-                    pose_kw = dict(pose_residuals=pose_res)
-                cond_kw = dict(bank=bank, pose_hint=pose_hint, image_hint=image_hint, **pose_kw,
-                               **kv_kw, **ykw)
-                if plan.deepcache and plan.deep_refresh[step]:
-                    out_c, deep = model(x, t, ctx, collect_deep=True,
-                                        deep_level=plan.deep_level, **cond_kw)
-                elif plan.deepcache:
-                    out_c = model(x, t, ctx, deep_cache_in=deep, deep_level=plan.deep_level,
-                                  **cond_kw)
-                else:
-                    out_c = model(x, t, ctx, **cond_kw)
-                eps_c = to_eps(out_c, x, t)
-                if use_cfg and plan.refresh[step]:
-                    if scfg.control_mode == "balance":
-                        # the uncond pass keeps both control branches and swaps
-                        # only the text conditioning
-                        out_u = model(x, t, uctx, **{**cond_kw, **uykw})
-                    elif plan.uncond_deepcache and plan.udeep_refresh[step]:
-                        out_u, deep_u = model(x, t, uctx, uc=True, collect_deep=True,
-                                              deep_level=plan.deep_level, **kv_kw)
-                    elif plan.uncond_deepcache:
-                        out_u = model(x, t, uctx, uc=True, deep_cache_in=deep_u,
-                                      deep_level=plan.deep_level, **kv_kw)
-                    else:  # controlnet_important: vanilla SD uncond
-                        out_u = model(x, t, uctx, uc=True, **kv_kw, **uykw)
-                    eps_u = to_eps(out_u, x, t)
-                if plan.active[step]:
-                    eps = eps_u + scfg.cfg_scale * (eps_c - eps_u)
-                else:
-                    eps = eps_c
-
-            if scfg.eta > 0:
-                first, total = rows if rows is not None else (0, B)
-                noise = torch.randn((total,) + tuple(x.shape[1:]), generator=generator,
-                                    device=x.device, dtype=x.dtype)[first:first + B]
-            else:
-                noise = torch.zeros_like(x)
-            x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
-                             ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
-    return x
+            run.step(i, lambda x, v: one_step(x, step, v))
+    return run.result()
 
 
 def make_eps_fn(model, sched: DiffusionSchedule, scfg: SampleConfig, batch: int,

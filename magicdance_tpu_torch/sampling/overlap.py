@@ -45,10 +45,10 @@ from magicdance_tpu_torch.models.diffusion import output_to_eps
 from magicdance_tpu_torch.models.magicpose import refuse_vector
 from magicdance_tpu_torch.ops.schedules import DDIMSchedule, DiffusionSchedule, q_sample
 from magicdance_tpu_torch.parallel.mesh import MeshAxis, as_axis
+from magicdance_tpu_torch.sampling import step_graph as SG
 from magicdance_tpu_torch.sampling.ddim import (
     TurboPlan,
     check_control_mode,
-    ddim_step,
     downsample_bank,
     self_kv_kwargs,
 )
@@ -80,6 +80,7 @@ def ddim_sample_video(
     window_offsets: Optional[Sequence[int]] = None,
     generator: Optional[torch.Generator] = None,
     window_sharding=None,
+    step_graph: bool = True,
 ) -> torch.Tensor:
     """Sample the latents of an F-frame video from x_T (F, h, w, 4).
 
@@ -91,7 +92,10 @@ def ddim_sample_video(
     drawn from `generator`, which also supplies the noise when eta > 0 or
     wonoise is off. The uncond pass is the vanilla-SD forward, as in the JAX
     video sampler. `window_sharding`: see the module docstring; every rank
-    needs at least one window."""
+    needs at least one window. On the card the exact recipe's steps replay
+    one captured CUDA graph (`sampling.step_graph`: the same bits as the
+    eager steps; a replay calls no Python forward hook); `step_graph=False`
+    runs every step eagerly."""
     check_control_mode(scfg)
     axis = as_axis(window_sharding)
     F = x_T.shape[0]
@@ -121,6 +125,20 @@ def ddim_sample_video(
                      fused_cfg=False)
     kv_kw = self_kv_kwargs(scfg)
 
+    levers = plan.turbo or bool(kv_kw) or scfg.bank_downsample > 1
+    run = SG.bind(model, sched, ddim, dict(
+        x=x_T.float(), context=context, uncond_context=uncond_context,
+        reference_latent=reference_latent if has_appearance else None,
+        pose_hint=pose_hint, image_hint=image_hint, starts=starts,
+        frame=torch.arange(W, device=dev)), (w1 - w0) * W,
+        "video", w0, w1, scfg.cfg_scale, scfg.control_mode, parameterization, offsets=offsets,
+        graph=step_graph, turbo=levers,
+        noise=scfg.eta > 0 or (has_appearance and not scfg.wonoise),
+        sharded=axis.group is not None)
+    inp, sched = run.inputs, run.sched
+    reference_latent, pose_hint, image_hint, starts, frame = (
+        inp.get(k) for k in ("reference_latent", "pose_hint", "image_hint", "starts", "frame"))
+
     def tile(c):
         if c is None:
             return None
@@ -129,90 +147,92 @@ def ddim_sample_video(
     def to_eps(out, x, t):
         return output_to_eps(parameterization, sched, out, x, t)
 
-    win_ctx, win_uctx = tile(context), tile(uncond_context)
-    ref_ctx = context[:1]
-    frame = torch.arange(W, device=dev)
-    x = x_T.float()
+    win_ctx, win_uctx = tile(inp["context"]), tile(inp.get("uncond_context"))
+    ref_ctx = inp["context"][:1]
     # frame-space caches, each refreshed by the schedules at its first use
     eps_u = bank = pose_frames = deep = deep_u = None
+
+    def one_step(x, step, v: SG.StepValues):
+        """The step at schedule position `step` from x, with its t, DDIM
+        coefficients and window offset from `v`."""
+        nonlocal eps_u, bank, pose_frames, deep, deep_u
+        idx = (starts[w0:w1, None] + v.offset + frame[None, :]) % F  # (windows, W)
+        flat = idx.reshape(-1)
+        xw = x[flat]
+        t = v.t
+
+        def to_frames(vals_w):
+            return scatter_mean(vals_w, idx, F, axis)
+
+        if has_appearance and plan.bank_refresh[step]:
+            t_ref = t[:reference_latent.shape[0]]
+            if scfg.wonoise:
+                ref_noisy = reference_latent
+            else:
+                ref_noise = torch.randn(reference_latent.shape, generator=generator,
+                                        device=dev, dtype=reference_latent.dtype)
+                ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
+            bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
+                                   scfg.bank_downsample, scfg.bank_downsample_min_seq)
+
+        hint_w = pose_hint[flat] if pose_hint is not None else None
+        ihint_w = image_hint[flat] if image_hint is not None else None
+        pose_kw = {}
+        if plan.pose_reuse:
+            if plan.pose_refresh[step]:
+                res = model.compute_control_residuals(xw, hint_w, t, win_ctx,
+                                                      image_hint=ihint_w, **kv_kw)
+                pose_frames = tuple(to_frames(r) for r in res)
+            pose_kw = dict(pose_residuals=tuple(r[flat] for r in pose_frames))
+        cond_kw = dict(bank=bank, pose_hint=hint_w, image_hint=ihint_w, num_frames=W,
+                       **pose_kw, **kv_kw)
+        if plan.deepcache and plan.deep_refresh[step]:
+            out_c, d = model(xw, t, win_ctx, collect_deep=True, deep_level=plan.deep_level,
+                             **cond_kw)
+            deep = to_frames(d)
+        elif plan.deepcache:
+            out_c = model(xw, t, win_ctx, deep_cache_in=deep[flat],
+                          deep_level=plan.deep_level, **cond_kw)
+        else:
+            out_c = model(xw, t, win_ctx, **cond_kw)
+        eps_c = to_eps(out_c, xw, t)
+
+        uc_kw = dict(uc=True, num_frames=W, **kv_kw)
+        if not plan.turbo:
+            if use_cfg:
+                eps_uw = to_eps(model(xw, t, win_uctx, **uc_kw), xw, t)
+                eps_c = eps_uw + scfg.cfg_scale * (eps_c - eps_uw)
+            eps = to_frames(eps_c)
+        else:
+            # the turbo path averages cond and uncond onto the frames apart
+            # and combines them there (the uncond eps is a frame-space cache)
+            eps = to_frames(eps_c)
+            if use_cfg:
+                if plan.refresh[step]:
+                    if plan.uncond_deepcache and plan.udeep_refresh[step]:
+                        out_u, d = model(xw, t, win_uctx, collect_deep=True,
+                                         deep_level=plan.deep_level, **uc_kw)
+                        deep_u = to_frames(d)
+                    elif plan.uncond_deepcache:
+                        out_u = model(xw, t, win_uctx, deep_cache_in=deep_u[flat],
+                                      deep_level=plan.deep_level, **uc_kw)
+                    else:
+                        out_u = model(xw, t, win_uctx, **uc_kw)
+                    eps_u = to_frames(to_eps(out_u, xw, t))
+                if plan.active[step]:
+                    eps = eps_u + scfg.cfg_scale * (eps - eps_u)
+
+        if scfg.eta > 0:
+            noise = torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
+        else:
+            noise = torch.zeros_like(x)
+        return SG.ddim_step_table(x, eps, v.coef, noise)
+
     for i in range(S):
         with span("md.ddim.step", " i={}".format, i):
             step = S - 1 - i  # descending t
-            t_scalar = int(ddim.timesteps[step])
-            idx = (starts[w0:w1, None] + offsets[i] + frame[None, :]) % F  # (windows, W)
-            flat = idx.reshape(-1)
-            xw = x[flat]
-            t = torch.full((flat.shape[0],), t_scalar, dtype=torch.int64, device=dev)
-
-            def to_frames(vals_w):
-                return scatter_mean(vals_w, idx, F, axis)
-
-            if has_appearance and plan.bank_refresh[step]:
-                t_ref = torch.full((reference_latent.shape[0],), t_scalar, dtype=torch.int64,
-                                   device=dev)
-                if scfg.wonoise:
-                    ref_noisy = reference_latent
-                else:
-                    ref_noise = torch.randn(reference_latent.shape, generator=generator,
-                                            device=dev, dtype=reference_latent.dtype)
-                    ref_noisy = q_sample(sched, reference_latent, t_ref, ref_noise)
-                bank = downsample_bank(model.compute_bank(ref_noisy, t_ref, ref_ctx),
-                                       scfg.bank_downsample, scfg.bank_downsample_min_seq)
-
-            hint_w = pose_hint[flat] if pose_hint is not None else None
-            ihint_w = image_hint[flat] if image_hint is not None else None
-            pose_kw = {}
-            if plan.pose_reuse:
-                if plan.pose_refresh[step]:
-                    res = model.compute_control_residuals(xw, hint_w, t, win_ctx,
-                                                          image_hint=ihint_w, **kv_kw)
-                    pose_frames = tuple(to_frames(r) for r in res)
-                pose_kw = dict(pose_residuals=tuple(r[flat] for r in pose_frames))
-            cond_kw = dict(bank=bank, pose_hint=hint_w, image_hint=ihint_w, num_frames=W,
-                           **pose_kw, **kv_kw)
-            if plan.deepcache and plan.deep_refresh[step]:
-                out_c, d = model(xw, t, win_ctx, collect_deep=True, deep_level=plan.deep_level,
-                                 **cond_kw)
-                deep = to_frames(d)
-            elif plan.deepcache:
-                out_c = model(xw, t, win_ctx, deep_cache_in=deep[flat],
-                              deep_level=plan.deep_level, **cond_kw)
-            else:
-                out_c = model(xw, t, win_ctx, **cond_kw)
-            eps_c = to_eps(out_c, xw, t)
-
-            uc_kw = dict(uc=True, num_frames=W, **kv_kw)
-            if not plan.turbo:
-                if use_cfg:
-                    eps_uw = to_eps(model(xw, t, win_uctx, **uc_kw), xw, t)
-                    eps_c = eps_uw + scfg.cfg_scale * (eps_c - eps_uw)
-                eps = to_frames(eps_c)
-            else:
-                # the turbo path averages cond and uncond onto the frames apart
-                # and combines them there (the uncond eps is a frame-space cache)
-                eps = to_frames(eps_c)
-                if use_cfg:
-                    if plan.refresh[step]:
-                        if plan.uncond_deepcache and plan.udeep_refresh[step]:
-                            out_u, d = model(xw, t, win_uctx, collect_deep=True,
-                                             deep_level=plan.deep_level, **uc_kw)
-                            deep_u = to_frames(d)
-                        elif plan.uncond_deepcache:
-                            out_u = model(xw, t, win_uctx, deep_cache_in=deep_u[flat],
-                                          deep_level=plan.deep_level, **uc_kw)
-                        else:
-                            out_u = model(xw, t, win_uctx, **uc_kw)
-                        eps_u = to_frames(to_eps(out_u, xw, t))
-                    if plan.active[step]:
-                        eps = eps_u + scfg.cfg_scale * (eps - eps_u)
-
-            if scfg.eta > 0:
-                noise = torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
-            else:
-                noise = torch.zeros_like(x)
-            x, _ = ddim_step(x, eps, ddim.alphas[step], ddim.alphas_prev[step],
-                             ddim.sqrt_one_minus_alphas[step], ddim.sigmas[step], noise)
-    return x
+            run.step(i, lambda x, v: one_step(x, step, v))
+    return run.result()
 
 
 def scatter_mean(vals_w: torch.Tensor, idx: torch.Tensor, num_frames: int,
